@@ -1,0 +1,124 @@
+"""PyTorch port: config parity with the JAX package, import hygiene, and
+knobs the port does not run yet."""
+
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from win32_raytracer_tpu.config import RenderConfig as JaxConfig
+from win32_raytracer_tpu.config import resolve_scheduler as jax_resolve
+from win32_raytracer_tpu_torch.config import RenderConfig, resolve_scheduler
+
+torch.set_num_threads(1)
+
+REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+PKG = os.path.join(REPO, "win32_raytracer_tpu_torch")
+
+
+def test_fields_and_defaults_match_reference():
+    ours = [(f.name, f.default) for f in dataclasses.fields(RenderConfig)]
+    ref = [(f.name, f.default) for f in dataclasses.fields(JaxConfig)]
+    assert ours == ref
+
+
+@pytest.mark.parametrize("scheduler", ["auto", "persistent", "wavefront"])
+@pytest.mark.parametrize("deterministic", [False, True])
+def test_resolve_scheduler_agrees(scheduler, deterministic):
+    for spp in (1, 4, 7, 8, 100):
+        kw = dict(scheduler=scheduler, deterministic=deterministic,
+                  samples=spp)
+        assert (resolve_scheduler(RenderConfig(**kw))
+                == jax_resolve(JaxConfig(**kw)))
+        assert (resolve_scheduler(RenderConfig(**kw), samples=16)
+                == jax_resolve(JaxConfig(**kw), samples=16))
+
+
+def test_package_imports_without_jax():
+    code = ("import sys, win32_raytracer_tpu_torch, "
+            "win32_raytracer_tpu_torch.persistent, "
+            "win32_raytracer_tpu_torch.kernels.bounce, "
+            "win32_raytracer_tpu_torch.kernels.dispatch, "
+            "win32_raytracer_tpu_torch.io.image; "
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
+            "('jax.', 'win32_raytracer_tpu.'))"
+            " or m == 'win32_raytracer_tpu']; "
+            "assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO,
+                   env=env, timeout=120)
+
+
+def test_no_jax_import_in_package_sources():
+    found = []
+    for root, _, files in os.walk(PKG):
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(root, name)
+            with open(path) as f:
+                tree = ast.parse(f.read(), path)
+            for node in ast.walk(tree):
+                mods = []
+                if isinstance(node, ast.Import):
+                    mods = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                    mods = [node.module or ""]
+                for m in mods:
+                    top = m.split(".")[0]
+                    if top in ("jax", "jaxlib", "win32_raytracer_tpu"):
+                        found.append((path, m))
+    assert not found
+
+
+@pytest.mark.parametrize("knob", [
+    dict(accel="grid"), dict(fuse_bounce="off"), dict(compactor="route"),
+    dict(flush_mode="window"), dict(one_shot="staged"),
+    dict(multi_backend="fused"), dict(adaptive_alloc="on"),
+    dict(scatter_backend="pallas"), dict(hit_kernel="v4"),
+    dict(redistribute="on"), dict(pallas_interpret=True),
+])
+def test_unported_knobs_raise(knob):
+    from win32_raytracer_tpu_torch.persistent import check_supported
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        check_supported(RenderConfig(**knob))
+
+
+def test_wavefront_and_multi_frame_raise():
+    from win32_raytracer_tpu_torch.api import render
+    from win32_raytracer_tpu_torch.persistent import render_image_persistent
+    from win32_raytracer_tpu_torch.scene.builders import test_scene
+    from win32_raytracer_tpu_torch.scene.camera import default_camera
+    with pytest.raises(NotImplementedError, match="wavefront"):
+        render("test", cfg=RenderConfig(width=8, height=8, samples=2),
+               device="cpu")
+    cfg = RenderConfig(width=8, height=8, samples=8)
+    cams = [default_camera(8, 8)] * 2
+    with pytest.raises(NotImplementedError, match="multi-frame"):
+        render_image_persistent(test_scene(), cams, cfg)
+
+
+def test_pallas_backend_needs_a_card():
+    from win32_raytracer_tpu_torch.kernels.dispatch import resolve_backend
+    assert resolve_backend(RenderConfig(), "cpu") == "kernels"
+    assert resolve_backend(RenderConfig(backend="jnp"), "cpu") == "plain"
+    with pytest.raises(ValueError, match="CUDA"):
+        resolve_backend(RenderConfig(backend="pallas"), "cpu")
+
+
+@pytest.mark.parametrize("backend", ["auto", "pallas"])
+def test_cuda_device_resolves_to_kernel_wrappers(backend):
+    """On a CUDA device only an explicit backend="jnp" reaches the plain
+    ops; "auto" and "pallas" go through the kernel wrappers."""
+    from win32_raytracer_tpu_torch.kernels import hit as K
+    from win32_raytracer_tpu_torch.kernels.dispatch import (
+        get_hit_fn_rows, resolve_backend)
+    cfg = RenderConfig(backend=backend)
+    assert resolve_backend(cfg, "cuda") == "kernels"
+    assert get_hit_fn_rows(cfg, "cuda") is K.hit_spheres_rows
+    jnp_cfg = RenderConfig(backend="jnp")
+    assert get_hit_fn_rows(jnp_cfg, "cuda") is K.hit_spheres_rows_plain

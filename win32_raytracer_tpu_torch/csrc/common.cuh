@@ -1,0 +1,356 @@
+// Device functions shared by the sphere-hit kernel (hit.cu) and the fused
+// bounce kernel (bounce.cu).
+//
+// Every function here mirrors a plain torch function of the package op for
+// op, in the same order (win32_raytracer_tpu_torch/ops/hit.py, ops/rows.py,
+// persistent.py), and the library is built with --fmad=false so no multiply
+// and add are contracted into one rounding.  With IEEE sqrtf and division
+// (nvcc's defaults without --use_fast_math) a kernel then rounds where its
+// plain version rounds; only the transcendental functions may differ in
+// the last place.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace wrt {
+
+// Packed sphere attribute columns (ops/hit.py _attr_matrix).
+enum AttrCol : int {
+  A_C1X = 0, A_C1Y, A_C1Z, A_DCX, A_DCY, A_DCZ, A_T1, A_INVDT, A_RADIUS,
+  A_MAT, A_ALR, A_ALG, A_ALB, A_FUZZ, A_IOR, A_IDX, ATTR_COLS
+};
+
+// Packed camera rows (kernels/bounce.py pack_camera).
+enum CamRow : int {
+  C_ORIGIN = 0, C_LLC = 3, C_HORIZ = 6, C_VERT = 9, C_RIGHT = 12, C_UP = 15,
+  C_LENS = 18, C_SH_OPEN = 19, C_SH_CLOSE = 20, CAM_ROWS = 21
+};
+
+enum Material : int { LAMBERTIAN = 0, METAL = 1, DIELECTRIC = 2 };
+
+constexpr float kNoHit = 1e30f;                       // ops/hit.py F32_MAX
+constexpr float kTwoPi = 6.28318530717958647692f;     // f32(2 pi)
+constexpr int kBlock = 256;                           // lanes per block
+constexpr int kTile = 256;                            // spheres per smem tile
+
+// ---------------------------------------------------------------------------
+// Sphere sweep (ops/hit.py _sweep): nearest front-face root with t > min_t
+// over every active sphere, strict < so the first index keeps ties.
+// ---------------------------------------------------------------------------
+
+struct SphereTile {
+  float c1x[kTile], c1y[kTile], c1z[kTile];
+  float dcx[kTile], dcy[kTile], dcz[kTile];
+  float t1[kTile], invdt[kTile], r[kTile];
+  int act[kTile];
+};
+
+// Every thread of the block must call this: it stages the sphere table
+// through shared memory tile by tile behind __syncthreads.  Threads with
+// `on` false help load and skip the arithmetic.  best_i is -1 on a miss.
+__device__ __forceinline__ void sweep_spheres(
+    const float* __restrict__ attrs, const uint8_t* __restrict__ active,
+    int n_spheres, SphereTile& sh, bool on,
+    float ox, float oy, float oz, float dx, float dy, float dz, float tm,
+    float a, float min_t, float& best_t, int& best_i) {
+  best_t = kNoHit;
+  best_i = -1;
+  for (int base = 0; base < n_spheres; base += kTile) {
+    const int cnt = min(kTile, n_spheres - base);
+    __syncthreads();  // the previous tile is consumed
+    for (int j = threadIdx.x; j < cnt; j += blockDim.x) {
+      const float* row = attrs + (size_t)(base + j) * ATTR_COLS;
+      sh.c1x[j] = row[A_C1X];
+      sh.c1y[j] = row[A_C1Y];
+      sh.c1z[j] = row[A_C1Z];
+      sh.dcx[j] = row[A_DCX];
+      sh.dcy[j] = row[A_DCY];
+      sh.dcz[j] = row[A_DCZ];
+      sh.t1[j] = row[A_T1];
+      sh.invdt[j] = row[A_INVDT];
+      sh.r[j] = row[A_RADIUS];
+      sh.act[j] = active[base + j];
+    }
+    __syncthreads();
+    if (!on) continue;
+    for (int j = 0; j < cnt; ++j) {
+      if (!sh.act[j]) continue;
+      const float lerp = (tm - sh.t1[j]) * sh.invdt[j];
+      const float cx = sh.c1x[j] + sh.dcx[j] * lerp;
+      const float cy = sh.c1y[j] + sh.dcy[j] * lerp;
+      const float cz = sh.c1z[j] + sh.dcz[j] * lerp;
+      const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
+      const float b = dx * ocx + dy * ocy + dz * ocz;
+      const float r = sh.r[j];
+      const float c = ocx * ocx + ocy * ocy + ocz * ocz - r * r;
+      const float disc = b * b - a * c;
+      if (disc >= 0.0f) {
+        const float t = (-b - sqrtf(disc)) / a;
+        if (t > min_t && t < best_t) {
+          best_t = t;
+          best_i = base + j;
+        }
+      }
+    }
+  }
+}
+
+// The winner's record (ops/hit.py hit_spheres after the sweep): attributes
+// fetched by index, all zero on a miss.
+struct HitRec {
+  bool hit;
+  float t, px, py, pz, nx, ny, nz, alr, alg, alb, fuzz, ior;
+  int idx, mat;
+};
+
+__device__ __forceinline__ HitRec winner_record(
+    const float* __restrict__ attrs, float best_t, int best_i,
+    float ox, float oy, float oz, float dx, float dy, float dz, float tm) {
+  HitRec h;
+  h.hit = best_i >= 0;
+  float g[ATTR_COLS];
+#pragma unroll
+  for (int c = 0; c < ATTR_COLS; ++c)
+    g[c] = h.hit ? attrs[(size_t)best_i * ATTR_COLS + c] : 0.0f;
+  const float ts = h.hit ? best_t : 0.0f;
+  h.t = best_t;
+  h.px = ox + ts * dx;
+  h.py = oy + ts * dy;
+  h.pz = oz + ts * dz;
+  const float lerp = (tm - g[A_T1]) * g[A_INVDT];
+  const float cx = g[A_C1X] + g[A_DCX] * lerp;
+  const float cy = g[A_C1Y] + g[A_DCY] * lerp;
+  const float cz = g[A_C1Z] + g[A_DCZ] * lerp;
+  const float denom = g[A_RADIUS] == 0.0f ? 1.0f : g[A_RADIUS];
+  h.nx = (h.px - cx) / denom;
+  h.ny = (h.py - cy) / denom;
+  h.nz = (h.pz - cz) / denom;
+  h.idx = (int)g[A_IDX];
+  h.mat = (int)g[A_MAT];
+  h.alr = g[A_ALR];
+  h.alg = g[A_ALG];
+  h.alb = g[A_ALB];
+  h.fuzz = g[A_FUZZ];
+  h.ior = g[A_IOR];
+  return h;
+}
+
+// ---------------------------------------------------------------------------
+// Counter-based draws (core/rng.py hash_uniform01), bit-identical.
+// ---------------------------------------------------------------------------
+
+constexpr uint32_t kScatterPurpose = 0x5CA77E12u;
+constexpr uint32_t kRespawnPurpose = 0x2E59A301u;
+
+__device__ __forceinline__ uint32_t fmix32(uint32_t x) {
+  x = (x ^ (x >> 16)) * 0x85EBCA6Bu;
+  x = (x ^ (x >> 13)) * 0xC2B2AE35u;
+  return x ^ (x >> 16);
+}
+
+// out[0..4] = the scatter stream, out[5..9] = the respawn stream of `lane`.
+__device__ __forceinline__ void draws(uint32_t salt, int32_t step,
+                                      uint32_t lane, float out[10]) {
+  const uint32_t purposes[2] = {kScatterPurpose, kRespawnPurpose};
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const uint32_t s = fmix32(((uint32_t)step * 0x9E3779B9u) ^ salt ^ purposes[p]);
+#pragma unroll
+    for (uint32_t row = 0; row < 5; ++row) {
+      const uint32_t x = fmix32(lane ^ fmix32(s + row * 0x85EBCA6Bu));
+      out[p * 5 + row] = (float)(x >> 8) * (1.0f / 16777216.0f);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Hit + sky (persistent._hit_core): a miss adds throughput * sky gradient
+// (ops/rows.py sky_color_rows); alive &= hit.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void hit_sky(bool hit, float dx, float dy, float dz,
+                                        const float thr[3], float rad[3],
+                                        bool& alive) {
+  if (alive && !hit) {
+    const float len = sqrtf(dx * dx + dy * dy + dz * dz);
+    const float t = 0.5f * (dy / fmaxf(len, 1e-37f) + 1.0f);
+    const float one_m = 1.0f - t;
+    rad[0] = rad[0] + thr[0] * (one_m + t * 0.5f);
+    rad[1] = rad[1] + thr[1] * (one_m + t * 0.7f);
+    rad[2] = rad[2] + thr[2] * (one_m + t * 1.0f);
+  }
+  alive = alive && hit;
+}
+
+// ---------------------------------------------------------------------------
+// Scatter + state update + respawn (ops/rows.py scatter_rows,
+// persistent._scatter_core and persistent._respawn_core).
+// ---------------------------------------------------------------------------
+
+struct Lane {  // one lane's path state, updated in place
+  float o[3], d[3], tm, thr[3], rad[3];
+  int32_t depth, sample, pixel, s_base, s_quota;
+  bool alive;
+};
+
+struct StepParams {
+  int32_t width, height, kpp, kx, ky, max_depth, rr_start;
+  float eps, reflect_thres, refract_bias;
+  int32_t schlick_ni;  // Schlick takes ni_over_nt (the reference quirk)
+};
+
+__device__ __forceinline__ float dot3(const float a[3], const float b[3]) {
+  return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
+}
+
+// Floor division and modulo (torch // and % on integers).
+__device__ __forceinline__ int32_t floor_div(int32_t x, int32_t d) {
+  const int32_t q = x / d;
+  return (x % d != 0 && ((x < 0) != (d < 0))) ? q - 1 : q;
+}
+
+__device__ __forceinline__ int32_t floor_mod(int32_t x, int32_t d) {
+  return x - floor_div(x, d) * d;
+}
+
+// The material scatter of one live lane.  Writes the new origin and
+// direction, the attenuation and whether the path survives.
+__device__ __forceinline__ void scatter(const StepParams& p, const HitRec& h,
+                                        const float dir[3], const float u[5],
+                                        float no[3], float nd[3],
+                                        float att[3], bool& sc_alive) {
+  const float eps = p.eps;
+  const float one_eps = 1.0f - eps;
+  const float n[3] = {h.nx, h.ny, h.nz};
+  const float hp[3] = {h.px, h.py, h.pz};
+
+  // Unit-ball sample; the radius is exp(log(u)/3).
+  const float z = 1.0f - 2.0f * u[0];
+  const float phi = kTwoPi * u[1];
+  const float br = expf(logf(u[2]) * (1.0f / 3.0f));
+  const float bs = sqrtf(fmaxf(1.0f - z * z, 0.0f));
+  const float ball[3] = {br * bs * cosf(phi), br * bs * sinf(phi), br * z};
+
+  // Lambertian (RayTracer.cpp:604-617); metal shares its origin.
+  float lam_o[3], lam_d[3];
+  for (int c = 0; c < 3; ++c) {
+    lam_o[c] = hp[c] + eps * n[c];
+    lam_d[c] = one_eps * n[c] + ball[c];
+  }
+  // Metal (RayTracer.cpp:618-635).
+  const float dn2 = 2.0f * dot3(dir, n);
+  float refl[3], met_d[3];
+  for (int c = 0; c < 3; ++c) {
+    refl[c] = dir[c] - dn2 * n[c];
+    met_d[c] = refl[c] + h.fuzz * ball[c];
+  }
+  const bool met_ok = dot3(met_d, n) > 0.0f;
+
+  // Dielectric (RayTracer.cpp:636-688), quirks included.
+  const float neg_d[3] = {-dir[0], -dir[1], -dir[2]};
+  const float len = fmaxf(sqrtf(dot3(neg_d, neg_d)), 1e-37f);
+  const float dtl[3] = {neg_d[0] / len, neg_d[1] / len, neg_d[2] / len};
+  const bool entering = dot3(dtl, n) > 0.0f;
+  const float ni = entering ? 1.0f / h.ior : h.ior;
+  float rfn[3], roff[3];
+  for (int c = 0; c < 3; ++c) {
+    rfn[c] = entering ? n[c] : -n[c];
+    const float off = eps * n[c];
+    roff[c] = entering ? -off : off;
+  }
+  const float cosine = dot3(dtl, rfn);
+  const float sa = p.schlick_ni ? ni : h.ior;
+  float r0 = (1.0f - sa) / (1.0f + sa);
+  r0 = r0 * r0;
+  const float reflect_prob = r0 + (1.0f - r0) * powf(1.0f - cosine, 5.0f);
+  const bool is_refl = (p.reflect_thres + u[3]) < reflect_prob;
+
+  const float dt = cosine;  // rdot(rnormalize(-d), rfn), the same values
+  const float disc = p.refract_bias - ni * ni * (1.0f - dt * dt);
+  const bool refr_ok = disc > 0.0f;
+  const float sq = sqrtf(fmaxf(disc, 0.0f));
+  const float dnr2 = 2.0f * dot3(dir, rfn);
+  const bool back = is_refl || !refr_ok;
+
+  const bool is_met = h.mat == METAL;
+  const bool is_die = h.mat == DIELECTRIC;
+  for (int c = 0; c < 3; ++c) {
+    const float refr = ni * (dtl[c] - rfn[c] * dt) - rfn[c] * sq;
+    const float tir = dir[c] - dnr2 * rfn[c];
+    const float die_d = is_refl ? refl[c] : (refr_ok ? refr : tir);
+    const float die_o = back ? hp[c] - roff[c] : hp[c] + roff[c];
+    no[c] = is_die ? die_o : lam_o[c];
+    nd[c] = is_die ? die_d : (is_met ? met_d[c] : lam_d[c]);
+  }
+  att[0] = is_die ? 1.0f : h.alr;
+  att[1] = is_die ? 1.0f : h.alg;
+  att[2] = is_die ? 1.0f : h.alb;
+  sc_alive = is_met ? met_ok : true;
+}
+
+// One lane's scatter, depth / roulette update and respawn.  `st.alive` is
+// the post-hit alive flag on entry and the lane's new alive flag on exit.
+template <bool LEAN>
+__device__ __forceinline__ void scatter_respawn(const StepParams& p,
+                                                const float* __restrict__ cam,
+                                                const HitRec& h,
+                                                const float u[10], Lane& st) {
+  // --- scatter and state update (persistent._scatter_core) ---
+  const bool live = st.alive;
+  bool alive = false;
+  if (live) {
+    float no[3], nd[3], att[3];
+    bool sc_alive;
+    scatter(p, h, st.d, u, no, nd, att, sc_alive);
+    for (int c = 0; c < 3; ++c) {
+      st.thr[c] = st.thr[c] * att[c];
+      st.o[c] = no[c];
+      st.d[c] = nd[c];
+    }
+    st.depth = st.depth + 1;
+    alive = sc_alive && (st.depth <= p.max_depth);
+    if (!LEAN) {
+      const float m = fmaxf(fmaxf(st.thr[0], st.thr[1]), st.thr[2]);
+      const float pr = fminf(fmaxf(m, 0.05f), 1.0f);
+      if (alive && st.depth >= p.rr_start) {
+        for (int c = 0; c < 3; ++c) st.thr[c] = st.thr[c] / pr;
+        alive = u[4] < pr;
+      }
+    }
+  }
+
+  // --- respawn (persistent._respawn_core) ---
+  const bool start = !alive && (st.sample < st.s_quota - 1);
+  if (start) {
+    st.sample = st.sample + 1;
+    const int32_t pd = st.pixel / p.kpp;
+    const int32_t y = pd / p.width;
+    const int32_t x = pd % p.width;
+    float uj = u[5], vj = u[6];
+    if (!LEAN) {
+      const int32_t gs = st.s_base + st.sample;
+      const int32_t sx = floor_mod(gs, p.kx);
+      const int32_t sy = floor_mod(floor_div(gs, p.kx), p.ky);
+      uj = ((float)sx + uj) / (float)p.kx;
+      vj = ((float)sy + vj) / (float)p.ky;
+    }
+    const float uu = ((float)x + uj) / (float)p.width;
+    const float vv = ((float)(p.height - y) + vj) / (float)p.height;
+
+    st.tm = cam[C_SH_OPEN] + (cam[C_SH_CLOSE] - cam[C_SH_OPEN]) * u[7];
+    const float lr = sqrtf(u[8]) * cam[C_LENS];
+    const float th = kTwoPi * u[9];
+    const float lc = lr * cosf(th);
+    const float ls = lr * sinf(th);
+    for (int c = 0; c < 3; ++c) {
+      st.o[c] = cam[C_ORIGIN + c] + (cam[C_RIGHT + c] * lc + cam[C_UP + c] * ls);
+      st.d[c] = cam[C_LLC + c] + uu * cam[C_HORIZ + c] + vv * cam[C_VERT + c] - st.o[c];
+      st.thr[c] = 1.0f;
+    }
+    st.depth = 0;
+  }
+  st.alive = alive || start;
+}
+
+}  // namespace wrt

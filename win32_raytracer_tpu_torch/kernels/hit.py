@@ -1,0 +1,81 @@
+"""Kernel A: the sphere hit sweep in rows layout (``csrc/hit.cu``).
+
+Replaces ``win32_raytracer_tpu/kernels/hit_pallas_v6.py`` (``_hit_kernel_v6``),
+the persistent scheduler's below-floor hit.  Bound by the S pair tests per
+ray; one thread per ray, sphere tiles staged through shared memory (the
+source note in csrc/hit.cu has the detail).
+
+:func:`hit_spheres_rows` launches the kernel for CUDA tensors and runs the
+plain version, :func:`hit_spheres_rows_plain` (ops/hit.py), for tensors on
+the CPU; it raises for anything else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Union
+
+import torch
+
+from ..config import MIN_HIT_T
+from ..ops.hit import ATTR_COLS, SphereTable, hit_spheres, sphere_table
+from ..ops.rows import HitRecordRows, hit_rows_adapter
+from ..scene.spheres import SphereScene
+from . import _build
+
+LAUNCHES = 0  # kernel launches by hit_spheres_rows
+
+hit_spheres_rows_plain = hit_rows_adapter(hit_spheres)
+
+
+class HitArgs(ctypes.Structure):  # csrc/hit.cu HitArgs
+    _fields_ = [
+        ("origin", ctypes.c_void_p), ("direction", ctypes.c_void_p),
+        ("time", ctypes.c_void_p), ("attrs", ctypes.c_void_p),
+        ("active", ctypes.c_void_p), ("out_f", ctypes.c_void_p),
+        ("out_i", ctypes.c_void_p), ("out_hit", ctypes.c_void_p),
+        ("n", ctypes.c_longlong), ("n_spheres", ctypes.c_int),
+        ("min_t", ctypes.c_float), ("stream", ctypes.c_void_p),
+    ]
+
+
+def hit_spheres_rows(scene: Union[SphereScene, SphereTable],
+                     origin: torch.Tensor, direction: torch.Tensor,
+                     time: torch.Tensor,
+                     min_t: float = MIN_HIT_T) -> HitRecordRows:
+    """Nearest front-face hit of rays o/d [3, N], t [1, N] f32."""
+    global LAUNCHES
+    dev = origin.device
+    if dev.type == "cpu":
+        return hit_spheres_rows_plain(scene, origin, direction, time,
+                                      min_t=min_t)
+    if dev.type != "cuda":
+        raise ValueError(f"hit_spheres_rows: unsupported device {dev}")
+    tab = sphere_table(scene)
+    n = origin.shape[1]
+    s = tab.attrs.shape[0]
+    for t, name, dt, shape in (
+            (origin, "origin", torch.float32, (3, n)),
+            (direction, "direction", torch.float32, (3, n)),
+            (time, "time", torch.float32, (1, n)),
+            (tab.attrs, "attrs", torch.float32, (s, ATTR_COLS)),
+            (tab.active, "active", torch.bool, (s,))):
+        _build.check_tensor(t, name, dt, shape, dev)
+
+    out_f = torch.empty((12, n), dtype=torch.float32, device=dev)
+    out_i = torch.empty((2, n), dtype=torch.int32, device=dev)
+    hit = torch.empty((1, n), dtype=torch.bool, device=dev)
+    if n:
+        lib = _build.load()
+        args = HitArgs(
+            origin.data_ptr(), direction.data_ptr(), time.data_ptr(),
+            tab.attrs.data_ptr(), tab.active.data_ptr(), out_f.data_ptr(),
+            out_i.data_ptr(), hit.data_ptr(), n, s, float(min_t),
+            _build.stream_handle(dev))
+        _build.check(lib.wrt_hit_spheres(ctypes.addressof(args)),
+                     "hit_spheres_rows")
+        LAUNCHES += 1
+    return HitRecordRows(
+        hit=hit, t=out_f[0:1], point=out_f[1:4], normal=out_f[4:7],
+        idx=out_i[0:1], mat_id=out_i[1:2], albedo=out_f[7:10],
+        fuzz=out_f[10:11], ior=out_f[11:12])
