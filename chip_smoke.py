@@ -2,14 +2,27 @@
 
 Builds the hand-written kernels from win32_raytracer_tpu_torch/csrc, holds
 each against its plain torch version on the card (on random inputs, and on
-the inputs the headline hands it at its own shapes), renders a small image
-through both paths, then renders the headline (the RTIOW final scene at
-1200x800, 100 spp) through the kernels and checks that both kernels ran.
-Each phase prints one line; any failure raises, so the exit code is
-non-zero.  The last line is a JSON object naming the device.
+the inputs its main path hands it at its own shapes), renders small images
+through both paths, then drives the main paths through the kernels and
+checks that each kernel of a path ran in it:
+
+* phases 2-5: the headline (the RTIOW final scene at 1200x800, 100 spp;
+  kernels A and B);
+* phase 6: kernel C (brute triangle sweep) against its plain version;
+* phase 7: kernel D (Morton-tile grid sweep) against its plain version and
+  against kernel C, at BASELINE config 4's chunk;
+* phase 8: mesh and mesh20k renders, kernels against plain, then
+  ``render("mesh")`` (kernels A and C) and config 4, ``render("mesh20k")``
+  at 800x450, 50 spp (kernels A and D).
+
+Each phase prints one line or more; any failure raises, so the exit code is
+non-zero.  Before the last line, a ``{"kernels": [...]}`` line (each
+kernel's launches on its main path, agreement, times and bound) and the
+card's name and power limit; the last line is a JSON object naming the
+device.
 
     python3 chip_smoke.py                 # every phase
-    python3 chip_smoke.py --phases 0,1,2  # a subset (0 is always run)
+    python3 chip_smoke.py --phases 0,1,6  # a subset (0 is always run)
 
 Needs a CUDA card and nvcc.
 """
@@ -29,6 +42,24 @@ import torch
 HEADLINE = dict(width=1200, height=800, samples=100)
 HEADLINE_MEAN = 170.1   # the JAX renderer's u8 image mean for this scene and size
 HEADLINE_MEAN_TOL = 1.5
+CONFIG4 = dict(width=800, height=450, samples=50)   # BASELINE.json config 4
+SMALL_MESH = dict(width=160, height=90, samples=8, seed=2)
+
+# The least time the card could take: the larger of the operations over
+# the f32 rate outside the tensor cores and the bytes over the memory rate
+# (NVIDIA's H100 SXM data sheet, at the full 700 W limit).
+PEAK_F32 = 67e12        # FLOP/s
+PEAK_BYTES = 3.35e12    # B/s
+# f32 operations per pair test, counted from csrc/common.cuh: a sphere
+# (sweep_spheres) 26 multiplies, adds and subtractions and the
+# discriminant's compare (the root's five more where the ray meets the
+# sphere are not counted); a triangle (tri_pair_t) 46 multiplies, adds,
+# subtractions and the division, and 6 compares.
+OPS_SPHERE_PAIR = 27
+OPS_TRI_PAIR = 52
+# Bytes per lane a hit kernel writes: the record (12 f32, 2 i32, a flag).
+RECORD_BYTES = 57
+EPS32 = 2.0 ** -24
 
 
 def card_line() -> str:
@@ -66,6 +97,122 @@ def pearson(a: np.ndarray, b: np.ndarray) -> float:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
+
+
+def bound(ops: float, nbytes: float) -> tuple:
+    """(bound ms, "operations" or "bytes")."""
+    t_ops, t_bytes = ops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def fresh_chunk(cfg, dev, salt: int = 12345):
+    """The first lane chunk of a render of ``cfg`` on ``dev`` as
+    persistent.render_image_persistent sets it up (padded onto the size
+    grid), after the step-0 respawn: (state, dims, camera)."""
+    from win32_raytracer_tpu_torch.persistent import (
+        PathState, _grid_size, _resolve_kpp, make_dims, p_respawn_step)
+    from win32_raytracer_tpu_torch.scene.camera import default_camera
+
+    w, h, spp = cfg.width, cfg.height, cfg.samples
+    kpp = _resolve_kpp(cfg, spp)
+    n_real = w * h * kpp
+    n = _grid_size(n_real, 1 << 12)
+    i32 = dict(dtype=torch.int32, device=dev)
+    direction = torch.zeros((3, n), device=dev)
+    direction[2] = 1.0
+    sq = torch.full((1, n), spp // kpp, **i32)
+    sq[:, n_real:] = 0
+    st = PathState(
+        origin=torch.zeros((3, n), device=dev), direction=direction,
+        time=torch.zeros((1, n), device=dev),
+        throughput=torch.ones((3, n), device=dev),
+        radiance_sum=torch.zeros((3, n), device=dev),
+        depth=torch.zeros((1, n), **i32),
+        sample=torch.full((1, n), -1, **i32),
+        pixel=torch.arange(n, **i32).clamp_max(n_real - 1)[None],
+        path_alive=torch.zeros((1, n), dtype=torch.bool, device=dev),
+        s_base=(torch.arange(n, **i32) % kpp * (spp // kpp))[None],
+        s_quota=sq)
+    cam = default_camera(w, h, device=dev)
+    dims = make_dims(cfg, w, h, spp, kpp)
+    return p_respawn_step(cam, st, salt, 0, dims, cfg=cfg, lean=True), dims, cam
+
+
+def tri_arrays(tris) -> tuple:
+    """(v0, e1, e2) [T, 3] float64 on the host, by triangle index."""
+    return tuple(getattr(tris, f).cpu().numpy().astype(np.float64)
+                 for f in ("v0", "e1", "e2"))
+
+
+def mt_f64(o, d, v0, e1, e2):
+    """float64 Moller-Trumbore of rays o/d [3, N] against one triangle per
+    ray: (u, v, scale S), S = (|e1||e2||o - v0| + |t||e1||e2||d|) / |det|,
+    the size of the terms an f32 evaluation of t rounds."""
+    o, d = o.T.astype(np.float64), d.T.astype(np.float64)
+    p = np.cross(d, e2)
+    det = (e1 * p).sum(1)
+    tv = o - v0
+    q = np.cross(tv, e1)
+    t = (e2 * q).sum(1) / det
+    nrm = np.linalg.norm
+    e12 = nrm(e1, axis=1) * nrm(e2, axis=1)
+    s = (e12 * nrm(tv, axis=1) + np.abs(t) * e12 * nrm(d, axis=1)) / np.abs(det)
+    return (tv * p).sum(1) / det, (d * q).sum(1) / det, s
+
+
+def compare_tri(rk, rp, o, d, tris, what, valid=None) -> dict:
+    """A triangle kernel's record ``rk`` against ``rp`` (plain, or another
+    kernel) on rays o/d [3, N] (card tensors), over the lanes ``valid``
+    (all by default).  A winner difference at an exactly equal t is a tie
+    (the two sweeps visit triangles in another order); any other hit-mask
+    or winner difference must lie within 1e-6 of a triangle edge (|u|,
+    |v| or |1-u-v|) and stay at or below 1e-4 of the lanes; t within
+    4 f32 epsilons of the formula's scale on agreeing lanes."""
+    hk, hp = rk.hit[0].cpu().numpy(), rp.hit[0].cpu().numpy()
+    ik, ip = rk.idx[0].cpu().numpy(), rp.idx[0].cpu().numpy()
+    tk, tp = rk.t[0].cpu().numpy(), rp.t[0].cpu().numpy()
+    if valid is None:
+        valid = np.ones(hk.shape, bool)
+    diff = valid & ((hk != hp) | (hk & hp & (ik != ip)))
+    tie = diff & hk & hp & (tk == tp)
+    real = diff & ~tie
+    o_np, d_np = o.cpu().numpy(), d.cpu().numpy()
+    for idx, hit in ((ik, hk), (ip, hp)):
+        sel = real & hit
+        if sel.any():
+            u, v, _ = mt_f64(o_np[:, sel], d_np[:, sel], *(x[idx[sel]] for x in tris))
+            edge = np.minimum(np.minimum(np.abs(u), np.abs(v)), np.abs(1 - u - v))
+            check(bool((edge < 1e-6).all()),
+                  f"{what}: disagreement off the edge band (edge {edge.max():.3e})")
+    check(real.sum() <= 1e-4 * valid.sum(), f"{what}: {real.sum()} disagreements")
+    agree = valid & hk & hp & (ik == ip)
+    err = 0.0
+    for f in ("t", "point", "normal"):
+        a = getattr(rk, f).cpu().numpy()[:, agree]
+        b = getattr(rp, f).cpu().numpy()[:, agree]
+        err = max(err, float(np.abs(a - b).max(initial=0.0)))
+    off = agree & (tk != tp)
+    if off.any():
+        _, _, scale = mt_f64(o_np[:, off], d_np[:, off], *(x[ik[off]] for x in tris))
+        check(bool((np.abs(tk[off] - tp[off]) <= 4 * EPS32 * scale).all()),
+              f"{what}: t beyond 4 f32 epsilons of its scale")
+    return dict(lanes=int(valid.sum()), hits=float(hp[valid].mean()),
+                ties=int(tie.sum()), disagree=int(real.sum()), err=err)
+
+
+def below_cap(rk, rp, cap):
+    """Lanes where either record lies below ``cap`` [1, N] (all when cap
+    is None): a record beyond a lane's segment end is unspecified."""
+    if cap is None:
+        return None
+    c = cap[0].cpu().numpy()
+    return (rk.t[0].cpu().numpy() < c) | (rp.t[0].cpu().numpy() < c)
+
+
+def fmt_cmp(c: dict) -> str:
+    return (f"{c['lanes']} lanes, hits {c['hits']:.3f}, disagreements "
+            f"{c['disagree']} (edge band), exact-t ties {c['ties']}, max "
+            f"|err| t/point/normal {c['err']:.3e}")
 
 
 def compare_hit(rk, rp, what: str) -> tuple:
@@ -290,35 +437,14 @@ class Smoke:
         from win32_raytracer_tpu_torch.kernels import bounce as B
         from win32_raytracer_tpu_torch.kernels import hit as K
         from win32_raytracer_tpu_torch.persistent import (
-            _COMPACT_FLOOR, PathState, _grid_size, _resolve_kpp, make_dims,
-            p_respawn_step)
-        from win32_raytracer_tpu_torch.scene.camera import default_camera
+            _COMPACT_FLOOR, PathState)
 
         cfg = RenderConfig(**HEADLINE)
-        w, h, spp = cfg.width, cfg.height, cfg.samples
-        kpp = _resolve_kpp(cfg, spp)
+        w, h = cfg.width, cfg.height
+        st, dims, cam = fresh_chunk(cfg, self.dev)
+        n, kpp = st.pixel.shape[1], dims.kpp
         n_real = w * h * kpp
-        n = _grid_size(n_real, 1 << 12)
         dev = self.dev
-        i32 = dict(dtype=torch.int32, device=dev)
-        direction = torch.zeros((3, n), device=dev)
-        direction[2] = 1.0
-        sq = torch.full((1, n), spp // kpp, **i32)
-        sq[:, n_real:] = 0
-        st = PathState(
-            origin=torch.zeros((3, n), device=dev), direction=direction,
-            time=torch.zeros((1, n), device=dev),
-            throughput=torch.ones((3, n), device=dev),
-            radiance_sum=torch.zeros((3, n), device=dev),
-            depth=torch.zeros((1, n), **i32),
-            sample=torch.full((1, n), -1, **i32),
-            pixel=torch.arange(n, **i32).clamp_max(n_real - 1)[None],
-            path_alive=torch.zeros((1, n), dtype=torch.bool, device=dev),
-            s_base=(torch.arange(n, **i32) % kpp * (spp // kpp))[None],
-            s_quota=sq)
-        cam = default_camera(w, h, device=dev)
-        dims = make_dims(cfg, w, h, spp, kpp)
-        st = p_respawn_step(cam, st, 12345, 0, dims, cfg=cfg, lean=True)
         cam_rows = B.pack_camera(cam)
         m = _COMPACT_FLOOR  # the largest batch the below-floor hit sees
         # Lanes spread evenly over the image, as a compacted tail batch is.
@@ -359,13 +485,258 @@ class Smoke:
             "hit": (cuda_ms(lambda: K.hit_spheres_rows(self.table, o, d, tm), 10),
                     cuda_ms(lambda: K.hit_spheres_rows_plain(self.table, o, d, tm), 3)),
         }
+        # Bounds on these inputs: kernel A sweeps every active sphere for
+        # each of its m rays (28 bytes in, the record out); kernel B sweeps
+        # them for each live lane (73 bytes of state in, 61 out per lane).
+        active = int(self.table.active.sum())
+        table_bytes = self.table.attrs.numel() * 4 + self.table.active.numel()
+        live = int(st.path_alive.sum())
+        bounds = {
+            "hit": bound(m * active * OPS_SPHERE_PAIR,
+                         m * (28 + RECORD_BYTES) + table_bytes),
+            "bounce": bound(live * active * OPS_SPHERE_PAIR,
+                            n * (73 + 61) + table_bytes + 21 * 4),
+        }
         for name, (ms, plain) in times.items():
             self.kernels.setdefault(name, {}).update(
-                ms=ms, plain_ms=plain, max_abs_err=errs[name])
-        self.say("times", f"bounce at {n} lanes: kernel {times['bounce'][0]:.3f} ms, "
-                 f"plain {times['bounce'][1]:.3f} ms; hit at {m} rays: kernel "
-                 f"{times['hit'][0]:.3f} ms, plain {times['hit'][1]:.3f} ms "
-                 f"[{self.card}]")
+                ms=ms, plain_ms=plain, max_abs_err=errs[name],
+                bound_ms=bounds[name][0], bound_by=bounds[name][1])
+        self.say("times", f"bounce at {n} lanes ({live} live): kernel "
+                 f"{times['bounce'][0]:.3f} ms, plain {times['bounce'][1]:.3f} ms, "
+                 f"bound {bounds['bounce'][0]:.3f} ms ({bounds['bounce'][1]}); "
+                 f"hit at {m} rays: kernel {times['hit'][0]:.3f} ms, plain "
+                 f"{times['hit'][1]:.3f} ms, bound {bounds['hit'][0]:.4f} ms "
+                 f"({bounds['hit'][1]}) [{self.card}]")
+
+
+    # ---- phase 6 ----------------------------------------------------------
+    def kernel_c(self):
+        """Kernel C against its plain version: 262,144 random rays aimed at
+        the mesh scene's meshes, then 524,288 rays of the first and second
+        bounce of a mesh render's chunk (800x450, 50 spp, kpp 2)."""
+        from win32_raytracer_tpu_torch.config import RenderConfig
+        from win32_raytracer_tpu_torch.kernels import tri as KC
+        from win32_raytracer_tpu_torch.kernels.dispatch import (
+            get_hit_fn_rows_accel)
+        from win32_raytracer_tpu_torch.persistent import p_bounce_step
+        from win32_raytracer_tpu_torch.scene.builders import get_scene
+
+        dev = self.dev
+        scene = get_scene("mesh", device=dev)
+        tab = get_hit_fn_rows_accel(RenderConfig(), scene)[0].triangles
+        tris = tri_arrays(scene.triangles)
+        n = 1 << 18
+        rng = np.random.default_rng(17)
+        o = rng.uniform([-3.0, 0.0, -2.0], [3.0, 3.0, 4.0], (n, 3))
+        tgt = np.where(rng.uniform(size=(n, 1)) < 0.8,
+                       [0.0, 1.0, 0.0] + rng.normal(0, 0.7, (n, 3)),
+                       [0.0, 0.35, 2.2] + rng.normal(0, 0.4, (n, 3)))
+        d = tgt - o + rng.normal(0, 0.05, (n, 3))
+        o_t, d_t = (torch.as_tensor(x.T, dtype=torch.float32, device=dev).contiguous()
+                    for x in (o, d))
+        tm = torch.zeros((1, n), device=dev)
+        c = compare_tri(KC.hit_triangles_rows(tab, o_t, d_t, tm),
+                        KC.hit_triangles_rows_plain(tab, o_t, d_t, tm),
+                        o_t, d_t, tris, "kernel C random rays")
+        self.say("6 kernel C", f"random rays vs mesh's {int(tab.active.sum())} "
+                 f"triangles: {fmt_cmp(c)}")
+        err = c["err"]
+
+        cfg = RenderConfig(**CONFIG4, backend="jnp")
+        st, dims, cam = fresh_chunk(cfg, dev)
+        hit_scene, plain_fn = get_hit_fn_rows_accel(cfg, scene)
+        m = 1 << 19
+        pick = torch.linspace(0, st.pixel.shape[1] - 1, m, device=dev).long()
+        for bounce in (1, 2):
+            o_t, d_t = (x[:, pick].contiguous() for x in (st.origin, st.direction))
+            tm = torch.zeros((1, m), device=dev)
+            rk = KC.hit_triangles_rows(tab, o_t, d_t, tm)
+            c = compare_tri(rk, KC.hit_triangles_rows_plain(tab, o_t, d_t, tm),
+                            o_t, d_t, tris, f"kernel C bounce {bounce}")
+            err = max(err, c["err"])
+            self.say("6 kernel C", f"mesh render bounce {bounce}, {m} of its "
+                     f"rays: {fmt_cmp(c)}")
+            if bounce == 1:
+                times = (cuda_ms(lambda: KC.hit_triangles_rows(tab, o_t, d_t, tm), 10),
+                         cuda_ms(lambda: KC.hit_triangles_rows_plain(tab, o_t, d_t, tm), 2))
+                st = p_bounce_step(hit_scene, cam, st, 12345, 1, dims, cfg=cfg,
+                                   hit_fn=plain_fn, lean=True)
+        active = int(tab.active.sum())
+        b = bound(m * active * OPS_TRI_PAIR,
+                  m * (24 + RECORD_BYTES) + tab.attrs.numel() * 4 + tab.active.numel())
+        self.kernels.setdefault("tri", {}).update(
+            ms=times[0], plain_ms=times[1], max_abs_err=err, bound_ms=b[0],
+            bound_by=b[1])
+        self.say("6 kernel C", f"at {m} rays x {active} triangles: kernel "
+                 f"{times[0]:.3f} ms, plain {times[1]:.3f} ms, bound {b[0]:.4f} ms "
+                 f"({b[1]}) [{self.card}]")
+
+    # ---- phase 7 ----------------------------------------------------------
+    def kernel_d(self):
+        """Kernel D against the plain grid sweep and against kernel C, at
+        config 4's chunk (mesh20k, 800x450, 50 spp: 720,896 lanes): the
+        binned first bounce without t_cap; the binned second bounce with
+        the sphere pass's t_cap; the second again with the early exit and
+        the any-touch skip off."""
+        from win32_raytracer_tpu_torch.config import RenderConfig
+        from win32_raytracer_tpu_torch.kernels import hit as K
+        from win32_raytracer_tpu_torch.kernels import tri as KC
+        from win32_raytracer_tpu_torch.kernels import tri_grid as KD
+        from win32_raytracer_tpu_torch.kernels.dispatch import (
+            get_hit_fn_rows_accel)
+        from win32_raytracer_tpu_torch.persistent import (
+            _bin_sort_core, _derive_bin_box, p_bounce_step)
+        from win32_raytracer_tpu_torch.scene.builders import get_scene
+        from win32_raytracer_tpu_torch.tri_accel import (
+            DEFAULT_TRI_GRID_RAY_BLOCK, build_tri_grid,
+            hit_triangles_grid_rows_plain)
+
+        dev = self.dev
+        cfg = RenderConfig(**CONFIG4, backend="jnp")
+        hit_scene, plain_fn = get_hit_fn_rows_accel(cfg, get_scene("mesh20k", device=dev))
+        grid, spheres = hit_scene.triangles, hit_scene.spheres
+        tris = tri_arrays(grid.base)
+        box = _derive_bin_box(cfg, hit_scene)
+        st, dims, cam = fresh_chunk(cfg, dev)
+        n = st.pixel.shape[1]
+        st = _bin_sort_core(st, box=box)
+        o1, d1 = st.origin.contiguous(), st.direction.contiguous()
+        st = p_bounce_step(hit_scene, cam, st, 12345, 1, dims, cfg=cfg,
+                           hit_fn=plain_fn, lean=True)
+        st = _bin_sort_core(st, box=box)
+        o2, d2, t2 = (x.contiguous() for x in (st.origin, st.direction, st.time))
+        cap2 = K.hit_spheres_rows(spheres, o2, d2, t2).t.contiguous()
+        del st
+        zeros = torch.zeros((1, n), device=dev)
+        err, times, work = 0.0, {}, {}
+        arms = (("bounce 1", o1, d1, None, True),
+                ("bounce 2, t_cap", o2, d2, cap2, True),
+                ("bounce 2, t_cap, early exit and any-touch off", o2, d2, cap2, False))
+        for label, o, d, cap, knobs in arms:
+            kw = dict(t_cap=cap, early_exit=knobs, any_skip=knobs)
+            stats = torch.zeros(2, dtype=torch.int64, device=dev)
+            rk = KD.hit_triangles_grid_rows(grid, o, d, zeros, stats=stats, **kw)
+            rp = hit_triangles_grid_rows_plain(grid, o, d, zeros, **kw)
+            torch.cuda.synchronize()
+            c = compare_tri(rk, rp, o, d, tris, f"kernel D {label}",
+                            below_cap(rk, rp, cap))
+            err = max(err, c["err"])
+            tiles, pairs = (int(x) for x in stats.cpu())
+            self.say("7 kernel D", f"{label} vs plain: {fmt_cmp(c)}; swept "
+                     f"{tiles} CTA tiles, {pairs} pair tests "
+                     f"({pairs / n:.0f} per lane)")
+            if cap is None:
+                cb = compare_tri(rk, KC.hit_triangles_rows(grid.base, o, d, zeros),
+                                 o, d, tris, f"kernel D {label} vs kernel C")
+                self.say("7 kernel D", f"{label} vs kernel C (brute, "
+                         f"{grid.base.padded_size} triangles): {fmt_cmp(cb)}")
+                times["brute"] = cuda_ms(
+                    lambda: KC.hit_triangles_rows(grid.base, o, d, zeros), 3)
+            times[label] = (
+                cuda_ms(lambda: KD.hit_triangles_grid_rows(grid, o, d, zeros, **kw), 5),
+                cuda_ms(lambda: hit_triangles_grid_rows_plain(grid, o, d, zeros, **kw), 1))
+            work[label] = pairs
+        # The kernels line reports the main path's case: the second bounce,
+        # capped by the sphere pass, knobs at their defaults.
+        main = arms[1][0]
+        fn_bytes = (n * (24 + 4 + RECORD_BYTES) + grid.tile_attrs.numel() * 4
+                    + grid.tile_boxes.numel() * 4)
+        b = bound(work[main] * OPS_TRI_PAIR, fn_bytes)
+        self.kernels.setdefault("tri_grid", {}).update(
+            ms=times[main][0], plain_ms=times[main][1], max_abs_err=err,
+            bound_ms=b[0], bound_by=b[1])
+        for label, o, d, cap, knobs in arms:
+            bl = bound(work[label] * OPS_TRI_PAIR, fn_bytes)
+            # The wrapper's torch prelude (block schedule, quantised boxes)
+            # alone, then the kernel alone on its output.
+            pre = cuda_ms(lambda: KD.prepare(grid, o, d, cap, cfg.min_hit_t,
+                                             DEFAULT_TRI_GRID_RAY_BLOCK), 5)
+            p = KD.prepare(grid, o, d, cap, cfg.min_hit_t,
+                           DEFAULT_TRI_GRID_RAY_BLOCK)
+            alone = cuda_ms(lambda: KD.launch(p, knobs, knobs), 10)
+            self.say("7 times", f"{label} at {n} lanes: kernel D "
+                     f"{times[label][0]:.3f} ms (schedule prelude {pre:.3f} ms, "
+                     f"kernel alone {alone:.3f} ms), plain "
+                     f"{times[label][1]:.3f} ms, bound {bl[0]:.4f} ms "
+                     f"({bl[1]}) [{self.card}]")
+        self.say("7 times", f"kernel C on bounce 1's rays ({grid.base.padded_size} "
+                 f"triangles): {times['brute']:.3f} ms [{self.card}]")
+
+        # Knobs off their defaults: median-split tiles of 200 rows (two
+        # shared-memory passes, the second partial) and ray blocks of 1,000
+        # lanes (partial CTAs, padded rays).
+        odd = build_tri_grid(grid.base, tile_rows=200, partition="median")
+        kw = dict(t_cap=cap2, ray_block=1000)
+        rk = KD.hit_triangles_grid_rows(odd, o2, d2, zeros, **kw)
+        rp = hit_triangles_grid_rows_plain(odd, o2, d2, zeros, **kw)
+        c = compare_tri(rk, rp, o2, d2, tris, "kernel D odd knobs",
+                        below_cap(rk, rp, cap2))
+        self.say("7 kernel D", f"bounce 2, t_cap, median tiles of 200 rows, "
+                 f"ray blocks of 1000 vs plain: {fmt_cmp(c)}")
+
+    # ---- phase 8 ----------------------------------------------------------
+    def mesh_renders(self):
+        """Small mesh renders, kernels against plain; then the triangle
+        main paths through the kernels, each with the launch counts set to
+        0 just before it: render("mesh") at config 4's size (kernels A and
+        C), and config 4 itself, render("mesh20k") (kernels A and D)."""
+        import win32_raytracer_tpu_torch.persistent as P
+        from win32_raytracer_tpu_torch.api import render
+        from win32_raytracer_tpu_torch.config import RenderConfig
+        from win32_raytracer_tpu_torch.kernels import hit as K
+        from win32_raytracer_tpu_torch.kernels import tri as KC
+        from win32_raytracer_tpu_torch.kernels import tri_grid as KD
+
+        small = RenderConfig(**SMALL_MESH)
+        means = {}
+        for name in ("mesh", "mesh20k"):
+            rk = render(name, cfg=small, device=self.dev)
+            rp = render(name, cfg=small.replace(backend="jnp"), device=self.dev)
+            d = float(np.abs(rk.image.astype(float) - rp.image.astype(float)).mean())
+            r = pearson(rk.image, rp.image)
+            means[name] = float(rp.image.mean())
+            self.say("8 render", f"{name} {small.width}x{small.height}@"
+                     f"{small.samples}: kernels vs plain mean |diff| "
+                     f"{d:.4f} (<=0.05), pearson r {r:.6f}, means "
+                     f"{rk.image.mean():.2f}/{rp.image.mean():.2f}, "
+                     f"{rk.duration_ms:.0f} ms vs {rp.duration_ms:.0f} ms")
+            check(d <= 0.05, f"{name} small render mean diff {d}")
+
+        cfg = RenderConfig(**CONFIG4)
+        sorts = []
+        real_sort = P._bin_sort_core
+
+        def counted_sort(*a, **k):
+            sorts.append(1)
+            return real_sort(*a, **k)
+        P._bin_sort_core = counted_sort
+        try:
+            for name, path in (("mesh", ("hit", "tri")),
+                               ("mesh20k", ("hit", "tri_grid"))):
+                warm = render(name, cfg=cfg, device=self.dev)
+                K.LAUNCHES = KC.LAUNCHES = KD.LAUNCHES = 0
+                sorts.clear()
+                torch.cuda.synchronize()
+                res = render(name, cfg=cfg, device=self.dev)
+                launches = {"hit": K.LAUNCHES, "tri": KC.LAUNCHES,
+                            "tri_grid": KD.LAUNCHES}
+                mean = float(res.image.mean())
+                self.say("8 " + name, f"{name} {cfg.width}x{cfg.height}@"
+                         f"{cfg.samples} spp: {res.duration_ms / 1e3:.4f} s "
+                         f"(warm run {warm.duration_ms / 1e3:.4f} s), "
+                         f"{res.mrays_per_sec:.3f} Mrays/s, image mean {mean:.3f} "
+                         f"(small plain {means[name]:.3f}), launches {launches}, "
+                         f"binned bounces {len(sorts)} [{self.card}]")
+                check(res.image.shape == (cfg.height, cfg.width, 3),
+                      f"image shape {res.image.shape}")
+                check(all(launches[k] > 0 for k in path),
+                      f"a kernel was not launched on the {name} path: {launches}")
+                check(abs(mean - means[name]) <= 3.0,
+                      f"{name} image mean {mean} far from the small render's")
+                for k in path[1:]:
+                    self.kernels.setdefault(k, {})["launches"] = launches[k]
+        finally:
+            P._bin_sort_core = real_sort
 
 
 KERNEL_META = {
@@ -373,12 +744,16 @@ KERNEL_META = {
             "win32_raytracer_tpu/kernels/hit_pallas_v6.py:181"),
     "bounce": ("fused_bounce", "win32_raytracer_tpu_torch/csrc/bounce.cu",
                "win32_raytracer_tpu/kernels/bounce_pallas.py:38"),
+    "tri": ("triangle_hit", "win32_raytracer_tpu_torch/csrc/tri.cu",
+            "win32_raytracer_tpu/kernels/tri_pallas_mxu.py:114"),
+    "tri_grid": ("triangle_grid_hit", "win32_raytracer_tpu_torch/csrc/tri_grid.cu",
+                 "win32_raytracer_tpu/kernels/tri_grid_rows.py:252"),
 }
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8",
                     help="comma-separated phases to run (0 always runs)")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
 
@@ -393,7 +768,7 @@ def main() -> int:
     import win32_raytracer_tpu_torch  # noqa: F401  (fails outside the repo)
 
     smoke = Smoke(card)
-    if 1 in phases or phases & {2, 3, 4, 5}:
+    if phases - {0}:
         smoke.build()
     if phases & {2, 3, 5}:
         smoke.kernel_a()
@@ -404,13 +779,19 @@ def main() -> int:
     if 5 in phases:
         smoke.headline()
         smoke.kernel_main_shapes()
-        kernels = []
-        for key, (name, src, replaces) in KERNEL_META.items():
-            k = smoke.kernels[key]
-            kernels.append({"name": name, "route": "cuda", "source": src,
-                            "replaces": replaces, "launches": k["launches"],
-                            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-                            "plain_ms": k["plain_ms"]})
+    if 6 in phases:
+        smoke.kernel_c()
+    if 7 in phases:
+        smoke.kernel_d()
+    if 8 in phases:
+        smoke.mesh_renders()
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    kernels = [{"name": name, "route": "cuda", "source": src,
+                "replaces": replaces, **{f: smoke.kernels[key][f] for f in keys},
+                "library_ms": None}
+               for key, (name, src, replaces) in KERNEL_META.items()
+               if all(f in smoke.kernels.get(key, {}) for f in keys)]
+    if kernels:
         print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -43,6 +43,11 @@ def test_package_imports_without_jax():
             "win32_raytracer_tpu_torch.persistent, "
             "win32_raytracer_tpu_torch.kernels.bounce, "
             "win32_raytracer_tpu_torch.kernels.dispatch, "
+            "win32_raytracer_tpu_torch.kernels.tri, "
+            "win32_raytracer_tpu_torch.kernels.tri_grid, "
+            "win32_raytracer_tpu_torch.scene.triangles, "
+            "win32_raytracer_tpu_torch.scene.composite, "
+            "win32_raytracer_tpu_torch.tri_accel, "
             "win32_raytracer_tpu_torch.io.image; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'win32_raytracer_tpu.'))"

@@ -3,9 +3,9 @@
 * :func:`render`       — blocking, returns a :class:`RenderResult`;
 * :func:`render_async` — completion-callback variant returning a handle.
 
-Both take ``device=``: None means CUDA when a card is present, else the
-CPU.  Work on a card runs the hand-written kernels; on the CPU their plain
-versions.
+Both take ``device=``: None means the CUDA card, and raises when there is
+none (pass ``device="cpu"`` to render on the CPU).  Work on a card runs
+the hand-written kernels; on the CPU their plain versions.
 """
 
 from __future__ import annotations
@@ -19,10 +19,10 @@ import numpy as np
 import torch
 
 from .config import RenderConfig
+from .persistent import Scene
 from .render import render as _render_single
 from .scene.builders import get_scene
 from .scene.camera import Camera, default_camera
-from .scene.spheres import SphereScene
 
 
 @dataclasses.dataclass
@@ -44,9 +44,15 @@ class RenderResult:
 
 
 def resolve_device(device=None) -> torch.device:
-    if device is None:
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    return torch.device(device)
+    """``device``, or the CUDA card when it is None; raises RuntimeError
+    when it is None and there is no card, rather than run on the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port renders on the card by default; pass "
+            "device='cpu' to render on the CPU")
+    return torch.device("cuda")
 
 
 def _resolve(scene, cam, cfg, device):
@@ -61,11 +67,12 @@ def _resolve(scene, cam, cfg, device):
     return scene.to(device), cam.to(device), cfg
 
 
-def render(scene: Optional[SphereScene | str] = None,
+def render(scene: Optional[Scene | str] = None,
            cam: Optional[Camera] = None, cfg: Optional[RenderConfig] = None,
            *, device=None, mesh=None, shard_mode: str = "rows") -> RenderResult:
-    """Blocking render of a SphereScene, a scene name ('test' / 'random' /
-    'final') or None (the RTIOW random scene, like the reference)."""
+    """Blocking render of a sphere, triangle or composite scene, a scene
+    name ('test' / 'random' / 'final' / 'mesh' / 'mesh20k') or None (the
+    RTIOW random scene, like the reference)."""
     if mesh is not None:
         raise NotImplementedError(
             f"multi-device rendering (shard_mode={shard_mode!r}) is not "
@@ -99,14 +106,16 @@ class AsyncRender:
         return not self._thread.is_alive()
 
 
-def render_async(scene: Optional[SphereScene | str] = None,
+def render_async(scene: Optional[Scene | str] = None,
                  cam: Optional[Camera] = None,
                  cfg: Optional[RenderConfig] = None,
                  callback: Optional[Callable[[RenderResult], None]] = None,
                  **kw) -> AsyncRender:
     """Non-blocking render; invokes ``callback(result)`` on completion
-    (``ptr::asyncRender``)."""
+    (``ptr::asyncRender``).  The device is resolved before the thread
+    starts, so a missing card raises here, as in :func:`render`."""
     handle: AsyncRender
+    kw["device"] = resolve_device(kw.get("device"))
 
     def work():
         try:

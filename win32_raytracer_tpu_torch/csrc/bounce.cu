@@ -10,7 +10,7 @@
 // with the ten per-lane draws of core/rng.py hash_uniform01 bit for bit.
 //
 // What bounds it on an H100: the sphere sweep, S pair tests per live lane
-// (~25 f32 operations each), against 73 bytes of state read and 61 written
+// (27 f32 operations each, as in hit.cu), against 73 bytes of state read and 61 written
 // per lane.  Design: one thread per lane; each lane's state is read
 // once and its 8 output rows written once, and the hit record stays in
 // registers; sphere tiles are staged through shared memory as in hit.cu;

@@ -1,10 +1,11 @@
-// Device functions shared by the sphere-hit kernel (hit.cu) and the fused
-// bounce kernel (bounce.cu).
+// Device functions shared by the sphere-hit kernel (hit.cu), the fused
+// bounce kernel (bounce.cu) and the triangle kernels (tri.cu, tri_grid.cu).
 //
 // Every function here mirrors a plain torch function of the package op for
-// op, in the same order (win32_raytracer_tpu_torch/ops/hit.py, ops/rows.py,
-// persistent.py), and the library is built with --fmad=false so no multiply
-// and add are contracted into one rounding.  With IEEE sqrtf and division
+// op, in the same order (win32_raytracer_tpu_torch/ops/hit.py,
+// ops/hit_tri.py, ops/rows.py, persistent.py), and the library is built
+// with --fmad=false so no multiply and add are contracted into one
+// rounding.  With IEEE sqrtf and division
 // (nvcc's defaults without --use_fast_math) a kernel then rounds where its
 // plain version rounds; only the transcendental functions may differ in
 // the last place.
@@ -134,6 +135,121 @@ __device__ __forceinline__ HitRec winner_record(
   h.fuzz = g[A_FUZZ];
   h.ior = g[A_IOR];
   return h;
+}
+
+// ---------------------------------------------------------------------------
+// Triangles (ops/hit_tri.py): two-sided Moller-Trumbore, nearest t > min_t,
+// strict < so the first row keeps ties.
+// ---------------------------------------------------------------------------
+
+// Packed triangle attribute columns (ops/hit_tri.py _T_*); the grid's tile
+// rows carry one more column (tri_accel.TRI_GRID_COLS).
+enum TriCol : int {
+  T_V0X = 0, T_V0Y, T_V0Z, T_E1X, T_E1Y, T_E1Z, T_E2X, T_E2Y, T_E2Z,
+  T_MAT, T_ALR, T_ALG, T_ALB, T_FUZZ, T_IOR, T_IDX, TRI_ATTR_COLS
+};
+
+constexpr int kTriTile = 128;        // triangles per shared-memory tile
+constexpr float kDetEps = 1e-9f;     // ops/hit_tri.py _DET_EPS
+
+struct TriTile {  // the geometry columns of up to kTriTile rows
+  float v0x[kTriTile], v0y[kTriTile], v0z[kTriTile];
+  float e1x[kTriTile], e1y[kTriTile], e1z[kTriTile];
+  float e2x[kTriTile], e2y[kTriTile], e2z[kTriTile];
+};
+
+// Stage rows [row0, row0 + cnt) of a [*, cols] attribute table into `sh`;
+// every thread of the block takes part.
+__device__ __forceinline__ void stage_tris(const float* __restrict__ attrs,
+                                           int cols, long long row0, int cnt,
+                                           TriTile& sh) {
+  for (int j = threadIdx.x; j < cnt; j += blockDim.x) {
+    const float* row = attrs + (size_t)(row0 + j) * cols;
+    sh.v0x[j] = row[T_V0X];
+    sh.v0y[j] = row[T_V0Y];
+    sh.v0z[j] = row[T_V0Z];
+    sh.e1x[j] = row[T_E1X];
+    sh.e1y[j] = row[T_E1Y];
+    sh.e1z[j] = row[T_E1Z];
+    sh.e2x[j] = row[T_E2X];
+    sh.e2y[j] = row[T_E2Y];
+    sh.e2z[j] = row[T_E2Z];
+  }
+}
+
+// The pair test of ops/hit_tri.py tri_pair_t: t of a valid hit, else kNoHit.
+__device__ __forceinline__ float tri_pair_t(const TriTile& sh, int j,
+                                            float ox, float oy, float oz,
+                                            float dx, float dy, float dz,
+                                            float min_t) {
+  const float e1x = sh.e1x[j], e1y = sh.e1y[j], e1z = sh.e1z[j];
+  const float e2x = sh.e2x[j], e2y = sh.e2y[j], e2z = sh.e2z[j];
+  const float px = dy * e2z - dz * e2y;  // pvec = d x e2
+  const float py = dz * e2x - dx * e2z;
+  const float pz = dx * e2y - dy * e2x;
+  const float det = e1x * px + e1y * py + e1z * pz;
+  const bool ok = fabsf(det) >= kDetEps;
+  const float inv_det = 1.0f / (ok ? det : 1.0f);
+  const float tx = ox - sh.v0x[j];       // tvec = o - v0
+  const float ty = oy - sh.v0y[j];
+  const float tz = oz - sh.v0z[j];
+  const float u = (tx * px + ty * py + tz * pz) * inv_det;
+  const float qx = ty * e1z - tz * e1y;  // qvec = tvec x e1
+  const float qy = tz * e1x - tx * e1z;
+  const float qz = tx * e1y - ty * e1x;
+  const float v = (dx * qx + dy * qy + dz * qz) * inv_det;
+  const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+  const bool valid = ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > min_t;
+  return valid ? t : kNoHit;
+}
+
+// The winner's record (ops/hit_tri.py tri_record_rows_from_gather): row
+// `best_row` of a [*, cols] table read once, all zero on a miss; the normal
+// is the unit cross product e1 x e2.
+__device__ __forceinline__ HitRec tri_winner_record(
+    const float* __restrict__ attrs, int cols, float best_t,
+    long long best_row, float ox, float oy, float oz, float dx, float dy,
+    float dz) {
+  HitRec h;
+  h.hit = best_t < kNoHit;
+  float g[TRI_ATTR_COLS];
+#pragma unroll
+  for (int c = 0; c < TRI_ATTR_COLS; ++c)
+    g[c] = best_row >= 0 ? attrs[(size_t)best_row * cols + c] : 0.0f;
+  const float ts = h.hit ? best_t : 0.0f;
+  h.t = best_t;
+  h.px = ox + ts * dx;
+  h.py = oy + ts * dy;
+  h.pz = oz + ts * dz;
+  const float gx = g[T_E1Y] * g[T_E2Z] - g[T_E1Z] * g[T_E2Y];
+  const float gy = g[T_E1Z] * g[T_E2X] - g[T_E1X] * g[T_E2Z];
+  const float gz = g[T_E1X] * g[T_E2Y] - g[T_E1Y] * g[T_E2X];
+  const float norm = sqrtf(fmaxf(gx * gx + gy * gy + gz * gz, 1e-30f));
+  h.nx = gx / norm;
+  h.ny = gy / norm;
+  h.nz = gz / norm;
+  h.idx = (int)g[T_IDX];
+  h.mat = (int)g[T_MAT];
+  h.alr = g[T_ALR];
+  h.alg = g[T_ALG];
+  h.alb = g[T_ALB];
+  h.fuzz = g[T_FUZZ];
+  h.ior = g[T_IOR];
+  return h;
+}
+
+// A hit record in the rows layout every hit kernel writes: out_f [12, n]
+// (t, point, normal, albedo, fuzz, ior), out_i [2, n] (idx, mat), hit [n].
+__device__ __forceinline__ void write_record(const HitRec& h, long long i,
+                                             long long n, float* out_f,
+                                             int32_t* out_i, uint8_t* out_hit) {
+  const float vals[12] = {h.t,  h.px,  h.py,  h.pz,  h.nx,   h.ny,
+                          h.nz, h.alr, h.alg, h.alb, h.fuzz, h.ior};
+#pragma unroll
+  for (int r = 0; r < 12; ++r) out_f[r * n + i] = vals[r];
+  out_i[i] = h.idx;
+  out_i[n + i] = h.mat;
+  out_hit[i] = h.hit ? 1 : 0;
 }
 
 // ---------------------------------------------------------------------------

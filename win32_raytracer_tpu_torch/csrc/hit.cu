@@ -6,8 +6,9 @@
 // one computes ops/hit.py's exact f32 pair test, so it agrees with the plain
 // sweep and not with v6's ~2e-4 winner flips.
 //
-// What bounds it on an H100: the S pair tests per ray (~25 f32 operations
-// each; 512 spheres for the final scene), not memory (28 bytes in and 57
+// What bounds it on an H100: the S pair tests per ray (26 f32 multiplies,
+// adds and subtractions and a compare each, five more where the ray meets
+// the sphere; 488 active spheres for the final scene), not memory (28 bytes in and 57
 // out per ray).  Design: one thread per ray; the block stages the sphere table
 // through shared memory in tiles of kTile spheres, so each attribute is read
 // from device memory once per block and broadcast from shared memory to all
@@ -51,13 +52,7 @@ __global__ void __launch_bounds__(kBlock) hit_kernel(const HitArgs a) {
 
   const HitRec h = winner_record(a.attrs, best_t, best_i, ox, oy, oz, dx, dy,
                                  dz, tm);
-  const float vals[12] = {h.t,  h.px,  h.py,  h.pz,  h.nx,   h.ny,
-                          h.nz, h.alr, h.alg, h.alb, h.fuzz, h.ior};
-#pragma unroll
-  for (int r = 0; r < 12; ++r) a.out_f[r * n + i] = vals[r];
-  a.out_i[i] = h.idx;
-  a.out_i[n + i] = h.mat;
-  a.out_hit[i] = h.hit ? 1 : 0;
+  write_record(h, i, n, a.out_f, a.out_i, a.out_hit);
 }
 
 extern "C" int wrt_hit_spheres(const HitArgs* a) {

@@ -2,10 +2,11 @@
 
 The sources are compiled by ``nvcc`` into one shared library with a plain
 C interface and loaded with ``ctypes``; nothing includes PyTorch's headers,
-so a build takes seconds.  The library lands in ``_build/`` inside the
-package, named by a hash of the sources and flags, and is built on first
-use.  Every C entry returns ``cudaGetLastError()`` after its launch and the
-wrappers raise on anything but 0 (:func:`check`).
+so a build takes seconds: one ``nvcc -c`` per source, all started together,
+then one link.  The library lands in ``_build/`` inside the package, named
+by a hash of the sources and flags, and is built on first use.  Every C
+entry returns ``cudaGetLastError()`` after its launch and the wrappers
+raise on anything but 0 (:func:`check`).
 
 Flags: Hopper only (``sm_90a``).  ``--fmad=false`` keeps every multiply and
 add separately rounded, as the plain torch versions round them, so a kernel
@@ -28,8 +29,8 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
               "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
@@ -70,16 +71,37 @@ def build() -> str:
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
+    tag = f"{path[:-3]}.tmp{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for i, src in enumerate(_sources()):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", f"{tag}.{i}.o", src]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.STDOUT,
+                                           text=True)))
+    logs, failed = [], []
+    for cmd, proc in jobs:
+        out = proc.communicate()[0]
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} (exit {proc.returncode}):\n{out}")
+    objs = [cmd[cmd.index("-o") + 1] for cmd, _ in jobs]
+    if not failed:
+        cmd = [nvcc, *ARCH, "-shared", "-o", f"{tag}.so", *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} (exit {proc.returncode}):\n"
+                          f"{logs[-1]}")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{build_log}")
-    os.replace(tmp, path)
+    build_log = "".join(logs)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    os.replace(f"{tag}.so", path)
     return path
 
 
@@ -93,6 +115,11 @@ def load() -> ctypes.CDLL:
             lib.wrt_hit_spheres.restype = ctypes.c_int
             lib.wrt_bounce.argtypes = [ctypes.c_void_p, ctypes.c_int]
             lib.wrt_bounce.restype = ctypes.c_int
+            lib.wrt_hit_triangles.argtypes = [ctypes.c_void_p]
+            lib.wrt_hit_triangles.restype = ctypes.c_int
+            lib.wrt_hit_tri_grid.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                             ctypes.c_int]
+            lib.wrt_hit_tri_grid.restype = ctypes.c_int
             lib.wrt_error_string.argtypes = [ctypes.c_int]
             lib.wrt_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -1,11 +1,28 @@
-"""Hit backend selection (the sphere branch of the reference's
-``kernels/dispatch.py``).
+"""Hit backend and acceleration selection (the reference's
+``kernels/dispatch.py``, rows layout).
 
 ``cfg.backend``: "auto" routes through the kernel wrappers, which launch
 the CUDA kernels for tensors on a card and run their plain versions for
 tensors on the CPU; "pallas" asks for the CUDA kernels and raises off a
-card; "jnp" runs the plain torch ops on any device (the kernels'
-reference, as the jnp path is the JAX package's).
+card; "jnp" runs the plain torch ops on any device (the kernels' reference,
+as the jnp path is the JAX package's).  Both take the same routes below;
+only the functions at their ends differ.
+
+Scene routing (:func:`get_hit_fn_rows_accel`), the reference's on its
+Pallas backend:
+
+* a plain sphere scene: kernel A (``kernels/hit.py``);
+* a triangle mesh with at least ``tri_accel.build_tri_grid``'s
+  ``min_tris`` (512) active triangles, under ``accel`` "auto" or "grid":
+  the Morton-tile grid, kernel D (``kernels/tri_grid.py``);
+* a smaller mesh, or any mesh under ``accel="off"``: the brute sweep,
+  kernel C (``kernels/tri.py``);
+* a composite of spheres and a mesh: the sphere pass first, then the
+  triangle pass, merged by ``ops/rows.combine_hits_rows`` with triangle
+  indices after the spheres'.  On the grid the sphere pass's nearest t
+  caps the triangle pass (``t_cap``): a sphere hit occludes every farther
+  tile, so fewer tiles are scheduled.  The brute composite runs both
+  sweeps whole, as the reference's does.
 """
 
 from __future__ import annotations
@@ -13,16 +30,28 @@ from __future__ import annotations
 import torch
 
 from ..config import RenderConfig
+from ..ops.hit import SphereTable, sphere_table
+from ..ops.hit_tri import tri_table
+from ..ops.rows import combine_hits_rows
+from ..scene.composite import CompositeScene
+from ..scene.spheres import SphereScene
+from ..scene.triangles import TriangleScene
+from ..tri_accel import (
+    DEFAULT_TILE_ROWS, DEFAULT_TRI_GRID_RAY_BLOCK, build_tri_grid,
+    hit_triangles_grid_rows_plain,
+)
 from .hit import hit_spheres_rows, hit_spheres_rows_plain
+from .tri import hit_triangles_rows, hit_triangles_rows_plain
+from .tri_grid import hit_triangles_grid_rows
 
 
 def resolve_backend(cfg: RenderConfig, device) -> str:
     """"kernels" or "plain".
 
     "plain" comes only from an explicit ``backend="jnp"``: on a card it is
-    the reference path that chip_smoke.py's small render (phase 4) holds
-    the kernels against, and nothing selects it implicitly.  "auto", the
-    default, always resolves to the kernel wrappers."""
+    the reference path that chip_smoke.py's small renders hold the kernels
+    against, and nothing selects it implicitly.  "auto", the default,
+    always resolves to the kernel wrappers."""
     device = torch.device(device)
     if cfg.backend == "auto":
         return "kernels"
@@ -36,8 +65,131 @@ def resolve_backend(cfg: RenderConfig, device) -> str:
     raise ValueError(f"unknown backend {cfg.backend!r} (use auto|pallas|jnp)")
 
 
-def get_hit_fn_rows(cfg: RenderConfig, device):
-    """Rows-layout sphere hit function for the persistent scheduler."""
+def _hit_fns(cfg: RenderConfig, device):
+    """(sphere, brute triangle, grid triangle) rows hit functions."""
     if resolve_backend(cfg, device) == "kernels":
-        return hit_spheres_rows
-    return hit_spheres_rows_plain
+        return hit_spheres_rows, hit_triangles_rows, hit_triangles_grid_rows
+    return (hit_spheres_rows_plain, hit_triangles_rows_plain,
+            hit_triangles_grid_rows_plain)
+
+
+def get_hit_fn_rows(cfg: RenderConfig, device, scene=None):
+    """Rows-layout hit function for the persistent scheduler, without the
+    grid: sphere scenes (and ``scene=None``) get the sphere sweep, triangle
+    scenes the brute sweep, composites the brute composite."""
+    sphere_fn, tri_fn, _ = _hit_fns(cfg, device)
+    if scene is None or isinstance(scene, (SphereScene, SphereTable)):
+        return sphere_fn
+    if isinstance(scene, CompositeScene):
+        return _make_composite(sphere_fn, _make_tri_pass(tri_fn))
+    return tri_fn
+
+
+def validate_tri_knobs(cfg: RenderConfig) -> None:
+    """The reference's checks of the triangle knobs (ValueError)."""
+    if cfg.tri_rebin not in ("auto", "on", "dda", "off"):
+        raise ValueError(
+            f"tri_rebin must be auto|on|dda|off, got {cfg.tri_rebin!r}")
+    if cfg.tri_any_skip not in ("auto", "on", "off"):
+        raise ValueError(
+            f"tri_any_skip must be auto|on|off, got {cfg.tri_any_skip!r}")
+    if cfg.tri_dda_k < 0:
+        raise ValueError(
+            f"tri_dda_k must be >= 0 (0 = kernel default), got "
+            f"{cfg.tri_dda_k}")
+    if cfg.tri_sub_gate not in (0, 1, 2, 4, 8, 16):
+        raise ValueError(
+            f"tri_sub_gate must be 0 (auto) or a power of two <= 16, "
+            f"got {cfg.tri_sub_gate}")
+    if cfg.tri_gather not in ("auto", "fused", "deferred"):
+        raise ValueError(
+            f"tri_gather must be auto|fused|deferred, got "
+            f"{cfg.tri_gather!r}")
+    if cfg.tri_tile_rows < 0 or cfg.tri_ray_block < 0:
+        raise ValueError(
+            f"tri_tile_rows and tri_ray_block must be >= 0 (0 = default), "
+            f"got {cfg.tri_tile_rows} and {cfg.tri_ray_block}")
+
+
+def _make_tri_pass(kernel, **kernel_kw):
+    """Triangle pass ``(tris, o, d, t, min_t, t_cap)`` over a hit function:
+    the grid sweep takes ``t_cap`` and its knobs, the brute sweep neither.
+    The reference's two other arms (the working-set rebin and the DDA
+    expansion, cfg.tri_rebin "on"/"dda") are not ported."""
+    if not kernel_kw:
+        def tri_pass(tris, o, d, t, min_t, t_cap):
+            return kernel(tris, o, d, t, min_t=min_t)
+        return tri_pass
+
+    def tri_pass(grid, o, d, t, min_t, t_cap):
+        return kernel(grid, o, d, t, min_t=min_t, t_cap=t_cap, **kernel_kw)
+    return tri_pass
+
+
+def _make_composite(sphere_fn, tri_pass, cap: bool = False):
+    """Rows hit function over a composite (spheres or None, triangles or
+    None).  With ``cap`` the sphere pass's nearest t caps the triangle
+    pass."""
+    def composite(sc, o, d, t, min_t=0.001):
+        if sc.triangles is None:
+            return sphere_fn(sc.spheres, o, d, t, min_t=min_t)
+        if sc.spheres is None:
+            return tri_pass(sc.triangles, o, d, t, min_t, None)
+        rec = sphere_fn(sc.spheres, o, d, t, min_t=min_t)
+        rec_t = tri_pass(sc.triangles, o, d, t, min_t, rec.t if cap else None)
+        return combine_hits_rows(rec, rec_t,
+                                 idx_offset_b=sc.spheres.padded_size)
+    return composite
+
+
+def get_hit_fn_rows_accel(cfg: RenderConfig, scene):
+    """Resolve ``(hit_scene, hit_fn)`` for a scene, the grid applied.
+
+    ``hit_scene`` is what ``hit_fn(hit_scene, o, d, t, min_t)`` reads, built
+    once per render: the sphere table of a sphere scene, the triangle
+    table of a brute mesh, the :class:`TriGridScene` of a gridded one, or a
+    :class:`CompositeScene` of those.  With ``accel`` "auto" or "grid" a
+    mesh of >= 512 active triangles gets the Morton-tile grid (the brute
+    sweep scales with the triangle count); "off" forces the brute sweep.
+    ``tri_gather`` "fused" and "deferred" are the same here: the winner is
+    always read by index after the sweep."""
+    validate_tri_knobs(cfg)
+    sphere_fn, tri_fn, grid_fn = _hit_fns(cfg, scene.device)
+    if isinstance(scene, SphereScene):
+        return sphere_table(scene), sphere_fn
+    if isinstance(scene, TriangleScene):
+        scene = CompositeScene(None, scene)
+    if not isinstance(scene, CompositeScene):
+        raise TypeError(f"unsupported scene type {type(scene).__name__}")
+    if scene.spheres is None and scene.triangles is None:
+        raise ValueError("empty composite scene")
+    spheres = None if scene.spheres is None else sphere_table(scene.spheres)
+
+    tri = scene.triangles
+    grid = None
+    if tri is not None and cfg.accel in ("auto", "grid"):
+        part = "morton" if cfg.tri_partition == "auto" else cfg.tri_partition
+        grid = build_tri_grid(tri, tile_rows=cfg.tri_tile_rows
+                              or DEFAULT_TILE_ROWS, partition=part)
+    if grid is not None:
+        tri_pass = _make_tri_pass(
+            grid_fn, ray_block=cfg.tri_ray_block or DEFAULT_TRI_GRID_RAY_BLOCK,
+            early_exit=cfg.tri_early_exit in ("auto", "on"),
+            any_skip=cfg.tri_any_skip in ("auto", "on"))
+        hit_scene, cap = CompositeScene(spheres, grid), True
+    elif cfg.accel == "grid":
+        raise ValueError(
+            "accel='grid' requested but the scene does not qualify (triangle "
+            "grids need a mesh with enough triangles — "
+            "tri_accel.build_tri_grid; the sphere grid is not ported: ROADMAP "
+            "Queue 1 item 10)")
+    else:
+        tri_pass = _make_tri_pass(tri_fn)
+        hit_scene = CompositeScene(spheres, None if tri is None
+                                   else tri_table(tri))
+        cap = False
+    if spheres is None:
+        def tri_only(tris, o, d, t, min_t=0.001):
+            return tri_pass(tris, o, d, t, min_t, None)
+        return hit_scene.triangles, tri_only
+    return hit_scene, _make_composite(sphere_fn, tri_pass, cap=cap)

@@ -39,6 +39,23 @@ class HitArgs(ctypes.Structure):  # csrc/hit.cu HitArgs
     ]
 
 
+def record_rows(out_f: torch.Tensor, out_i: torch.Tensor,
+                hit: torch.Tensor) -> HitRecordRows:
+    """The HitRecordRows views of a hit kernel's outputs (out_f [12, N],
+    out_i [2, N], hit [1, N]; csrc/common.cuh write_record)."""
+    return HitRecordRows(
+        hit=hit, t=out_f[0:1], point=out_f[1:4], normal=out_f[4:7],
+        idx=out_i[0:1], mat_id=out_i[1:2], albedo=out_f[7:10],
+        fuzz=out_f[10:11], ior=out_f[11:12])
+
+
+def record_buffers(n: int, dev):
+    """Empty (out_f, out_i, hit) for a hit kernel's record of n rays."""
+    return (torch.empty((12, n), dtype=torch.float32, device=dev),
+            torch.empty((2, n), dtype=torch.int32, device=dev),
+            torch.empty((1, n), dtype=torch.bool, device=dev))
+
+
 def hit_spheres_rows(scene: Union[SphereScene, SphereTable],
                      origin: torch.Tensor, direction: torch.Tensor,
                      time: torch.Tensor,
@@ -62,9 +79,7 @@ def hit_spheres_rows(scene: Union[SphereScene, SphereTable],
             (tab.active, "active", torch.bool, (s,))):
         _build.check_tensor(t, name, dt, shape, dev)
 
-    out_f = torch.empty((12, n), dtype=torch.float32, device=dev)
-    out_i = torch.empty((2, n), dtype=torch.int32, device=dev)
-    hit = torch.empty((1, n), dtype=torch.bool, device=dev)
+    out_f, out_i, hit = record_buffers(n, dev)
     if n:
         lib = _build.load()
         args = HitArgs(
@@ -75,7 +90,4 @@ def hit_spheres_rows(scene: Union[SphereScene, SphereTable],
         _build.check(lib.wrt_hit_spheres(ctypes.addressof(args)),
                      "hit_spheres_rows")
         LAUNCHES += 1
-    return HitRecordRows(
-        hit=hit, t=out_f[0:1], point=out_f[1:4], normal=out_f[4:7],
-        idx=out_i[0:1], mat_id=out_i[1:2], albedo=out_f[7:10],
-        fuzz=out_f[10:11], ior=out_f[11:12])
+    return record_rows(out_f, out_i, hit)

@@ -55,6 +55,10 @@ class SphereTable(NamedTuple):
     attrs: torch.Tensor   # [S, ATTR_COLS] f32
     active: torch.Tensor  # [S] bool
 
+    @property
+    def padded_size(self) -> int:
+        return self.attrs.shape[0]
+
 
 def _attr_matrix(scene: SphereScene) -> torch.Tensor:
     """Per-sphere attributes packed into one [S, 16] f32 matrix."""

@@ -37,6 +37,25 @@ class HitRecordRows(NamedTuple):
     ior: torch.Tensor     # [1, N] f32
 
 
+def combine_hits_rows(a: HitRecordRows, b: HitRecordRows,
+                      idx_offset_b: int = 0) -> HitRecordRows:
+    """Nearest of two rows hit records (e.g. spheres, then triangles whose
+    indices start after the spheres'): strict ``b.t < a.t``, so geometry A
+    keeps exact ties."""
+    take_b = b.t < a.t
+    return HitRecordRows(
+        hit=a.hit | b.hit,
+        t=torch.where(take_b, b.t, a.t),
+        point=torch.where(take_b, b.point, a.point),
+        normal=torch.where(take_b, b.normal, a.normal),
+        idx=torch.where(take_b, b.idx + idx_offset_b, a.idx),
+        mat_id=torch.where(take_b, b.mat_id, a.mat_id),
+        albedo=torch.where(take_b, b.albedo, a.albedo),
+        fuzz=torch.where(take_b, b.fuzz, a.fuzz),
+        ior=torch.where(take_b, b.ior, a.ior),
+    )
+
+
 def rdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """[3, N] . [3, N] -> [1, N]."""
     return a[0:1] * b[0:1] + a[1:2] * b[1:2] + a[2:3] * b[2:3]

@@ -1,19 +1,32 @@
 """Persistent scheduler with batch compaction, lane-major (PyTorch port).
 
-The port of ``win32_raytracer_tpu.persistent`` for plain sphere scenes at
-the default knobs.  Each lane owns one pixel replica and runs its quota of
-samples one after another, respawning a camera sample the moment a path
-ends; the host loop checks the alive count now and then, compacts dead
+The port of ``win32_raytracer_tpu.persistent`` for sphere, triangle and
+composite scenes at the default knobs.  Each lane owns one pixel replica
+and runs its quota of samples one after another, respawning a camera
+sample the moment a path ends; the host loop checks the alive count now
+and then, compacts dead
 lanes out while the batch is above ``_COMPACT_FLOOR`` (a stable sort on
 the (dead, pixel) key onto the mantissa size grid, the dropped tail's
 radiance added into ``accum``), and below it splits unstarted samples onto
 clone lanes.
 
-Bounces: above the floor one call of the fused bounce kernel
-(kernels/bounce.py); at or below it the sphere kernel (kernels/hit.py)
-followed by the torch scatter and respawn here, as the reference runs its
-XLA steps there.  Draws key on (salt, step, lane position) exactly as in
-the reference, so the same schedule draws the same numbers.
+Bounces: on a plain sphere scene, above the floor one call of the fused
+bounce kernel (kernels/bounce.py); at or below it the sphere kernel
+(kernels/hit.py) followed by the torch scatter and respawn here, as the
+reference runs its XLA steps there.  Kernel B sweeps spheres only, so a
+scene with triangles takes the two-step bounce at every size, as the
+reference does: the hit function of kernels/dispatch.py (sphere kernel,
+then kernel C or kernel D capped by the sphere hit, merged), then scatter
+and respawn (``p_hit_step``, ``p_scatter_respawn_step``).
+
+Ray binning: when the triangle side is the Morton-tile grid, every bounce
+first sorts the whole state by a chord key (origin cell, chord-exit cell,
+direction octant; ``_bin_sort_core``), so each ray block of kernel D's
+schedule is a tight spatial wedge; dead lanes sort last with their rays
+parked outside every tile.  Binned renders take single steps (a multi-step
+would run on bins gone stale after one scatter) and never run a chunk as
+one shot.  Draws key on (salt, step, lane position) exactly as in the
+reference, so the same schedule draws the same numbers.
 
 State is [3, N] / [1, N] rows, as in the reference.  ``accum`` is updated
 in place (``index_add_``), which saves a copy of the image per flush.
@@ -21,17 +34,24 @@ in place (``index_add_``), which saves a copy of the image per flush.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import numpy as np
 import torch
 
 from .config import RenderConfig
 from .core.rng import hash_uniform01
-from .ops.hit import SphereTable, sphere_table
+from .ops.hit import SphereTable
 from .ops.rows import HitRecordRows, camera_rays_rows, scatter_rows, sky_color_rows
 from .scene.camera import Camera, default_camera
+from .scene.composite import CompositeScene
 from .scene.spheres import SphereScene
+from .scene.triangles import TriangleScene
+from .tri_accel import TriGridScene
+
+# Any scene the renderer takes, and what a hit function reads
+# (kernels/dispatch.get_hit_fn_rows_accel).
+Scene = Union[SphereScene, TriangleScene, CompositeScene]
 
 
 class PathState(NamedTuple):
@@ -80,9 +100,10 @@ def make_dims(cfg: RenderConfig, width: int, height: int, spp: int,
                 rr_start)
 
 
-def _hit_core(table: SphereTable, st: PathState, *, cfg: RenderConfig,
-              hit_fn):
-    rec: HitRecordRows = hit_fn(table, st.origin, st.direction, st.time,
+def _hit_core(scene, st: PathState, *, cfg: RenderConfig, hit_fn):
+    """Hit + sky: ``hit_fn(scene, ...)``; a miss adds the sky and ends the
+    path."""
+    rec: HitRecordRows = hit_fn(scene, st.origin, st.direction, st.time,
                                 min_t=cfg.min_hit_t)
     miss = st.path_alive & ~rec.hit
     rad = st.radiance_sum + torch.where(
@@ -165,27 +186,37 @@ def _respawn_core(cam: Camera, st: PathState, salt, step_i, dims: Dims, *,
 
 
 p_respawn_step = _respawn_core
+p_hit_step = _hit_core
 
 
-def p_bounce_step(table: SphereTable, cam: Camera, st: PathState, salt,
-                  step_i, dims: Dims, *, cfg: RenderConfig, hit_fn,
-                  lean: bool = False) -> PathState:
-    """Hit + scatter + respawn, one bounce."""
-    rec, st = _hit_core(table, st, cfg=cfg, hit_fn=hit_fn)
+def p_scatter_respawn_step(cam: Camera, st: PathState, rec: HitRecordRows,
+                           salt, step_i, dims: Dims, *, cfg: RenderConfig,
+                           lean: bool = False) -> PathState:
+    """Scatter + respawn after a hit step."""
     st = _scatter_core(st, rec, salt, step_i, dims, cfg=cfg, lean=lean)
     return _respawn_core(cam, st, salt, step_i, dims, cfg=cfg, lean=lean)
+
+
+def p_bounce_step(scene, cam: Camera, st: PathState, salt, step_i,
+                  dims: Dims, *, cfg: RenderConfig, hit_fn,
+                  lean: bool = False) -> PathState:
+    """Hit + scatter + respawn, one bounce; ``scene`` is what ``hit_fn``
+    reads."""
+    rec, st = p_hit_step(scene, st, cfg=cfg, hit_fn=hit_fn)
+    return p_scatter_respawn_step(cam, st, rec, salt, step_i, dims, cfg=cfg,
+                                  lean=lean)
 
 
 # Bounces per below-floor multi-step (cfg.multi_k = 0).
 _MULTI_K = 4
 
 
-def p_bounce_multi_step(table: SphereTable, cam: Camera, st: PathState, salt,
-                        step0, dims: Dims, *, cfg: RenderConfig, hit_fn,
+def p_bounce_multi_step(scene, cam: Camera, st: PathState, salt, step0,
+                        dims: Dims, *, cfg: RenderConfig, hit_fn,
                         k: int = _MULTI_K, lean: bool = False) -> PathState:
     """``k`` bounces at steps step0..step0+k-1."""
     for i in range(k):
-        st = p_bounce_step(table, cam, st, salt, step0 + i, dims, cfg=cfg,
+        st = p_bounce_step(scene, cam, st, salt, step0 + i, dims, cfg=cfg,
                            hit_fn=hit_fn, lean=lean)
     return st
 
@@ -194,7 +225,7 @@ def p_bounce_multi_step(table: SphereTable, cam: Camera, st: PathState, salt,
 _ONESHOT_SYNC = 8
 
 
-def p_render_oneshot(table: SphereTable, cam: Camera, st: PathState, salt,
+def p_render_oneshot(scene, cam: Camera, st: PathState, salt,
                      step0: int, dims: Dims, max_steps: int, *,
                      cfg: RenderConfig, hit_fn,
                      lean: bool = False) -> PathState:
@@ -207,7 +238,7 @@ def p_render_oneshot(table: SphereTable, cam: Camera, st: PathState, salt,
     while step < max_steps:
         for _ in range(min(_ONESHOT_SYNC, max_steps - step)):
             step += 1
-            st = p_bounce_step(table, cam, st, salt, step, dims, cfg=cfg,
+            st = p_bounce_step(scene, cam, st, salt, step, dims, cfg=cfg,
                                hit_fn=hit_fn, lean=lean)
         if not bool(st.path_alive.any()):
             break
@@ -297,6 +328,94 @@ def _split(st: PathState) -> PathState:
     return PathState(*(torch.cat([a, b], dim=1) for a, b in zip(orig, clone)))
 
 
+# Ray binning (the reference's _bin_sort_core): sort the state before every
+# bounce (_BIN_PERIOD) by (origin cell, chord-exit cell, direction octant),
+# cells on a 4^3 grid over the triangle grid's scene box: 9 + 9 + 3 key
+# bits.  Dead lanes key last (1 << 20) with parked rays.
+_BIN_PERIOD = 1
+_BIN_CELLS = 4
+_BIN_DEAD_KEY = 1 << 20
+_PARK_O = (0.0, -1e9, 0.0)
+_PARK_D = (0.0, 0.0, 1.0)
+
+
+def _spread3(v: torch.Tensor) -> torch.Tensor:
+    """3-bit value -> bits at positions 0, 3, 6."""
+    return (v & 1) | ((v & 2) << 2) | ((v & 4) << 4)
+
+
+def _bin_sort_core(st: PathState, *, box) -> PathState:
+    """One stable sort of the whole state by chord bucket.
+
+    ``box`` = (lo_x, lo_y, lo_z, inv_ext_x, inv_ext_y, inv_ext_z) of the
+    grid's scene box (_derive_bin_box).  The key is computed in f32 as the
+    reference computes it: the float64 products ``box[3 + ax] * n_c`` and
+    hi sides ``lo + 1 / inv_ext`` are rounded to f32 once, cells truncate
+    toward zero and clamp to [0, n_c).  Lane order changes which draws a
+    sample sees, so binned images match unbinned ones statistically, as a
+    different compaction cadence does."""
+    alive = st.path_alive
+    o, d = st.origin, st.direction
+    n_c = _BIN_CELLS
+
+    def morton(p):
+        code = torch.zeros_like(p[0], dtype=torch.int32)
+        for ax in range(3):
+            c = (p[ax] - float(np.float32(box[ax]))) * float(
+                np.float32(box[3 + ax] * n_c))
+            # Clamp before the cast so out-of-range values saturate alike
+            # on every device (the clip after it is the reference's).
+            c = torch.clamp(c, -1.0, float(n_c)).to(torch.int32)
+            code = code | (_spread3(torch.clamp(c, 0, n_c - 1)) << ax)
+        return code
+
+    eps = float(np.float32(1e-12))
+    hi_t = torch.full_like(o[0], float(np.float32(1e8)))
+    for ax in range(3):
+        dn = torch.where(d[ax].abs() < eps,
+                         torch.where(d[ax] < 0, -eps, eps), d[ax])
+        lo_p = float(np.float32(box[ax]))
+        hi_p = float(np.float32(box[ax] + 1.0 / box[3 + ax]))
+        ta = (lo_p - o[ax]) / dn
+        tb = (hi_p - o[ax]) / dn
+        hi_t = torch.minimum(hi_t, torch.maximum(ta, tb))
+    hi_t = torch.clamp_min(hi_t, 0.0)
+    exit_p = [o[ax] + hi_t * d[ax] for ax in range(3)]
+    octant = ((d[0] < 0).to(torch.int32) | ((d[1] < 0).to(torch.int32) << 1)
+              | ((d[2] < 0).to(torch.int32) << 2))
+    key_val = (morton(o) << 9) | (morton(exit_p) << 3) | octant
+    key = torch.where(alive[0], key_val, _BIN_DEAD_KEY)
+
+    park_o = o.new_tensor(_PARK_O)[:, None]
+    park_d = d.new_tensor(_PARK_D)[:, None]
+    st = st._replace(origin=torch.where(alive, o, park_o),
+                     direction=torch.where(alive, d, park_d))
+    perm = torch.sort(key, stable=True).indices
+    return PathState(*(x[:, perm] for x in st))
+
+
+def _derive_bin_box(cfg: RenderConfig, scene):
+    """The ray-binning box of a hit scene: on ("auto" or "on") whenever the
+    triangle side is a TriGridScene; None when binning is off or
+    inapplicable."""
+    if cfg.ray_binning == "off":
+        return None
+    g = scene if isinstance(scene, TriGridScene) else getattr(
+        scene, "triangles", None)
+    if isinstance(g, TriGridScene):
+        sb = g.scene_box.cpu().numpy().astype(np.float64)
+        lo3 = sb[0::2]
+        ext = np.maximum(sb[1::2] - sb[0::2], 1e-6)
+    elif cfg.ray_binning == "on":
+        raise ValueError(
+            "ray_binning='on' needs a grid-accelerated scene "
+            f"(got {type(scene).__name__})")
+    else:
+        return None
+    return (float(lo3[0]), float(lo3[1]), float(lo3[2]),
+            float(1.0 / ext[0]), float(1.0 / ext[1]), float(1.0 / ext[2]))
+
+
 def _alive_count(alive: torch.Tensor):
     """Start reading the alive count; returns a callable that waits for it.
     On a card the count is copied back behind an event, so the caller can
@@ -319,18 +438,14 @@ _SUPPORTED = {
     "scatter_backend": (("auto",), "Queue 1 item 7 (split path)"),
     "hit_kernel": (("auto", "v7"), "Queue 1 item 7 (split path)"),
     "fuse_bounce": (("auto", "on"), "Queue 1 item 7 (split path)"),
-    "accel": (("auto", "off"), "Queue 1 item 10 (sphere grid)"),
-    "ray_binning": (("auto", "off"), "Queue 1 items 9-10 (ray binning)"),
     "redistribute": (("auto", "off"), "Queue 1 item 7 (redistribute)"),
-    "tri_tile_rows": ((0,), "Queue 1 item 9 (triangles)"),
-    "tri_ray_block": ((0,), "Queue 1 item 9 (triangles)"),
-    "tri_early_exit": (("auto",), "Queue 1 item 9 (triangles)"),
-    "tri_any_skip": (("auto",), "Queue 1 item 9 (triangles)"),
-    "tri_sub_gate": ((0,), "Queue 1 item 9 (triangles)"),
-    "tri_gather": (("auto",), "Queue 1 item 9 (triangles)"),
-    "tri_partition": (("auto",), "Queue 1 item 9 (triangles)"),
-    "tri_rebin": (("auto", "off"), "Queue 1 item 9 (triangles)"),
-    "tri_dda_k": ((0,), "Queue 1 item 9 (triangles)"),
+    # Kernel D takes its any-touch skip per CTA and per warp, not per
+    # sub-group of a ray block.
+    "tri_sub_gate": ((0,), "Queue 1 item 9 (tri_sub_gate sub-group gates)"),
+    "tri_rebin": (("auto", "off"), "Queue 1 item 9 (tri_rebin working-set "
+                  "sort and DDA, kernels/tri_rebin.py and tri_dda.py)"),
+    "tri_dda_k": ((0,), "Queue 1 item 9 (tri_rebin working-set sort and "
+                  "DDA, kernels/tri_rebin.py and tri_dda.py)"),
     "one_shot": (("auto", "off"), "Queue 1 item 7 (one_shot on/staged)"),
     "multi_backend": (("", "xla"), "Queue 2 (p_bounce_multi_fused)"),
     "compactor": (("", "sort"), "Queue 1 item 7 (route compactor)"),
@@ -343,8 +458,19 @@ _SUPPORTED = {
 }
 
 
-def check_supported(cfg: RenderConfig) -> None:
-    """Raise NotImplementedError for a knob value this port does not run."""
+def check_supported(cfg: RenderConfig, scene=None) -> None:
+    """Raise NotImplementedError for a knob value this port does not run
+    (after the reference's ValueError checks of the triangle knobs).
+    ``accel="grid"`` runs for scenes with triangles; the sphere grid is
+    not ported."""
+    from .kernels.dispatch import validate_tri_knobs
+    validate_tri_knobs(cfg)
+    has_tris = isinstance(scene, TriangleScene) or (
+        isinstance(scene, CompositeScene) and scene.triangles is not None)
+    if cfg.accel == "grid" and not has_tris:
+        raise NotImplementedError(
+            "RenderConfig.accel='grid' on a sphere scene is not ported yet: "
+            "ROADMAP Queue 1 item 10 (sphere grid)")
     for field, (ok, item) in _SUPPORTED.items():
         val = getattr(cfg, field)
         if val not in ok:
@@ -353,15 +479,15 @@ def check_supported(cfg: RenderConfig) -> None:
                 f"{item}; supported: {list(ok)}")
 
 
-def render_image_persistent(scene: SphereScene, cam: Optional[Camera],
+def render_image_persistent(scene: Scene, cam: Optional[Camera],
                             cfg: RenderConfig) -> torch.Tensor:
     """Render the full image on the scene's device; returns linear radiance
     [H, W, 3] f32.  Bounces run through the kernels (cfg.backend "auto" or
     "pallas") or the plain torch ops ("jnp")."""
     from .kernels.bounce import bounce, bounce_plain, pack_camera
-    from .kernels.dispatch import get_hit_fn_rows, resolve_backend
+    from .kernels.dispatch import get_hit_fn_rows_accel, resolve_backend
 
-    check_supported(cfg)
+    check_supported(cfg, scene)
     if isinstance(cam, (list, tuple)) and not isinstance(cam, Camera):
         raise NotImplementedError(
             "multi-frame camera lists are not ported yet: ROADMAP Queue 1 "
@@ -370,10 +496,15 @@ def render_image_persistent(scene: SphereScene, cam: Optional[Camera],
     if cam is None:
         cam = default_camera(cfg.width, cfg.height)
     cam = cam.to(device)
-    table = sphere_table(scene)
-    hit_fn = get_hit_fn_rows(cfg, device)
-    kernels = resolve_backend(cfg, device) == "kernels"
-    fused = bounce if kernels else bounce_plain
+    # The hit scene: the sphere table, the triangle table or grid, or a
+    # composite of those (kernels/dispatch.py).
+    hit_scene, hit_fn = get_hit_fn_rows_accel(cfg, scene)
+    bin_box = _derive_bin_box(cfg, hit_scene)
+    # Kernel B sweeps spheres only.
+    fused = None
+    if isinstance(hit_scene, SphereTable):
+        kernels = resolve_backend(cfg, device) == "kernels"
+        fused = bounce if kernels else bounce_plain
 
     if cfg.compact_quantum < 0:
         raise ValueError(f"compact_quantum must be >= 0 (0 = auto), got "
@@ -399,27 +530,33 @@ def render_image_persistent(scene: SphereScene, cam: Optional[Camera],
     dims = make_dims(cfg, w, h, spp, kpp)
     cam_rows = pack_camera(cam)
     mk = cfg.multi_k or _MULTI_K
-    one_shot = "chunk" if cfg.one_shot == "auto" else cfg.one_shot
+    # "auto" runs chunks that start at or below the floor as one shot, but
+    # not when the state is re-binned between bounces.
+    one_shot = cfg.one_shot
+    if one_shot == "auto":
+        one_shot = "chunk" if bin_box is None else "off"
 
     accum = torch.zeros((3, h * w), dtype=torch.float32, device=device)
 
     def do_steps(st, k, step, salt):
         tail = st.pixel.shape[1] <= _COMPACT_FLOOR
-        if tail:
+        if tail and bin_box is None:
             while k >= mk:
-                st = p_bounce_multi_step(table, cam, st, salt, step + 1,
+                st = p_bounce_multi_step(hit_scene, cam, st, salt, step + 1,
                                          dims, cfg=cfg, hit_fn=hit_fn, k=mk,
                                          lean=lean)
                 step += mk
                 k -= mk
         for _ in range(k):
             step += 1
-            if tail:
-                st = p_bounce_step(table, cam, st, salt, step, dims, cfg=cfg,
-                                   hit_fn=hit_fn, lean=lean)
+            if bin_box is not None and (step - 1) % _BIN_PERIOD == 0:
+                st = _bin_sort_core(st, box=bin_box)
+            if tail or fused is None:
+                st = p_bounce_step(hit_scene, cam, st, salt, step, dims,
+                                   cfg=cfg, hit_fn=hit_fn, lean=lean)
             else:
-                st = fused(table, cam_rows, st, salt, step, dims, cfg=cfg,
-                           lean=lean)
+                st = fused(hit_scene, cam_rows, st, salt, step, dims,
+                           cfg=cfg, lean=lean)
         return st, step
 
     def run_loop(st, accum, salt, state_sorted):
@@ -495,11 +632,14 @@ def render_image_persistent(scene: SphereScene, cam: Optional[Camera],
         salt = (cfg.seed * 0x9E3779B1 ^ (y0 + 1) * 0x85EBCA77) & 0xFFFFFFFF
         st = p_respawn_step(cam, st, salt, 0, dims, cfg=cfg, lean=lean)
         if one_shot == "chunk" and n <= _COMPACT_FLOOR:
-            st = p_render_oneshot(table, cam, st, salt, 0, dims, max_steps,
-                                  cfg=cfg, hit_fn=hit_fn, lean=lean)
+            st = p_render_oneshot(hit_scene, cam, st, salt, 0, dims,
+                                  max_steps, cfg=cfg, hit_fn=hit_fn,
+                                  lean=lean)
         else:
-            st, accum = run_loop(st, accum, salt,
-                                 state_sorted=h * w * kpp < _SORT_PIX_LIM)
+            # Binning breaks the pixel order the argsort-free flush needs.
+            st, accum = run_loop(
+                st, accum, salt,
+                state_sorted=bin_box is None and h * w * kpp < _SORT_PIX_LIM)
         # Flush this chunk's remaining radiance.
         accum.index_add_(1, st.pixel[0] // kpp, st.radiance_sum)
 

@@ -8,8 +8,8 @@ import numpy as np
 import torch
 
 from .config import RenderConfig, resolve_scheduler
+from .persistent import Scene
 from .scene.camera import Camera, default_camera
-from .scene.spheres import SphereScene
 
 
 def tonemap(linear: torch.Tensor) -> torch.Tensor:
@@ -27,10 +27,10 @@ def render_image(scene, cam, cfg):
         "scheduler='persistent'")
 
 
-def render(scene: SphereScene, cam: Optional[Camera] = None,
+def render(scene: Scene, cam: Optional[Camera] = None,
            cfg: Optional[RenderConfig] = None) -> np.ndarray:
-    """Render to a u8 [H, W, 3] image (top row first) on the scene's
-    device."""
+    """Render a sphere, triangle or composite scene to a u8 [H, W, 3] image
+    (top row first) on the scene's device."""
     cfg = cfg or RenderConfig()
     if cam is None:
         cam = default_camera(cfg.width, cfg.height, device=scene.device)

@@ -3,13 +3,19 @@
 * :func:`test_scene`   — ``getTestScene`` (RayTracer.cpp:707-765)
 * :func:`random_scene` — ``generateRandomScene`` (RayTracer.cpp:768-891),
   the RTIOW final scene, laid out with the reference's seed-666 LCG.
+* :func:`mesh_scene`   — the composite demo of spheres and meshes
+  (extension; BASELINE.json config 4).
 """
 
 from __future__ import annotations
 
+import numpy as np
+
 from ..core import materials as mat
 from ..core.rng import ReferenceLcg
+from .composite import CompositeScene
 from .spheres import LANE_PAD, SceneBuilder, SphereScene
+from .triangles import box_mesh, build_triangle_scene, icosphere_mesh
 
 
 def test_scene(pad_to: int = LANE_PAD, device="cpu") -> SphereScene:
@@ -68,21 +74,44 @@ def random_scene(seed: int = 666, pad_to: int = LANE_PAD,
     return b.build(pad_to, device)
 
 
-def _mesh_scene(*_args, **_kw):
-    raise NotImplementedError(
-        "mesh scenes need the triangle path (ROADMAP Queue 1 item 9)")
+def mesh_scene(pad_to: int = LANE_PAD, subdivisions: int = 2,
+               device="cpu") -> CompositeScene:
+    """Diffuse ground and two hero spheres plus a metal icosphere mesh and a
+    glass box mesh.  ``subdivisions`` sets the icosphere's density: 2 ->
+    320 triangles (332 with the box: the brute sweep), 5 -> 20480 (the
+    Morton-tile grid, tri_accel.py)."""
+    b = SceneBuilder()
+    b.add_lambertian((0.0, -1000.0, 0.0), 1000.0, (0.5, 0.5, 0.5))
+    b.add_lambertian((-2.5, 1.0, -1.0), 1.0, (0.4, 0.2, 0.1))
+    b.add_dielectric((2.5, 1.0, -1.0), 1.0, 1.5)
+    spheres = b.build(pad_to, device)
+
+    v1, f1 = icosphere_mesh((0.0, 1.0, 0.0), 1.0, subdivisions=subdivisions)
+    v2, f2 = box_mesh((0.0, 0.35, 2.2), (0.7, 0.7, 0.7))
+    verts = np.concatenate([v1, v2], axis=0)
+    faces = np.concatenate([f1, f2 + len(v1)], axis=0)
+    mats = np.concatenate([np.full(len(f1), mat.METAL, np.int32),
+                           np.full(len(f2), mat.DIELECTRIC, np.int32)])
+    albs = np.concatenate([np.tile([0.8, 0.7, 0.6], (len(f1), 1)),
+                           np.tile([1.0, 1.0, 1.0], (len(f2), 1))]).astype(np.float32)
+    tris = build_triangle_scene(verts, faces, mat_id=mats, albedo=albs,
+                                fuzz=0.05, ior=1.5, pad_to=pad_to,
+                                device=device)
+    return CompositeScene(spheres=spheres, triangles=tris)
 
 
 SCENES = {
     "test": test_scene,
     "random": random_scene,
     "final": random_scene,  # alias: RTIOW "final scene"
-    "mesh": _mesh_scene,
-    "mesh20k": _mesh_scene,
+    "mesh": mesh_scene,
+    # 20480-triangle icosphere + glass box + spheres: BASELINE config 4.
+    "mesh20k": lambda pad_to=LANE_PAD, device="cpu": mesh_scene(
+        pad_to, subdivisions=5, device=device),
 }
 
 
-def get_scene(name: str, **kw) -> SphereScene:
+def get_scene(name: str, **kw):
     try:
         builder = SCENES[name]
     except KeyError:

@@ -49,10 +49,19 @@ _DTYPES = (torch.float32,) * 5 + (torch.int32,) + (torch.float32,) * 3 + (
     torch.bool,)
 
 
-def scene_from_numpy(src, device="cpu") -> SphereScene:
-    """Port scene from any object carrying the ``SphereScene`` fields as
-    arrays (e.g. the JAX package's scene; each field goes through
-    ``np.array``, which copies)."""
+def scene_from_numpy(src, device="cpu"):
+    """Port scene from any object carrying the fields of a ``SphereScene``,
+    a ``TriangleScene`` (scene/triangles.py) or a ``CompositeScene``
+    (scene/composite.py) as arrays, e.g. the JAX package's scene; each
+    field goes through ``np.array``, which copies."""
+    if hasattr(src, "triangles"):
+        from .composite import CompositeScene
+        return CompositeScene(*(None if x is None
+                                else scene_from_numpy(x, device)
+                                for x in (src.spheres, src.triangles)))
+    if hasattr(src, "e1"):
+        from .triangles import triangles_from_numpy
+        return triangles_from_numpy(src, device)
     return SphereScene(*(
         torch.as_tensor(np.array(getattr(src, f)), dtype=dt, device=device)
         for f, dt in zip(SphereScene._fields, _DTYPES)))
