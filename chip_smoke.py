@@ -13,7 +13,16 @@ checks that each kernel of a path ran in it:
   against kernel C, at BASELINE config 4's chunk;
 * phase 8: mesh and mesh20k renders, kernels against plain, then
   ``render("mesh")`` (kernels A and C) and config 4, ``render("mesh20k")``
-  at 800x450, 50 spp (kernels A and D).
+  at 800x450, 50 spp (kernels A and D);
+* phase 9: kernels E (hit + sky) and F (scatter + respawn) against their
+  plain versions, and E then F against kernel B on the headline's chunk;
+* phase 10: kernel B's k-bounce variant against four launches of kernel B
+  and its plain version;
+* phase 11: the headline once per opt-in route (``fuse_bounce="off"``,
+  ``scatter_backend="pallas"``, ``hit_kernel="v4"``,
+  ``multi_backend="fused"``), and config 4 with the pallas scatter;
+* phase 12: BASELINE config 5, an 8-frame flythrough of the final scene at
+  640x480, 32 spp, through ``render_animation`` (kernel B on 8 cameras).
 
 Each phase prints one line or more; any failure raises, so the exit code is
 non-zero.  Before the last line, a ``{"kernels": [...]}`` line (each
@@ -57,9 +66,84 @@ PEAK_BYTES = 3.35e12    # B/s
 # subtractions and the division, and 6 compares.
 OPS_SPHERE_PAIR = 27
 OPS_TRI_PAIR = 52
+# Kernel F's f32 operations, an upper count from csrc/common.cuh: scatter
+# and roulette ~200 per live lane (each transcendental call as one), draws
+# and respawn ~60 per lane.  Its bytes bound it by an order of magnitude.
+OPS_SCATTER_LIVE = 200
+OPS_RESPAWN = 60
+CAM_BYTES = 21 * 4  # one packed camera
 # Bytes per lane a hit kernel writes: the record (12 f32, 2 i32, a flag).
 RECORD_BYTES = 57
 EPS32 = 2.0 ** -24
+
+
+def _counters() -> dict:
+    """Each kernel's launch counter: (module, attribute)."""
+    from win32_raytracer_tpu_torch.kernels import bounce as B
+    from win32_raytracer_tpu_torch.kernels import hit as K
+    from win32_raytracer_tpu_torch.kernels import hit_sky as E
+    from win32_raytracer_tpu_torch.kernels import scatter as F
+    from win32_raytracer_tpu_torch.kernels import tri as KC
+    from win32_raytracer_tpu_torch.kernels import tri_grid as KD
+    return {"hit": (K, "LAUNCHES"), "bounce": (B, "LAUNCHES"),
+            "bounce_multi": (B, "MULTI_LAUNCHES"), "hit_sky": (E, "LAUNCHES"),
+            "scatter": (F, "LAUNCHES"), "tri": (KC, "LAUNCHES"),
+            "tri_grid": (KD, "LAUNCHES")}
+
+
+def reset_launches() -> None:
+    for mod, attr in _counters().values():
+        setattr(mod, attr, 0)
+
+
+def launches() -> dict:
+    return {k: getattr(mod, attr) for k, (mod, attr) in _counters().items()}
+
+
+def check_route(got: dict, ran: tuple, allowed: tuple, what: str) -> None:
+    """Every kernel of ``ran`` launched; none launched outside ``ran`` and
+    ``allowed``."""
+    check(all(got[k] > 0 for k in ran),
+          f"{what}: a kernel of the route was not launched: {got}")
+    stray = {k: v for k, v in got.items() if v and k not in ran + allowed}
+    check(not stray, f"{what}: kernels off the route launched: {stray}")
+
+
+def exact_cmp(a, b) -> tuple:
+    """Lanes where two tuples of [rows, N] tensors differ in any field,
+    and the largest |a - b| over their float fields."""
+    n = a[0].shape[-1]
+    bad = torch.zeros(n, dtype=torch.bool, device=a[0].device)
+    err = 0.0
+    for x, y in zip(a, b):
+        bad |= (x != y).reshape(-1, n).any(0)
+        if x.is_floating_point() and x.numel():
+            err = max(err, float((x - y).abs().max()))
+    return int(bad.sum()), err
+
+
+def random_state(dev, n: int, quota: int, seed: int = 11):
+    """A random path state: rays from anywhere in the final scene's box,
+    a fifth of the lanes dead, pixel ids 0..n-1."""
+    from win32_raytracer_tpu_torch.persistent import PathState
+    rng = np.random.default_rng(seed)
+
+    def t(x, dt=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dt, device=dev).contiguous()
+
+    return PathState(
+        origin=t(rng.uniform(-12, 12, (3, n))),
+        direction=t(rng.normal(0, 1, (3, n))),
+        time=t(rng.uniform(0, 0.05, (1, n))),
+        throughput=t(rng.uniform(0, 1, (3, n))),
+        radiance_sum=t(rng.uniform(0, 1, (3, n))),
+        depth=t(np.ones((1, n)), torch.int32),
+        sample=t(np.zeros((1, n)), torch.int32),
+        pixel=t(np.arange(n)[None], torch.int32),
+        path_alive=t(rng.uniform(0, 1, (1, n)) < 0.8, torch.bool),
+        s_base=t(np.zeros((1, n)), torch.int32),
+        s_quota=t(np.full((1, n), quota), torch.int32),
+    )
 
 
 def card_line() -> str:
@@ -266,6 +350,7 @@ class Smoke:
         self.card = card
         self.dev = torch.device("cuda")
         self.kernels = {}
+        self.small_mesh_means = {}   # plain small-render means (phase 8)
 
     def say(self, phase: str, msg: str) -> None:
         print(f"[{phase}] {msg}", flush=True)
@@ -326,32 +411,15 @@ class Smoke:
     def kernel_b(self):
         from win32_raytracer_tpu_torch.config import RenderConfig
         from win32_raytracer_tpu_torch.kernels import bounce as B
-        from win32_raytracer_tpu_torch.persistent import PathState, make_dims
+        from win32_raytracer_tpu_torch.persistent import make_dims
         from win32_raytracer_tpu_torch.scene.camera import default_camera
 
         # Sizes that are not powers of two, so a reciprocal-multiply in
         # place of a division cannot hide.
         w, h, spp, kpp = 640, 205, 12, 2
         n = 1 << 18
-        rng = np.random.default_rng(11)
         dev = self.dev
-
-        def t(x, dt=torch.float32):
-            return torch.as_tensor(np.asarray(x), dtype=dt, device=dev).contiguous()
-
-        st = PathState(
-            origin=t(rng.uniform(-12, 12, (3, n))),
-            direction=t(rng.normal(0, 1, (3, n))),
-            time=t(rng.uniform(0, 0.05, (1, n))),
-            throughput=t(rng.uniform(0, 1, (3, n))),
-            radiance_sum=t(rng.uniform(0, 1, (3, n))),
-            depth=t(np.ones((1, n)), torch.int32),
-            sample=t(np.zeros((1, n)), torch.int32),
-            pixel=t(np.arange(n)[None], torch.int32),
-            path_alive=t(rng.uniform(0, 1, (1, n)) < 0.8, torch.bool),
-            s_base=t(np.zeros((1, n)), torch.int32),
-            s_quota=t(np.full((1, n), spp // kpp), torch.int32),
-        )
+        st = random_state(dev, n, spp // kpp)
         cam_rows = B.pack_camera(default_camera(w, h, device=dev))
         for lean, extra in ((True, {}),
                             (False, dict(russian_roulette=True,
@@ -401,30 +469,26 @@ class Smoke:
     def headline(self):
         from win32_raytracer_tpu_torch.api import render
         from win32_raytracer_tpu_torch.config import RenderConfig
-        from win32_raytracer_tpu_torch.kernels import bounce as B
-        from win32_raytracer_tpu_torch.kernels import hit as K
 
         cfg = RenderConfig(**HEADLINE)
         warm = render("final", cfg=cfg, device="cuda")
         self.say("5 headline", f"warm run {warm.duration_ms / 1e3:.3f} s, "
                  f"mean {warm.image.mean():.3f} [{self.card}]")
-        K.LAUNCHES = 0
-        B.LAUNCHES = 0
+        reset_launches()
         torch.cuda.synchronize()
         res = render("final", cfg=cfg, device="cuda")
-        launches = {"hit": K.LAUNCHES, "bounce": B.LAUNCHES}
+        got = launches()
         mean = float(res.image.mean())
         wall = res.duration_ms / 1e3
         self.say("5 headline", f"final 1200x800@100 spp: {wall:.4f} s, "
                  f"{res.mrays_per_sec:.3f} Mrays/s, image mean {mean:.3f} "
-                 f"(170.1 +- 1.5), launches {launches} [{self.card}]")
+                 f"(170.1 +- 1.5), launches {got} [{self.card}]")
         check(res.image.shape == (800, 1200, 3), f"image shape {res.image.shape}")
-        check(all(v > 0 for v in launches.values()),
-              f"a kernel was not launched on the main path: {launches}")
+        check_route(got, ("hit", "bounce"), (), "headline")
         check(abs(mean - HEADLINE_MEAN) <= HEADLINE_MEAN_TOL,
               f"headline image mean {mean}")
-        for name, v in launches.items():
-            self.kernels.setdefault(name, {})["launches"] = v
+        for name in ("hit", "bounce"):
+            self.kernels.setdefault(name, {})["launches"] = got[name]
 
     # ---- kernels at main-path shapes: agreement and times -----------------
     def kernel_main_shapes(self):
@@ -683,12 +747,9 @@ class Smoke:
         import win32_raytracer_tpu_torch.persistent as P
         from win32_raytracer_tpu_torch.api import render
         from win32_raytracer_tpu_torch.config import RenderConfig
-        from win32_raytracer_tpu_torch.kernels import hit as K
-        from win32_raytracer_tpu_torch.kernels import tri as KC
-        from win32_raytracer_tpu_torch.kernels import tri_grid as KD
 
         small = RenderConfig(**SMALL_MESH)
-        means = {}
+        means = self.small_mesh_means
         for name in ("mesh", "mesh20k"):
             rk = render(name, cfg=small, device=self.dev)
             rp = render(name, cfg=small.replace(backend="jnp"), device=self.dev)
@@ -714,29 +775,415 @@ class Smoke:
             for name, path in (("mesh", ("hit", "tri")),
                                ("mesh20k", ("hit", "tri_grid"))):
                 warm = render(name, cfg=cfg, device=self.dev)
-                K.LAUNCHES = KC.LAUNCHES = KD.LAUNCHES = 0
+                reset_launches()
                 sorts.clear()
                 torch.cuda.synchronize()
                 res = render(name, cfg=cfg, device=self.dev)
-                launches = {"hit": K.LAUNCHES, "tri": KC.LAUNCHES,
-                            "tri_grid": KD.LAUNCHES}
+                got = launches()
                 mean = float(res.image.mean())
                 self.say("8 " + name, f"{name} {cfg.width}x{cfg.height}@"
                          f"{cfg.samples} spp: {res.duration_ms / 1e3:.4f} s "
                          f"(warm run {warm.duration_ms / 1e3:.4f} s), "
                          f"{res.mrays_per_sec:.3f} Mrays/s, image mean {mean:.3f} "
-                         f"(small plain {means[name]:.3f}), launches {launches}, "
+                         f"(small plain {means[name]:.3f}), launches {got}, "
                          f"binned bounces {len(sorts)} [{self.card}]")
                 check(res.image.shape == (cfg.height, cfg.width, 3),
                       f"image shape {res.image.shape}")
-                check(all(launches[k] > 0 for k in path),
-                      f"a kernel was not launched on the {name} path: {launches}")
+                check_route(got, path, (), name)
                 check(abs(mean - means[name]) <= 3.0,
                       f"{name} image mean {mean} far from the small render's")
                 for k in path[1:]:
-                    self.kernels.setdefault(k, {})["launches"] = launches[k]
+                    self.kernels.setdefault(k, {})["launches"] = got[k]
         finally:
             P._bin_sort_core = real_sort
+
+
+    # ---- phase 9 ----------------------------------------------------------
+    def split_kernels(self):
+        """Kernels E (hit + sky) and F (scatter + respawn) against their
+        plain versions on random states (a fifth of the lanes dead, every
+        material hit; lean and not; F, and kernel B beside it, on one
+        camera and on three), then E followed by F against kernel B on the
+        headline's chunk of 3,932,160 lanes, where all three are timed.
+        Every comparison must be exact: 0 lanes differ, max |err| 0."""
+        from win32_raytracer_tpu_torch.animation import orbit_path
+        from win32_raytracer_tpu_torch.config import RenderConfig
+        from win32_raytracer_tpu_torch.kernels import bounce as B
+        from win32_raytracer_tpu_torch.kernels import hit_sky as E
+        from win32_raytracer_tpu_torch.kernels import scatter as F
+        from win32_raytracer_tpu_torch.persistent import make_dims
+        from win32_raytracer_tpu_torch.scene.camera import default_camera
+
+        dev, table = self.dev, self.table
+        # Not powers of two; three frames of 69 rows span the 2^18 pixel ids.
+        w, h, spp, kpp = 640, 69, 12, 2
+        n = 1 << 18
+        st = random_state(dev, n, spp // kpp, seed=21)
+        cfg = RenderConfig(width=w, height=h, samples=spp, lanes_per_pixel=kpp)
+        rk, sk = E.hit_sky(table, st, cfg=cfg)
+        rp, sp = E.hit_sky_plain(table, st, cfg=cfg)
+        d_e, err_e = exact_cmp(tuple(rk) + tuple(sk), tuple(rp) + tuple(sp))
+        live_hit = (rp.hit & st.path_alive)[0]
+        mats = torch.bincount(rp.mat_id[0][live_hit].long(), minlength=3).tolist()
+        self.say("9 kernel E", f"{n} random lanes ({int(st.path_alive.sum())} "
+                 f"live; live hits by material lambertian/metal/dielectric "
+                 f"{mats}): record, radiance and alive vs plain: {d_e} lanes "
+                 f"differ, max |err| {err_e:.3e}")
+        check(d_e == 0 and err_e == 0.0, f"kernel E vs plain: {d_e} lanes, {err_e}")
+        check(min(mats) > 0, f"a material was not hit: {mats}")
+        errs = {"hit_sky": err_e, "scatter": 0.0}
+
+        cams = {"1 camera": B.pack_camera(default_camera(w, h, device=dev)),
+                "3 cameras": B.pack_cameras(orbit_path(n_frames=3, aspect_ratio=w / h,
+                                                       device=dev))}
+        for lean, extra in ((True, {}),
+                            (False, dict(russian_roulette=True,
+                                         rr_start_depth=1, stratify=True))):
+            cfg = RenderConfig(width=w, height=h, samples=spp,
+                               lanes_per_pixel=kpp, **extra)
+            dims = make_dims(cfg, w, h, spp, kpp)
+            for label, cam_rows in cams.items():
+                args = (cam_rows, sk, rk, 0xABC123, 4, dims)
+                fk = F.scatter_respawn(*args, cfg=cfg, lean=lean)
+                fp = F.scatter_respawn_plain(*args, cfg=cfg, lean=lean)
+                bargs = (table, cam_rows, st, 0xABC123, 4, dims)
+                bk = B.bounce(*bargs, cfg=cfg, lean=lean)
+                bp = B.bounce_plain(*bargs, cfg=cfg, lean=lean)
+                res = {"F vs plain": exact_cmp(fk, fp),
+                       "B vs plain": exact_cmp(bk, bp),
+                       "E then F vs B": exact_cmp(fk, bk)}
+                errs["scatter"] = max(errs["scatter"], res["F vs plain"][1])
+                self.say("9 kernel F", f"lean={lean}, {label}: " + "; ".join(
+                    f"{k} {d} lanes differ, max |err| {e:.3e}"
+                    for k, (d, e) in res.items()))
+                for k, (d, e) in res.items():
+                    check(d == 0 and e == 0.0, f"{k} (lean={lean}, {label}): "
+                          f"{d} lanes differ, max |err| {e}")
+        del st, rk, sk, rp, sp, fk, fp, bk, bp
+
+        # The headline's chunk: bounces 1 and 2 as kernel B runs them.
+        cfg = RenderConfig(**HEADLINE)
+        st, dims, cam = fresh_chunk(cfg, dev)
+        cam_rows = B.pack_camera(cam)
+        n = st.pixel.shape[1]
+        state = st
+        for step in (1, 2):
+            rk, sk = E.hit_sky(table, state, cfg=cfg)
+            rp, sp = E.hit_sky_plain(table, state, cfg=cfg)
+            fk = F.scatter_respawn(cam_rows, sk, rk, 12345, step, dims, cfg=cfg,
+                                   lean=True)
+            fp = F.scatter_respawn_plain(cam_rows, sk, rk, 12345, step, dims,
+                                         cfg=cfg, lean=True)
+            bk = B.bounce(table, cam_rows, state, 12345, step, dims, cfg=cfg,
+                          lean=True)
+            res = {"E vs plain": exact_cmp(tuple(rk) + tuple(sk),
+                                           tuple(rp) + tuple(sp)),
+                   "F vs plain": exact_cmp(fk, fp),
+                   "E then F vs B": exact_cmp(fk, bk)}
+            errs["hit_sky"] = max(errs["hit_sky"], res["E vs plain"][1])
+            errs["scatter"] = max(errs["scatter"], res["F vs plain"][1])
+            self.say("9 headline", f"bounce {step} at {n} lanes: " + "; ".join(
+                f"{k} {d} lanes differ, max |err| {e:.3e}"
+                for k, (d, e) in res.items()))
+            for k, (d, e) in res.items():
+                check(d == 0 and e == 0.0,
+                      f"{k} (headline bounce {step}): {d} lanes, {e}")
+            state = bk
+            del rk, sk, rp, sp, fk, fp
+        del state, bk
+
+        rk, sk = E.hit_sky(table, st, cfg=cfg)
+        live = int(sk.path_alive.sum())
+        fargs = (cam_rows, sk, rk, 12345, 1, dims)
+        times = {
+            "hit_sky": (cuda_ms(lambda: E.hit_sky(table, st, cfg=cfg), 10),
+                        cuda_ms(lambda: E.hit_sky_plain(table, st, cfg=cfg), 2)),
+            "scatter": (cuda_ms(lambda: F.scatter_respawn(*fargs, cfg=cfg, lean=True), 20),
+                        cuda_ms(lambda: F.scatter_respawn_plain(*fargs, cfg=cfg, lean=True), 3)),
+        }
+        b_ms = cuda_ms(lambda: B.bounce(table, cam_rows, st, 12345, 1, dims,
+                                        cfg=cfg, lean=True), 10)
+        # Bounds on these inputs: E sweeps every active sphere for every
+        # lane (53 bytes in, the record, radiance and alive out: 70); F
+        # reads 61 bytes of state per lane and the 48-byte record of the
+        # live ones, and writes 49 bytes per lane.
+        active = int(table.active.sum())
+        table_bytes = table.attrs.numel() * 4 + table.active.numel()
+        bounds = {
+            "hit_sky": bound(n * active * OPS_SPHERE_PAIR,
+                             n * (53 + 70) + table_bytes),
+            "scatter": bound(live * OPS_SCATTER_LIVE + n * OPS_RESPAWN,
+                             n * (61 + 49) + live * 48 + CAM_BYTES),
+        }
+        for name, (ms, plain) in times.items():
+            self.kernels.setdefault(name, {}).update(
+                ms=ms, plain_ms=plain, max_abs_err=errs[name],
+                bound_ms=bounds[name][0], bound_by=bounds[name][1])
+        self.say("9 times", f"at {n} lanes ({live} live after the hit): "
+                 f"kernel E {times['hit_sky'][0]:.3f} ms (plain "
+                 f"{times['hit_sky'][1]:.3f}, bound {bounds['hit_sky'][0]:.4f} "
+                 f"{bounds['hit_sky'][1]}), kernel F {times['scatter'][0]:.3f} ms "
+                 f"(plain {times['scatter'][1]:.3f}, bound "
+                 f"{bounds['scatter'][0]:.4f} {bounds['scatter'][1]}); E + F "
+                 f"{times['hit_sky'][0] + times['scatter'][0]:.3f} ms vs kernel B "
+                 f"{b_ms:.3f} ms on the same bounce [{self.card}]")
+
+    # ---- phase 10 ---------------------------------------------------------
+    def kernel_b_multi(self):
+        """Kernel B's k-bounce variant (k = 4) at 524,288 lanes, the largest
+        batch the below-floor tail hands it (lanes of the headline's chunk
+        after two bounces, spread over the image): against four launches
+        of kernel B and its plain version, exactly; then on a random state
+        with roulette, stratification and three cameras against its plain
+        version; timed against four launches of kernel B."""
+        from win32_raytracer_tpu_torch.animation import orbit_path
+        from win32_raytracer_tpu_torch.config import RenderConfig
+        from win32_raytracer_tpu_torch.kernels import bounce as B
+        from win32_raytracer_tpu_torch.persistent import (
+            _COMPACT_FLOOR, PathState, make_dims)
+
+        dev, table, k = self.dev, self.table, 4
+        cfg = RenderConfig(**HEADLINE)
+        st, dims, cam = fresh_chunk(cfg, dev)
+        cam_rows = B.pack_camera(cam)
+        for step in (1, 2):
+            st = B.bounce(table, cam_rows, st, 12345, step, dims, cfg=cfg, lean=True)
+        m = _COMPACT_FLOOR
+        pick = torch.linspace(0, st.pixel.shape[1] - 1, m, device=dev).long()
+        sub = PathState(*(x[:, pick].contiguous() for x in st))
+        del st
+        args = (table, cam_rows, sub, 12345, 3, dims)
+
+        def four_launches():
+            s = sub
+            for i in range(k):
+                s = B.bounce(table, cam_rows, s, 12345, 3 + i, dims, cfg=cfg,
+                             lean=True)
+            return s
+
+        mk = B.bounce_multi(*args, cfg=cfg, k=k, lean=True)
+        mp = B.bounce_multi_plain(*args, cfg=cfg, k=k, lean=True)
+        live, s = [], sub
+        for i in range(k):
+            live.append(int(s.path_alive.sum()))
+            s = B.bounce(table, cam_rows, s, 12345, 3 + i, dims, cfg=cfg, lean=True)
+        res = {"vs four launches of B": exact_cmp(mk, s),
+               "vs plain": exact_cmp(mk, mp)}
+
+        w, h, spp, kpp = 640, 69, 12, 2
+        rcfg = RenderConfig(width=w, height=h, samples=spp, lanes_per_pixel=kpp,
+                            russian_roulette=True, rr_start_depth=1, stratify=True)
+        rst = random_state(dev, 1 << 18, spp // kpp, seed=31)
+        rcams = B.pack_cameras(orbit_path(n_frames=3, aspect_ratio=w / h, device=dev))
+        rargs = (table, rcams, rst, 0xABC123, 4, make_dims(rcfg, w, h, spp, kpp))
+        res["random, roulette, 3 cameras, vs plain"] = exact_cmp(
+            B.bounce_multi(*rargs, cfg=rcfg, k=k, lean=False),
+            B.bounce_multi_plain(*rargs, cfg=rcfg, k=k, lean=False))
+        self.say("10 kernel B-multi", f"k={k} at {m} lanes (live before each "
+                 f"bounce {live}): " + "; ".join(
+                     f"{name} {d} lanes differ, max |err| {e:.3e}"
+                     for name, (d, e) in res.items()))
+        for name, (d, e) in res.items():
+            check(d == 0 and e == 0.0, f"kernel B-multi {name}: {d} lanes, {e}")
+
+        ms = cuda_ms(lambda: B.bounce_multi(*args, cfg=cfg, k=k, lean=True), 20)
+        four = cuda_ms(four_launches, 20)
+        plain = cuda_ms(lambda: B.bounce_multi_plain(*args, cfg=cfg, k=k, lean=True), 1)
+        active = int(table.active.sum())
+        b = bound(sum(live) * active * OPS_SPHERE_PAIR,
+                  m * (73 + 61) + table.attrs.numel() * 4 + table.active.numel()
+                  + CAM_BYTES)
+        self.kernels.setdefault("bounce_multi", {}).update(
+            ms=ms, plain_ms=plain, bound_ms=b[0], bound_by=b[1],
+            max_abs_err=max(e for _, e in res.values()))
+        self.say("10 times", f"k={k} at {m} lanes: kernel B-multi {ms:.3f} ms, "
+                 f"four launches of kernel B {four:.3f} ms, plain {plain:.3f} ms, "
+                 f"bound {b[0]:.4f} ms ({b[1]}) [{self.card}]")
+
+    # ---- phase 11 ---------------------------------------------------------
+    def routes(self):
+        """The headline once per opt-in route, after small renders of each
+        route (160x120, 16 spp, the compaction floor lowered so the route's
+        kernels run) that must equal the plain path's image exactly; then
+        config 4 with the pallas scatter (kernels A, D and F)."""
+        import win32_raytracer_tpu_torch.persistent as P
+        from win32_raytracer_tpu_torch.api import render
+        from win32_raytracer_tpu_torch.config import RenderConfig
+
+        small = RenderConfig(**ROUTE_SMALL)
+        saved = P._COMPACT_FLOOR
+        P._COMPACT_FLOOR = 1 << 14
+        try:
+            for label, knob, ran, _ in ROUTES:
+                reset_launches()
+                rk = render("final", cfg=small.replace(**knob), device=self.dev)
+                got = launches()
+                rp = render("final", cfg=small.replace(backend="jnp", **knob),
+                            device=self.dev)
+                d = float(np.abs(rk.image.astype(float) - rp.image.astype(float)).mean())
+                self.say("11 small", f"{label} {small.width}x{small.height}@"
+                         f"{small.samples}: kernels vs plain "
+                         f"mean |diff| {d:.4f} (must be 0), means "
+                         f"{rk.image.mean():.3f}/{rp.image.mean():.3f}, "
+                         f"launches {got}")
+                check(d == 0.0, f"route {label}: small render differs from plain")
+                check_route(got, ran, ("hit",), f"small {label}")
+        finally:
+            P._COMPACT_FLOOR = saved
+
+        cfg = RenderConfig(**HEADLINE)
+        for label, knob, ran, reports in ROUTES:
+            c = cfg.replace(**knob)
+            warm = render("final", cfg=c, device=self.dev)
+            reset_launches()
+            torch.cuda.synchronize()
+            res = render("final", cfg=c, device=self.dev)
+            got = launches()
+            mean = float(res.image.mean())
+            self.say("11 " + label, f"final {c.width}x{c.height}@{c.samples} spp: "
+                     f"{res.duration_ms / 1e3:.4f} s (warm run "
+                     f"{warm.duration_ms / 1e3:.4f} s), {res.mrays_per_sec:.3f} "
+                     f"Mrays/s, image mean {mean:.3f} (170.1 +- 1.5), launches "
+                     f"{got} [{self.card}]")
+            check(res.image.shape == (c.height, c.width, 3),
+                  f"image shape {res.image.shape}")
+            check_route(got, ran, ("hit",), label)
+            check(abs(mean - HEADLINE_MEAN) <= HEADLINE_MEAN_TOL,
+                  f"{label}: headline image mean {mean}")
+            if reports:
+                self.kernels.setdefault(reports, {})["launches"] = got[reports]
+
+        if "mesh20k" not in self.small_mesh_means:
+            rp = render("mesh20k", cfg=RenderConfig(**SMALL_MESH, backend="jnp"),
+                        device=self.dev)
+            self.small_mesh_means["mesh20k"] = float(rp.image.mean())
+        c = RenderConfig(**CONFIG4, scatter_backend="pallas")
+        warm = render("mesh20k", cfg=c, device=self.dev)
+        reset_launches()
+        torch.cuda.synchronize()
+        res = render("mesh20k", cfg=c, device=self.dev)
+        got = launches()
+        mean = float(res.image.mean())
+        self.say("11 config 4 pallas scatter", f"mesh20k {c.width}x{c.height}@"
+                 f"{c.samples} spp: "
+                 f"{res.duration_ms / 1e3:.4f} s (warm run "
+                 f"{warm.duration_ms / 1e3:.4f} s), {res.mrays_per_sec:.3f} "
+                 f"Mrays/s, image mean {mean:.3f} (small plain "
+                 f"{self.small_mesh_means['mesh20k']:.3f}), launches {got} "
+                 f"[{self.card}]")
+        check_route(got, ("hit", "tri_grid", "scatter"), (), "config 4 pallas scatter")
+        check(abs(mean - self.small_mesh_means["mesh20k"]) <= 3.0,
+              f"config 4 pallas scatter image mean {mean}")
+
+    # ---- phase 12 ---------------------------------------------------------
+    def flythrough(self):
+        """BASELINE config 5 on one card (bench/configs.py's config 5): the
+        final scene over an 8-frame orbit at 640x480, 32 spp, seed 3,
+        through render_animation: one batch of 8 frames, kpp 1, 2,457,600
+        lanes, so kernel B runs on 8 cameras.  Before it, at 96x64 with
+        8 spp (the compaction floor lowered so kernel B runs): the batched
+        frames against the plain path's batched frames (identical), and
+        against batch_frames=1 (statistically)."""
+        import win32_raytracer_tpu_torch.persistent as P
+        from win32_raytracer_tpu_torch.animation import (
+            _auto_batch_frames, orbit_path, render_animation)
+        from win32_raytracer_tpu_torch.config import RenderConfig
+        from win32_raytracer_tpu_torch.kernels import bounce as B
+        from win32_raytracer_tpu_torch.scene.builders import get_scene
+
+        dev = self.dev
+        scene = get_scene("final", device=dev)
+        small = RenderConfig(**FLY_SMALL)
+        cams = orbit_path(n_frames=8, aspect_ratio=small.width / small.height,
+                          device=dev)
+        saved = P._COMPACT_FLOOR
+        P._COMPACT_FLOOR = 1 << 14
+        try:
+            reset_launches()
+            fk = np.stack(render_animation(scene, cams, small, device=dev))
+            got = launches()
+            fp = np.stack(render_animation(scene, cams, small.replace(backend="jnp"),
+                                           device=dev))
+            f1 = np.stack(render_animation(scene, cams, small, batch_frames=1,
+                                           device=dev))
+        finally:
+            P._COMPACT_FLOOR = saved
+        d_plain = float(np.abs(fk.astype(float) - fp.astype(float)).mean())
+        d1 = float(np.abs(fk.astype(float) - f1.astype(float)).mean())
+        r1 = pearson(fk, f1)
+        self.say("12 small", f"8 frames {small.width}x{small.height}@"
+                 f"{small.samples}: batched kernels vs batched "
+                 f"plain mean |diff| {d_plain:.4f} (must be 0), launches {got}; "
+                 f"batched vs batch_frames=1 mean |diff| {d1:.3f} "
+                 f"(<= {FLY_SMALL_MAX_DIFF}), pearson r {r1:.4f} "
+                 f"(>= {FLY_SMALL_MIN_R}), means {fk.mean():.2f}/{f1.mean():.2f}")
+        check(d_plain == 0.0, "batched small frames differ from plain")
+        check(got["bounce"] > 0, f"kernel B did not run on the small batch: {got}")
+        check(d1 <= FLY_SMALL_MAX_DIFF and r1 >= FLY_SMALL_MIN_R,
+              f"batched vs unbatched frames: mean |diff| {d1}, r {r1}")
+
+        cfg = RenderConfig(**CONFIG5)
+        cams = orbit_path(n_frames=8, aspect_ratio=cfg.width / cfg.height,
+                          device=dev)
+        kpp = P._resolve_kpp(cfg, cfg.samples, len(cams), cfg.width * cfg.height)
+        bf = _auto_batch_frames(cfg, len(cams))
+        check((bf, kpp) == (8, 1), f"config 5 batches {bf} frames at kpp {kpp}")
+        frames_seen = []
+        real = B.bounce
+
+        def spy(table, cam_rows, *a, **k):
+            frames_seen.append(B.n_frames_of(cam_rows))
+            return real(table, cam_rows, *a, **k)
+        render_animation(scene, cams, cfg.replace(seed=cfg.seed + 7001), device=dev)
+        reset_launches()
+        B.bounce = spy
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frames = render_animation(scene, cams, cfg, device=dev)
+            wall = time.perf_counter() - t0
+        finally:
+            B.bounce = real
+        got = launches()
+        means = [float(f.mean()) for f in frames]
+        rays = cfg.width * cfg.height * cfg.samples * len(cams)
+        self.say("12 config 5", f"final, 8 frames {cfg.width}x{cfg.height}@"
+                 f"{cfg.samples} spp, one batch of "
+                 f"{bf} frames at kpp {kpp} ({bf * kpp * cfg.width * cfg.height} "
+                 f"lanes): {wall:.4f} s, {len(frames) / wall:.3f} fps, "
+                 f"{rays / wall / 1e6:.3f} Mrays/s, launches {got}, kernel B "
+                 f"cameras per launch {sorted(set(frames_seen))}, frame means "
+                 f"{[round(x, 2) for x in means]} [{self.card}]")
+        check(len(frames) == 8
+              and all(f.shape == (cfg.height, cfg.width, 3) for f in frames),
+              "config 5 frame shapes")
+        check_route(got, ("bounce",), ("hit",), "config 5")
+        check(set(frames_seen) == {8}, f"kernel B cameras {set(frames_seen)}")
+        small_means = fk.reshape(8, -1).mean(1)
+        check(all(abs(x - y) <= FLY_MEAN_TOL for x, y in zip(means, small_means)),
+              f"config 5 frame means {means} far from the small frames' "
+              f"{small_means.tolist()}")
+
+
+# Phase 11's routes: (label, knob, kernels the route must launch, the
+# kernel whose main path it is); kernel A may run below the floor on any.
+ROUTES = (
+    ("fuse_bounce=off", dict(fuse_bounce="off"), ("hit_sky",), "hit_sky"),
+    ("scatter_backend=pallas", dict(scatter_backend="pallas"),
+     ("hit_sky", "scatter"), "scatter"),
+    ("hit_kernel=v4", dict(hit_kernel="v4"), ("hit",), None),
+    ("multi_backend=fused", dict(multi_backend="fused"),
+     ("bounce", "bounce_multi"), "bounce_multi"),
+)
+ROUTE_SMALL = dict(width=160, height=120, samples=16, seed=2)
+CONFIG5 = dict(width=640, height=480, samples=32, seed=3)   # bench/configs.py:85-110
+# The small flythrough: config 5's views at 96x72, 8 spp.  Batched against
+# unbatched frames draw other seeds, so only their statistics agree.
+FLY_SMALL = dict(width=96, height=72, samples=8, seed=3)
+FLY_SMALL_MAX_DIFF = 12.0
+FLY_SMALL_MIN_R = 0.9
+# Config 5's frame means against the small frames of the same views.
+FLY_MEAN_TOL = 6.0
 
 
 KERNEL_META = {
@@ -748,12 +1195,18 @@ KERNEL_META = {
             "win32_raytracer_tpu/kernels/tri_pallas_mxu.py:114"),
     "tri_grid": ("triangle_grid_hit", "win32_raytracer_tpu_torch/csrc/tri_grid.cu",
                  "win32_raytracer_tpu/kernels/tri_grid_rows.py:252"),
+    "bounce_multi": ("fused_bounce_multi", "win32_raytracer_tpu_torch/csrc/bounce.cu",
+                     "win32_raytracer_tpu/kernels/bounce_pallas.py:186"),
+    "hit_sky": ("hit_sky", "win32_raytracer_tpu_torch/csrc/hit_sky.cu",
+                "win32_raytracer_tpu/kernels/hit_pallas_v7.py:106"),
+    "scatter": ("scatter_respawn", "win32_raytracer_tpu_torch/csrc/scatter.cu",
+                "win32_raytracer_tpu/kernels/scatter_pallas.py:383"),
 }
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12",
                     help="comma-separated phases to run (0 always runs)")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
 
@@ -770,7 +1223,7 @@ def main() -> int:
     smoke = Smoke(card)
     if phases - {0}:
         smoke.build()
-    if phases & {2, 3, 5}:
+    if phases & {2, 3, 5, 9, 10}:
         smoke.kernel_a()
     if 3 in phases:
         smoke.kernel_b()
@@ -785,6 +1238,14 @@ def main() -> int:
         smoke.kernel_d()
     if 8 in phases:
         smoke.mesh_renders()
+    if 9 in phases:
+        smoke.split_kernels()
+    if 10 in phases:
+        smoke.kernel_b_multi()
+    if 11 in phases:
+        smoke.routes()
+    if 12 in phases:
+        smoke.flythrough()
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, **{f: smoke.kernels[key][f] for f in keys},

@@ -6,10 +6,13 @@ one JSON line: the walls, the device time summed by kernel group (the hand
 kernels by name, sorts, gathers and scatters, copies, other torch ops), the
 launch counts, the device-busy share of the profiled wall and the ten
 kernels that took the most device time.  The card's name and power limit
-come first.
+come first.  ``key=value`` arguments after the size override RenderConfig
+fields, to profile an opt-in route.
 
     python3 profile_render.py mesh20k 800 450 50
     python3 profile_render.py final 1200 800 100
+    python3 profile_render.py final 1200 800 100 fuse_bounce=off
+    python3 profile_render.py final 1200 800 100 scatter_backend=pallas
 
 Needs a CUDA card and nvcc (the kernels build on first use).
 """
@@ -28,6 +31,9 @@ import torch
 GROUPS = (
     ("kernel A (sphere hit)", "hit_kernel"),
     ("kernel B (fused bounce)", "bounce_kernel"),
+    ("kernel B-multi (k fused bounces)", "bounce_multi_kernel"),
+    ("kernel E (hit + sky)", "hit_sky_kernel"),
+    ("kernel F (scatter + respawn)", "scatter_respawn_kernel"),
     ("kernel C (triangle brute)", "tri_kernel"),
     ("kernel D (triangle grid)", "tri_grid_kernel"),
     ("sort", "sort"),
@@ -48,13 +54,37 @@ def group_of(name: str) -> str:
     return "other torch ops"
 
 
+def overrides(pairs) -> dict:
+    """``key=value`` strings -> RenderConfig fields, each value parsed as
+    its field's default is typed."""
+    import dataclasses
+
+    from win32_raytracer_tpu_torch.config import RenderConfig
+
+    defaults = {f.name: f.default for f in dataclasses.fields(RenderConfig)}
+    out = {}
+    for pair in pairs:
+        key, sep, val = pair.partition("=")
+        if not sep or key not in defaults:
+            raise SystemExit(f"not a RenderConfig key=value: {pair!r}")
+        kind = type(defaults[key])
+        if kind is bool:
+            out[key] = val.lower() in ("1", "true", "on", "yes")
+        else:
+            out[key] = kind(val)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("scene")
     ap.add_argument("width", type=int)
     ap.add_argument("height", type=int)
     ap.add_argument("samples", type=int)
+    ap.add_argument("config", nargs="*", metavar="key=value",
+                    help="RenderConfig overrides, e.g. fuse_bounce=off")
     args = ap.parse_args()
+    knobs = overrides(args.config)
     if not torch.cuda.is_available():
         print("torch.cuda.is_available() is False: this needs a CUDA card",
               file=sys.stderr)
@@ -69,7 +99,7 @@ def main() -> int:
         capture_output=True, text=True, timeout=60).stdout.strip()
     print(card, flush=True)
     cfg = RenderConfig(width=args.width, height=args.height,
-                       samples=args.samples)
+                       samples=args.samples, **knobs)
     warm = render(args.scene, cfg=cfg, device="cuda").duration_ms / 1e3
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -94,7 +124,7 @@ def main() -> int:
     busy = sum(groups.values())
     print(json.dumps({
         "scene": args.scene, "width": args.width, "height": args.height,
-        "samples": args.samples, "card": card,
+        "samples": args.samples, "config": knobs, "card": card,
         "warm_wall_s": warm, "profiled_wall_s": wall, "unprofiled_wall_s": after,
         "image_mean": float(res.image.mean()),
         "device_ms": groups, "launches": launches, "device_busy_ms": busy,

@@ -81,10 +81,10 @@ def test_no_jax_import_in_package_sources():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(accel="grid"), dict(fuse_bounce="off"), dict(compactor="route"),
+    dict(accel="grid"), dict(one_shot="on"), dict(compactor="route"),
     dict(flush_mode="window"), dict(one_shot="staged"),
-    dict(multi_backend="fused"), dict(adaptive_alloc="on"),
-    dict(scatter_backend="pallas"), dict(hit_kernel="v4"),
+    dict(tri_rebin="on"), dict(adaptive_alloc="on"),
+    dict(tri_dda_k=4), dict(kpp_max=16),
     dict(redistribute="on"), dict(pallas_interpret=True),
 ])
 def test_unported_knobs_raise(knob):
@@ -94,17 +94,28 @@ def test_unported_knobs_raise(knob):
 
 
 def test_wavefront_and_multi_frame_raise():
+    """The wavefront scheduler is not ported: single renders and
+    animations on it raise; multi-frame batches need the persistent
+    scheduler (ValueError, as in the reference)."""
+    from win32_raytracer_tpu_torch.animation import render_animation
     from win32_raytracer_tpu_torch.api import render
-    from win32_raytracer_tpu_torch.persistent import render_image_persistent
     from win32_raytracer_tpu_torch.scene.builders import test_scene
     from win32_raytracer_tpu_torch.scene.camera import default_camera
     with pytest.raises(NotImplementedError, match="wavefront"):
         render("test", cfg=RenderConfig(width=8, height=8, samples=2),
                device="cpu")
-    cfg = RenderConfig(width=8, height=8, samples=8)
     cams = [default_camera(8, 8)] * 2
-    with pytest.raises(NotImplementedError, match="multi-frame"):
-        render_image_persistent(test_scene(), cams, cfg)
+    with pytest.raises(NotImplementedError, match="Queue 2 item 8"):
+        render_animation(test_scene(), cams,
+                         RenderConfig(width=8, height=8, samples=2),
+                         device="cpu")
+    with pytest.raises(ValueError, match="persistent"):
+        render_animation(test_scene(), cams,
+                         RenderConfig(width=8, height=8, samples=2),
+                         batch_frames=2, device="cpu")
+    with pytest.raises(TypeError, match="render_animation"):
+        render("test", cams, RenderConfig(width=8, height=8, samples=8),
+               device="cpu")
 
 
 def test_pallas_backend_needs_a_card():

@@ -1,0 +1,170 @@
+"""PyTorch port: the bounce routes of the persistent scheduler
+(``fuse_bounce``, ``scatter_backend``, ``hit_kernel``, ``multi_backend``)
+against the JAX package.
+
+On the CPU the port's "auto" backend takes the routes of the reference's
+Pallas backend, with the kernels' plain versions at their ends, so every
+route runs here; spies on the four route functions show which ran.  The
+reference renders on its jnp backend on the CPU, where these knobs change
+nothing, so its one image per scene is what every route must match
+statistically.  Where the reference raises (on its Pallas backend), the
+port raises the same exception type.  On the card, chip_smoke.py phase 11
+renders the headline once per route and reads the kernels' launch
+counts."""
+
+import numpy as np
+import pytest
+import torch
+
+from win32_raytracer_tpu import persistent as JP
+from win32_raytracer_tpu.api import render as jax_render
+from win32_raytracer_tpu.config import RenderConfig as JC
+from win32_raytracer_tpu.scene.builders import get_scene as jax_get_scene
+from win32_raytracer_tpu.scene.camera import default_camera as jax_camera
+from win32_raytracer_tpu_torch import persistent as TP
+from win32_raytracer_tpu_torch.api import render
+from win32_raytracer_tpu_torch.config import RenderConfig as TC
+from win32_raytracer_tpu_torch.kernels import bounce as B
+from win32_raytracer_tpu_torch.kernels import hit_sky as E
+from win32_raytracer_tpu_torch.kernels import scatter as F
+from win32_raytracer_tpu_torch.scene.builders import get_scene
+from win32_raytracer_tpu_torch.scene.camera import default_camera
+
+torch.set_num_threads(1)
+
+# 12,288 lanes (8 per pixel) over a lowered compaction floor: bounces above
+# the floor, compaction, then the tail below it.
+KW = dict(width=48, height=32, samples=8, seed=5, lanes_per_pixel=8)
+FLOOR = 1 << 12
+# Against the reference's image (as test_torch_render.py's compaction mode).
+MAX_DIFF, MIN_R = 0.06, 0.9999
+
+# (knob, value) -> the route functions that run on the final scene.
+ROUTES = {
+    ("fuse_bounce", "auto"): {"bounce"},
+    ("fuse_bounce", "on"): {"bounce"},
+    ("fuse_bounce", "off"): {"hit_sky"},
+    ("scatter_backend", "auto"): {"bounce"},
+    ("scatter_backend", "pallas"): {"hit_sky", "scatter"},
+    ("scatter_backend", "jnp"): {"hit_sky"},
+    ("hit_kernel", "auto"): {"bounce"},
+    ("hit_kernel", "v4"): set(),
+    ("hit_kernel", "v6"): set(),
+    ("hit_kernel", "v7"): {"bounce"},
+    ("multi_backend", ""): {"bounce"},
+    ("multi_backend", "xla"): {"bounce"},
+    ("multi_backend", "fused"): {"bounce", "bounce_multi"},
+}
+_SPIED = {"bounce": (B, "bounce"), "bounce_multi": (B, "bounce_multi"),
+          "hit_sky": (E, "hit_sky"), "scatter": (F, "scatter_respawn")}
+_PORT, _REF = {}, {}
+
+
+def _stats(a, b):
+    a, b = a.astype(np.float64), b.astype(np.float64)
+    x, y = a.reshape(-1) - a.mean(), b.reshape(-1) - b.mean()
+    r = float((x * y).sum() / np.sqrt((x * x).sum() * (y * y).sum()))
+    return float(np.abs(a - b).mean()), r
+
+
+def _port_render(scene, knobs):
+    """(image, route functions that ran) of a port render at KW, cached."""
+    knobs = {k: v for k, v in knobs.items() if getattr(TC(), k) != v}
+    key = (scene, tuple(sorted(knobs.items())))
+    if key not in _PORT:
+        ran, saved = set(), {}
+
+        def spy(name, fn):
+            def wrapped(*a, **k):
+                ran.add(name)
+                return fn(*a, **k)
+            return wrapped
+        for name, (mod, attr) in _SPIED.items():
+            saved[name] = getattr(mod, attr)
+            setattr(mod, attr, spy(name, saved[name]))
+        floor, TP._COMPACT_FLOOR = TP._COMPACT_FLOOR, FLOOR
+        try:
+            img = render(scene, cfg=TC(**KW, **knobs), device="cpu").image
+        finally:
+            TP._COMPACT_FLOOR = floor
+            for name, (mod, attr) in _SPIED.items():
+                setattr(mod, attr, saved[name])
+        _PORT[key] = img, ran
+    return _PORT[key]
+
+
+def _ref_render(scene):
+    if scene not in _REF:
+        floor, JP._COMPACT_FLOOR = JP._COMPACT_FLOOR, FLOOR
+        try:
+            _REF[scene] = jax_render(scene, cfg=JC(**KW)).image
+        finally:
+            JP._COMPACT_FLOOR = floor
+    return _REF[scene]
+
+
+@pytest.mark.parametrize("knob,value", sorted(ROUTES),
+                         ids=[f"{k}={v or repr(v)}" for k, v in sorted(ROUTES)])
+def test_route_renders_and_matches_reference(knob, value):
+    img, ran = _port_render("final", {knob: value})
+    assert ran == ROUTES[(knob, value)], ran
+    assert img.shape == (32, 48, 3)
+    d, r = _stats(img, _ref_render("final"))
+    assert d <= MAX_DIFF and r >= MIN_R, (d, r)
+
+
+def test_pallas_scatter_on_a_mesh():
+    """scatter_backend="pallas" reaches triangle scenes above the floor
+    (kernel F after the composite hit), as in the reference; there is no
+    fused bounce and no hit + sky kernel for triangles."""
+    img, ran = _port_render("mesh", {"scatter_backend": "pallas"})
+    assert ran == {"scatter"}, ran
+    d, r = _stats(img, _ref_render("mesh"))
+    assert d <= MAX_DIFF and r >= MIN_R, (d, r)
+
+
+def test_binned_and_triangle_scenes_take_no_fused_route():
+    """The fused bounce, its k-bounce and kernel E need a plain sphere
+    table; a binned render takes single steps and no one-shot chunk."""
+    routes = TP.resolve_routes(TC(multi_backend="fused"), object(), "cpu",
+                               h_virt=32, kpp=1, bin_box=(0.0,) * 6)
+    assert routes == TP._Routes(None, None, None, None, "off")
+
+
+# (scene, config, frames): each raises ValueError in both packages.
+RAISES = {
+    "unknown hit_kernel": ("final", dict(hit_kernel="v9"), 1),
+    "fuse on with v4": ("final", dict(fuse_bounce="on", hit_kernel="v4"), 1),
+    "fuse on a mesh": ("mesh", dict(fuse_bounce="on"), 1),
+    "pallas scatter past 2^24 pixels": (
+        "final", dict(scatter_backend="pallas", width=4096, height=2048), 2),
+    "fuse on past 2^24 pixels": (
+        "final", dict(fuse_bounce="on", width=4096, height=4096), 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RAISES))
+def test_route_raises_where_the_reference_raises(case):
+    scene, kw, frames = RAISES[case]
+    kw = dict(dict(width=16, height=8, samples=8), **kw)
+    w, h = kw["width"], kw["height"]
+    jcams = [jax_camera(w, h)] * frames
+    with pytest.raises(ValueError) as ref:
+        JP.render_image_persistent(jax_get_scene(scene),
+                                   jcams if frames > 1 else jcams[0],
+                                   JC(backend="pallas", **kw))
+    tcams = [default_camera(w, h)] * frames
+    with pytest.raises(type(ref.value)):
+        TP.render_image_persistent(get_scene(scene),
+                                   tcams if frames > 1 else tcams[0], TC(**kw))
+
+
+@pytest.mark.parametrize("knob", ["scatter_backend", "fuse_bounce",
+                                  "multi_backend"])
+def test_unknown_route_values_raise(knob):
+    """Stricter than the reference, which reads an unknown value as its
+    knob's fallback: the port names the values it takes."""
+    with pytest.raises(ValueError, match=knob):
+        TP.render_image_persistent(get_scene("test"), None,
+                                   TC(width=8, height=8, samples=8,
+                                      **{knob: "bogus"}))

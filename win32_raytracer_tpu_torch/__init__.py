@@ -15,9 +15,10 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
+from .animation import orbit_path, render_animation  # noqa: E402
 from .api import RenderResult, render, render_async  # noqa: E402
 from .config import RenderConfig  # noqa: E402
 from .scene.builders import SCENES, get_scene  # noqa: E402
 
-__all__ = ["RenderConfig", "RenderResult", "SCENES", "get_scene", "render",
-           "render_async"]
+__all__ = ["RenderConfig", "RenderResult", "SCENES", "get_scene",
+           "orbit_path", "render", "render_animation", "render_async"]

@@ -72,7 +72,11 @@ def render(scene: Optional[Scene | str] = None,
            *, device=None, mesh=None, shard_mode: str = "rows") -> RenderResult:
     """Blocking render of a sphere, triangle or composite scene, a scene
     name ('test' / 'random' / 'final' / 'mesh' / 'mesh20k') or None (the
-    RTIOW random scene, like the reference)."""
+    RTIOW random scene, like the reference), through one camera (a camera
+    list renders through ``animation.render_animation``)."""
+    if isinstance(cam, (list, tuple)) and not isinstance(cam, Camera):
+        raise TypeError("render takes one camera; render a list of cameras "
+                        "with animation.render_animation")
     if mesh is not None:
         raise NotImplementedError(
             f"multi-device rendering (shard_mode={shard_mode!r}) is not "

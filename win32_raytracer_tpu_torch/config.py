@@ -62,11 +62,15 @@ class RenderConfig:
     # tensors on the CPU); "pallas" = the hand kernels, CUDA only; "jnp" =
     # the plain torch ops on any device (the kernels' reference).
     backend: str = "auto"
-    # Opt-in engines of the reference's persistent scheduler.  The port
-    # runs the defaults; other values raise (persistent.check_supported).
+    # Bounce routes of the persistent scheduler (persistent.resolve_routes):
+    # scatter "pallas" = the scatter + respawn kernel; hit_kernel "v4"/"v6"
+    # = the sphere-hit kernel plus the torch scatter above the floor;
+    # fuse_bounce "off" = the split bounce (hit + sky kernel, then scatter).
     scatter_backend: str = "auto"   # "auto" | "pallas" | "jnp"
     hit_kernel: str = "auto"        # "auto" | "v4" | "v6" | "v7"
     fuse_bounce: str = "auto"       # "auto" | "on" | "off"
+    # Opt-in engines the port does not run yet raise
+    # (persistent.check_supported).
     accel: str = "auto"             # "auto" | "grid" | "off"
     ray_binning: str = "auto"       # "auto" | "on" | "off"
     redistribute: str = "auto"      # "auto" | "on" | "off"
@@ -92,6 +96,7 @@ class RenderConfig:
     one_shot: str = "auto"  # "auto" | "on" | "off" | "staged"
     # Bounces per below-floor multi-step (0 = auto, 4).
     multi_k: int = 0
+    # "fused": below the floor, k bounces in one launch of the fused kernel.
     multi_backend: str = ""         # "" (= "xla") | "xla" | "fused"
     # Split-bf16 limb count of the TPU hit; accepted and ignored (the
     # port's sweep is exact f32).

@@ -1,42 +1,39 @@
 // Kernel B: one whole bounce of the persistent scheduler (hit + sky +
-// scatter + respawn) for a batch of lanes.
+// scatter + respawn) for a batch of lanes, and its k-bounce variant.
 //
-// Replaces the TPU kernel win32_raytracer_tpu/kernels/bounce_pallas.py
-// (_bounce_kernel, reached through p_bounce_fused), which chains
-// hit_pallas_v7.hit_sky_values and scatter_pallas.scatter_respawn_values.
-// It computes persistent.p_bounce_step of this package: the exact f32
-// sphere sweep of ops/hit.py, then ops/rows.py's scatter with every
-// reference quirk, Russian roulette and the respawn of a new camera sample,
-// with the ten per-lane draws of core/rng.py hash_uniform01 bit for bit.
+// bounce_kernel replaces the TPU kernel
+// win32_raytracer_tpu/kernels/bounce_pallas.py (_bounce_kernel, reached
+// through p_bounce_fused), which chains hit_pallas_v7.hit_sky_values and
+// scatter_pallas.scatter_respawn_values.  It computes persistent.p_bounce_step
+// of this package: the exact f32 sphere sweep of ops/hit.py, then
+// ops/rows.py's scatter with every reference quirk, Russian roulette and the
+// respawn of a new camera sample, with the ten per-lane draws of core/rng.py
+// hash_uniform01 bit for bit.  The camera is [n_frames, CAM_ROWS]: a
+// multi-frame batch picks each lane's camera from its pixel row.
 //
-// What bounds it on an H100: the sphere sweep, S pair tests per live lane
-// (27 f32 operations each, as in hit.cu), against 73 bytes of state read and 61 written
-// per lane.  Design: one thread per lane; each lane's state is read
-// once and its 8 output rows written once, and the hit record stays in
-// registers; sphere tiles are staged through shared memory as in hit.cu;
-// dead lanes skip the sweep (they only help stage tiles) since their hit
-// record is never read.
+// bounce_multi_kernel replaces p_bounce_multi_fused (bounce_pallas.py:186),
+// which unrolls k fused bounces into one program: here one launch runs the
+// k bounces at steps step..step+k-1 with each lane's state in registers, and
+// writes it once.  That is exact: with no compaction between them a lane's
+// draws key on (salt, step, lane index) as in k launches of bounce_kernel,
+// and no lane reads another's state.
+//
+// What bounds them on an H100: the sphere sweep, S pair tests per live lane
+// and bounce (27 f32 operations each, as in hit.cu), against 73 bytes of
+// state read and 61 written per lane (once per launch, whatever k is).
+// Design: one thread per lane; the hit record stays in registers; sphere
+// tiles are staged through shared memory as in hit.cu; dead lanes skip the
+// sweep (they only help stage tiles) since their hit record is never read.
 #include "common.cuh"
 
 using namespace wrt;
 
 struct BounceArgs {
-  // state in, rows layout
-  const float* origin;      // [3, n]
-  const float* direction;   // [3, n]
-  const float* time;        // [1, n]
-  const float* throughput;  // [3, n]
-  const float* radiance;    // [3, n]
-  const int32_t* depth;     // [1, n]
-  const int32_t* sample;    // [1, n]
-  const int32_t* pixel;     // [1, n]
-  const uint8_t* alive;     // [1, n]
-  const int32_t* s_base;    // [1, n]
-  const int32_t* s_quota;   // [1, n]
+  StateRows in;             // state in, rows layout
   // scene and camera
   const float* attrs;       // [n_spheres, ATTR_COLS]
   const uint8_t* active;    // [n_spheres]
-  const float* cam;         // [CAM_ROWS]
+  const float* cam;         // [n_frames, CAM_ROWS]
   // state out
   float* out_f;             // [13, n]: origin, direction, time, throughput, radiance
   int32_t* out_i;           // [2, n]: depth, sample
@@ -44,35 +41,18 @@ struct BounceArgs {
   long long n;
   int n_spheres;
   uint32_t salt;
-  int32_t step;
+  int32_t step;             // the (first) bounce's step index
   float min_t;
   StepParams p;
   void* stream;
 };
 
+// One bounce of lane i (every thread of the block calls it: the sweep
+// stages tiles behind __syncthreads).
 template <bool LEAN>
-__global__ void __launch_bounds__(kBlock) bounce_kernel(const BounceArgs a) {
-  __shared__ SphereTile sh;
-  const long long n = a.n;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool on = i < n;
-  const long long k = on ? i : 0;  // idle threads still help stage tiles
-
-  Lane st;
-  for (int c = 0; c < 3; ++c) {
-    st.o[c] = a.origin[c * n + k];
-    st.d[c] = a.direction[c * n + k];
-    st.thr[c] = a.throughput[c * n + k];
-    st.rad[c] = a.radiance[c * n + k];
-  }
-  st.tm = a.time[k];
-  st.depth = a.depth[k];
-  st.sample = a.sample[k];
-  st.pixel = a.pixel[k];
-  st.alive = a.alive[k] != 0;
-  st.s_base = a.s_base[k];
-  st.s_quota = a.s_quota[k];
-
+__device__ __forceinline__ void bounce_lane(const BounceArgs& a, SphereTile& sh,
+                                            bool on, long long i, int32_t step,
+                                            Lane& st) {
   const float aa = st.d[0] * st.d[0] + st.d[1] * st.d[1] + st.d[2] * st.d[2];
   float best_t;
   int best_i;
@@ -86,19 +66,31 @@ __global__ void __launch_bounds__(kBlock) bounce_kernel(const BounceArgs a) {
   hit_sky(h.hit, st.d[0], st.d[1], st.d[2], st.thr, st.rad, st.alive);
 
   float u[10];
-  draws(a.salt, a.step, (uint32_t)i, u);
+  draws(a.salt, step, (uint32_t)i, u);
   scatter_respawn<LEAN>(a.p, a.cam, h, u, st);
+}
 
-  for (int c = 0; c < 3; ++c) {
-    a.out_f[c * n + i] = st.o[c];
-    a.out_f[(3 + c) * n + i] = st.d[c];
-    a.out_f[(7 + c) * n + i] = st.thr[c];
-    a.out_f[(10 + c) * n + i] = st.rad[c];
-  }
-  a.out_f[6 * n + i] = st.tm;
-  a.out_i[i] = st.depth;
-  a.out_i[n + i] = st.sample;
-  a.out_alive[i] = st.alive ? 1 : 0;
+template <bool LEAN>
+__global__ void __launch_bounds__(kBlock) bounce_kernel(const BounceArgs a) {
+  __shared__ SphereTile sh;
+  const long long n = a.n;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool on = i < n;
+  Lane st = load_lane(a.in, on ? i : 0, n);  // idle threads help stage tiles
+  bounce_lane<LEAN>(a, sh, on, i, a.step, st);
+  if (on) store_lane(st, i, n, true, a.out_f, a.out_i, a.out_alive);
+}
+
+template <bool LEAN>
+__global__ void __launch_bounds__(kBlock) bounce_multi_kernel(const BounceArgs a,
+                                                              int k) {
+  __shared__ SphereTile sh;
+  const long long n = a.n;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool on = i < n;
+  Lane st = load_lane(a.in, on ? i : 0, n);
+  for (int b = 0; b < k; ++b) bounce_lane<LEAN>(a, sh, on, i, a.step + b, st);
+  if (on) store_lane(st, i, n, true, a.out_f, a.out_i, a.out_alive);
 }
 
 extern "C" int wrt_bounce(const BounceArgs* a, int lean) {
@@ -109,5 +101,16 @@ extern "C" int wrt_bounce(const BounceArgs* a, int lean) {
     bounce_kernel<true><<<grid, kBlock, 0, stream>>>(*a);
   else
     bounce_kernel<false><<<grid, kBlock, 0, stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int wrt_bounce_multi(const BounceArgs* a, int lean, int k) {
+  if (a->n <= 0 || k <= 0) return 0;
+  const unsigned grid = (unsigned)((a->n + kBlock - 1) / kBlock);
+  cudaStream_t stream = (cudaStream_t)a->stream;
+  if (lean)
+    bounce_multi_kernel<true><<<grid, kBlock, 0, stream>>>(*a, k);
+  else
+    bounce_multi_kernel<false><<<grid, kBlock, 0, stream>>>(*a, k);
   return (int)cudaGetLastError();
 }

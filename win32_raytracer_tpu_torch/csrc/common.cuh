@@ -1,5 +1,7 @@
 // Device functions shared by the sphere-hit kernel (hit.cu), the fused
-// bounce kernel (bounce.cu) and the triangle kernels (tri.cu, tri_grid.cu).
+// bounce kernels (bounce.cu), the split bounce's hit+sky and
+// scatter+respawn kernels (hit_sky.cu, scatter.cu) and the triangle kernels
+// (tri.cu, tri_grid.cu).
 //
 // Every function here mirrors a plain torch function of the package op for
 // op, in the same order (win32_raytracer_tpu_torch/ops/hit.py,
@@ -22,7 +24,8 @@ enum AttrCol : int {
   A_MAT, A_ALR, A_ALG, A_ALB, A_FUZZ, A_IOR, A_IDX, ATTR_COLS
 };
 
-// Packed camera rows (kernels/bounce.py pack_camera).
+// Packed camera rows (kernels/bounce.py pack_camera); a multi-frame batch
+// packs one such row block per frame, [n_frames, CAM_ROWS].
 enum CamRow : int {
   C_ORIGIN = 0, C_LLC = 3, C_HORIZ = 6, C_VERT = 9, C_RIGHT = 12, C_UP = 15,
   C_LENS = 18, C_SH_OPEN = 19, C_SH_CLOSE = 20, CAM_ROWS = 21
@@ -310,10 +313,64 @@ struct Lane {  // one lane's path state, updated in place
   bool alive;
 };
 
+// A batch's path state, rows layout (persistent.PathState): each row
+// block is [rows, n].
+struct StateRows {
+  const float* origin;      // [3, n]
+  const float* direction;   // [3, n]
+  const float* time;        // [1, n]
+  const float* throughput;  // [3, n]
+  const float* radiance;    // [3, n]; null where a kernel does not touch it
+  const int32_t* depth;     // [1, n]
+  const int32_t* sample;    // [1, n]
+  const int32_t* pixel;     // [1, n]
+  const uint8_t* alive;     // [1, n]
+  const int32_t* s_base;    // [1, n]
+  const int32_t* s_quota;   // [1, n]
+};
+
+__device__ __forceinline__ Lane load_lane(const StateRows& s, long long k,
+                                          long long n) {
+  Lane st;
+  for (int c = 0; c < 3; ++c) {
+    st.o[c] = s.origin[c * n + k];
+    st.d[c] = s.direction[c * n + k];
+    st.thr[c] = s.throughput[c * n + k];
+    st.rad[c] = s.radiance ? s.radiance[c * n + k] : 0.0f;
+  }
+  st.tm = s.time[k];
+  st.depth = s.depth[k];
+  st.sample = s.sample[k];
+  st.pixel = s.pixel[k];
+  st.alive = s.alive[k] != 0;
+  st.s_base = s.s_base[k];
+  st.s_quota = s.s_quota[k];
+  return st;
+}
+
+// The rows a bounce changes: out_f [10 or 13, n] (origin, direction, time,
+// throughput[, radiance]), out_i [2, n] (depth, sample), out_alive [n].
+__device__ __forceinline__ void store_lane(const Lane& st, long long i,
+                                           long long n, bool with_rad,
+                                           float* out_f, int32_t* out_i,
+                                           uint8_t* out_alive) {
+  for (int c = 0; c < 3; ++c) {
+    out_f[c * n + i] = st.o[c];
+    out_f[(3 + c) * n + i] = st.d[c];
+    out_f[(7 + c) * n + i] = st.thr[c];
+    if (with_rad) out_f[(10 + c) * n + i] = st.rad[c];
+  }
+  out_f[6 * n + i] = st.tm;
+  out_i[i] = st.depth;
+  out_i[n + i] = st.sample;
+  out_alive[i] = st.alive ? 1 : 0;
+}
+
 struct StepParams {
   int32_t width, height, kpp, kx, ky, max_depth, rr_start;
   float eps, reflect_thres, refract_bias;
   int32_t schlick_ni;  // Schlick takes ni_over_nt (the reference quirk)
+  int32_t n_frames;    // cameras in the batch; pixel rows span n_frames * height
 };
 
 __device__ __forceinline__ float dot3(const float a[3], const float b[3]) {
@@ -406,10 +463,11 @@ __device__ __forceinline__ void scatter(const StepParams& p, const HitRec& h,
 }
 
 // One lane's scatter, depth / roulette update and respawn.  `st.alive` is
-// the post-hit alive flag on entry and the lane's new alive flag on exit.
+// the post-hit alive flag on entry and the lane's new alive flag on exit;
+// `cams` is [p.n_frames, CAM_ROWS].
 template <bool LEAN>
 __device__ __forceinline__ void scatter_respawn(const StepParams& p,
-                                                const float* __restrict__ cam,
+                                                const float* __restrict__ cams,
                                                 const HitRec& h,
                                                 const float u[10], Lane& st) {
   // --- scatter and state update (persistent._scatter_core) ---
@@ -441,8 +499,17 @@ __device__ __forceinline__ void scatter_respawn(const StepParams& p,
   if (start) {
     st.sample = st.sample + 1;
     const int32_t pd = st.pixel / p.kpp;
-    const int32_t y = pd / p.width;
+    int32_t y = pd / p.width;
     const int32_t x = pd % p.width;
+    // Multi-frame batch: the row of the virtual tall image picks the
+    // frame's camera (an out-of-range frame takes camera 0, as the
+    // reference's select chain does).  One frame skips this entirely.
+    const float* cam = cams;
+    if (p.n_frames > 1) {
+      const int32_t fid = y / p.height;
+      y = y - fid * p.height;
+      if (fid >= 1 && fid < p.n_frames) cam = cams + (size_t)fid * CAM_ROWS;
+    }
     float uj = u[5], vj = u[6];
     if (!LEAN) {
       const int32_t gs = st.s_base + st.sample;

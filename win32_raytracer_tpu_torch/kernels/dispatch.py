@@ -11,7 +11,8 @@ only the functions at their ends differ.
 Scene routing (:func:`get_hit_fn_rows_accel`), the reference's on its
 Pallas backend:
 
-* a plain sphere scene: kernel A (``kernels/hit.py``);
+* a plain sphere scene: kernel A (``kernels/hit.py``) under every
+  ``hit_kernel`` (:func:`validate_hit_kernel`);
 * a triangle mesh with at least ``tri_accel.build_tri_grid``'s
   ``min_tris`` (512) active triangles, under ``accel`` "auto" or "grid":
   the Morton-tile grid, kernel D (``kernels/tri_grid.py``);
@@ -65,8 +66,21 @@ def resolve_backend(cfg: RenderConfig, device) -> str:
     raise ValueError(f"unknown backend {cfg.backend!r} (use auto|pallas|jnp)")
 
 
+def validate_hit_kernel(cfg: RenderConfig) -> None:
+    """``hit_kernel`` is "auto", "v4", "v6" or "v7" (the reference's
+    get_hit_fn_rows raises on anything else).  All four sweep spheres with
+    kernel A here: v4 is its function, exactly, and v6 and v7 differ from
+    it only by the split-bf16 limbs this port does not carry.  Where the
+    value matters is the route: "auto" and "v7" allow the fused bounce and
+    kernel E (persistent.resolve_routes), "v4" and "v6" do not."""
+    if cfg.hit_kernel not in ("auto", "v4", "v6", "v7"):
+        raise ValueError(f"unknown hit_kernel {cfg.hit_kernel!r} "
+                         "(use auto|v4|v6|v7)")
+
+
 def _hit_fns(cfg: RenderConfig, device):
     """(sphere, brute triangle, grid triangle) rows hit functions."""
+    validate_hit_kernel(cfg)
     if resolve_backend(cfg, device) == "kernels":
         return hit_spheres_rows, hit_triangles_rows, hit_triangles_grid_rows
     return (hit_spheres_rows_plain, hit_triangles_rows_plain,

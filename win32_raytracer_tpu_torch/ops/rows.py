@@ -102,9 +102,10 @@ def sample_unit_ball_rows(u: torch.Tensor) -> torch.Tensor:
 def camera_rays_rows(cam: Camera, u: torch.Tensor, v: torch.Tensor,
                      draws: torch.Tensor):
     """u/v [1, N], draws [3, N] -> (origin [3, N], direction [3, N],
-    time [1, N])."""
+    time [1, N]).  The camera's fields are one camera's ([3] vectors, []
+    scalars) or one per lane ([3, N] and [1, N]: a multi-frame batch)."""
     def col(f):
-        return f[:, None]
+        return f if f.dim() == 2 else f[:, None]
 
     time = cam.shutter_open + (cam.shutter_close - cam.shutter_open) * draws[0:1]
     r = torch.sqrt(draws[1:2]) * cam.lens_radius

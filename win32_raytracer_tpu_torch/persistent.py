@@ -1,7 +1,7 @@
 """Persistent scheduler with batch compaction, lane-major (PyTorch port).
 
 The port of ``win32_raytracer_tpu.persistent`` for sphere, triangle and
-composite scenes at the default knobs.  Each lane owns one pixel replica
+composite scenes.  Each lane owns one pixel replica
 and runs its quota of samples one after another, respawning a camera
 sample the moment a path ends; the host loop checks the alive count now
 and then, compacts dead
@@ -10,14 +10,25 @@ the (dead, pixel) key onto the mantissa size grid, the dropped tail's
 radiance added into ``accum``), and below it splits unstarted samples onto
 clone lanes.
 
-Bounces: on a plain sphere scene, above the floor one call of the fused
-bounce kernel (kernels/bounce.py); at or below it the sphere kernel
-(kernels/hit.py) followed by the torch scatter and respawn here, as the
-reference runs its XLA steps there.  Kernel B sweeps spheres only, so a
-scene with triangles takes the two-step bounce at every size, as the
-reference does: the hit function of kernels/dispatch.py (sphere kernel,
-then kernel C or kernel D capped by the sphere hit, merged), then scatter
-and respawn (``p_hit_step``, ``p_scatter_respawn_step``).
+Bounces (:func:`resolve_routes`, the reference's resolution): on a plain
+sphere scene, above the floor one call of the fused bounce kernel
+(kernels/bounce.py); at or below it the sphere kernel (kernels/hit.py)
+followed by the torch scatter and respawn here, as the reference runs its
+XLA steps there, or k bounces per launch of the fused kernel under
+``multi_backend="fused"``.  ``fuse_bounce="off"``, an explicit
+``scatter_backend`` or pixel ids of 2^24 and up split the bounce above
+the floor: the hit + sky kernel (kernels/hit_sky.py), then the scatter +
+respawn kernel (kernels/scatter.py) under ``scatter_backend="pallas"`` or
+the torch scatter.  ``hit_kernel`` "v4" and "v6" have neither fused nor
+hit + sky kernel: the sphere kernel plus the scatter.  Kernel B sweeps
+spheres only, so a scene with triangles takes the two-step bounce at every
+size, as the reference does: the hit function of kernels/dispatch.py
+(sphere kernel, then kernel C or kernel D capped by the sphere hit,
+merged), then scatter and respawn (``p_hit_step``, and
+``p_scatter_respawn_step`` or kernel F).
+
+Multi-frame batches: a list of cameras renders its frames as one tall
+virtual image, each lane taking the camera of its row's frame.
 
 Ray binning: when the triangle side is the Morton-tile grid, every bounce
 first sorts the whole state by a chord key (origin cell, chord-exit cell,
@@ -147,14 +158,40 @@ def _div(x: torch.Tensor, d: int) -> torch.Tensor:
     return x / x.new_full((), float(d))
 
 
+def camera_frames(cam: Camera) -> int:
+    """Frames of a camera: 1, or F of a frame-stacked one."""
+    return cam.origin.shape[0] if cam.origin.dim() == 2 else 1
+
+
+def _frame_cameras(cam: Camera, fid: torch.Tensor) -> Camera:
+    """Each lane's camera of a frame-stacked ``cam``: [3, N] vectors and
+    [1, N] scalars, contiguous (the rays made from them are state rows the
+    kernels read).  A frame id outside [1, F) takes frame 0, as the
+    reference's select chain does."""
+    f = camera_frames(cam)
+    sel = torch.where((fid >= 1) & (fid < f), fid, 0)[0].long()
+    return Camera(*(x.T[:, sel].contiguous() if x.dim() == 2 else x[sel][None]
+                    for x in cam))
+
+
 def _respawn_core(cam: Camera, st: PathState, salt, step_i, dims: Dims, *,
                   cfg: RenderConfig, lean: bool = False) -> PathState:
     """Start the next camera sample on every lane whose path just ended.
-    Pixel-lane id -> (x, y) by true integer division."""
+    Pixel-lane id -> (x, y) by true integer division.
+
+    ``cam`` may be frame-stacked ([F, 3] vectors, [F] scalars;
+    ``kernels/bounce.unpack_camera`` of ``pack_cameras``): the batch then
+    renders F frames at once, pixel-lane ids span a virtual image of
+    F * height rows, and each lane takes the camera of frame
+    row // height."""
     del cfg
     n = st.pixel.shape[1]
     pd = st.pixel // dims.kpp
     y, x = pd // dims.width, pd % dims.width
+    if camera_frames(cam) > 1:
+        fid = y // dims.height
+        y = y - fid * dims.height
+        cam = _frame_cameras(cam, fid)
 
     start = ~st.path_alive & (st.sample < st.s_quota - 1)
     new_sample = torch.where(start, st.sample + 1, st.sample)
@@ -249,11 +286,25 @@ def _next_pow2(x: int) -> int:
     return 1 << max(0, (x - 1)).bit_length()
 
 
-def _resolve_kpp(cfg: RenderConfig, spp: int) -> int:
-    """cfg.lanes_per_pixel, or the auto choice: the largest of 8/4/2 that
-    divides spp with a quota >= 4."""
+# Multi-frame batches pick the smallest lanes-per-pixel whose lane count
+# reaches this (longer per-lane quotas shorten the batch's tail).
+_KPP_LANE_TARGET = 1 << 21
+
+
+def _resolve_kpp(cfg: RenderConfig, spp: int, n_frames: int = 1,
+                 frame_pixels: int = 0) -> int:
+    """cfg.lanes_per_pixel, or the auto choice.  One frame: the largest of
+    8/4/2 that divides spp with a quota >= 4.  A multi-frame batch
+    (n_frames > 1, frame_pixels = W*H): the smallest of 1/2/4/8 that
+    divides spp and brings the batch's lanes to _KPP_LANE_TARGET, else the
+    single-frame rule."""
     kpp = cfg.lanes_per_pixel
     if kpp <= 0:
+        if n_frames > 1 and frame_pixels > 0:
+            for cand in (1, 2, 4, 8):
+                if spp % cand == 0 and (frame_pixels * n_frames * cand
+                                        >= _KPP_LANE_TARGET):
+                    return cand
         for cand in (8, 4, 2):
             if spp % cand == 0 and spp // cand >= 4:
                 return cand
@@ -435,9 +486,6 @@ def _alive_count(alive: torch.Tensor):
 
 # Config values the port runs, and the ROADMAP item that ports the rest.
 _SUPPORTED = {
-    "scatter_backend": (("auto",), "Queue 1 item 7 (split path)"),
-    "hit_kernel": (("auto", "v7"), "Queue 1 item 7 (split path)"),
-    "fuse_bounce": (("auto", "on"), "Queue 1 item 7 (split path)"),
     "redistribute": (("auto", "off"), "Queue 1 item 7 (redistribute)"),
     # Kernel D takes its any-touch skip per CTA and per warp, not per
     # sub-group of a ray block.
@@ -447,7 +495,6 @@ _SUPPORTED = {
     "tri_dda_k": ((0,), "Queue 1 item 9 (tri_rebin working-set sort and "
                   "DDA, kernels/tri_rebin.py and tri_dda.py)"),
     "one_shot": (("auto", "off"), "Queue 1 item 7 (one_shot on/staged)"),
-    "multi_backend": (("", "xla"), "Queue 2 (p_bounce_multi_fused)"),
     "compactor": (("", "sort"), "Queue 1 item 7 (route compactor)"),
     "flush_mode": (("", "scatter"), "Queue 1 item 7 (window flush)"),
     "adaptive_alloc": (("off",), "Queue 1 item 8 (adaptive.py)"),
@@ -457,14 +504,27 @@ _SUPPORTED = {
                          "the plain versions run on the CPU)"),
 }
 
+# The values of the bounce-route knobs (RenderConfig's comments); anything
+# else raises ValueError.
+_ROUTE_KNOBS = {
+    "scatter_backend": ("auto", "pallas", "jnp"),
+    "fuse_bounce": ("auto", "on", "off"),
+    "multi_backend": ("", "xla", "fused"),
+}
+
 
 def check_supported(cfg: RenderConfig, scene=None) -> None:
     """Raise NotImplementedError for a knob value this port does not run
-    (after the reference's ValueError checks of the triangle knobs).
+    (after the reference's ValueError checks of the triangle knobs), and
+    ValueError for an unknown value of a bounce-route knob.
     ``accel="grid"`` runs for scenes with triangles; the sphere grid is
     not ported."""
     from .kernels.dispatch import validate_tri_knobs
     validate_tri_knobs(cfg)
+    for field, ok in _ROUTE_KNOBS.items():
+        if getattr(cfg, field) not in ok:
+            raise ValueError(f"unknown {field} {getattr(cfg, field)!r} "
+                             f"(use {'|'.join(v or repr(v) for v in ok)})")
     has_tris = isinstance(scene, TriangleScene) or (
         isinstance(scene, CompositeScene) and scene.triangles is not None)
     if cfg.accel == "grid" and not has_tris:
@@ -479,32 +539,115 @@ def check_supported(cfg: RenderConfig, scene=None) -> None:
                 f"{item}; supported: {list(ok)}")
 
 
-def render_image_persistent(scene: Scene, cam: Optional[Camera],
-                            cfg: RenderConfig) -> torch.Tensor:
+class _Routes(NamedTuple):
+    """The bounce functions a render resolved (``None``: not on this
+    render's routes)."""
+
+    fused: object        # kernel B, or its plain version
+    multi: object        # kernel B's k-bounce under multi_backend="fused"
+    hit_sky: object      # kernel E, or its plain version
+    scatter: object      # kernel F, or its plain version (scatter "pallas")
+    one_shot: str        # "chunk" or "off"
+
+
+def resolve_routes(cfg: RenderConfig, hit_scene, device, *, h_virt: int,
+                   kpp: int, bin_box) -> _Routes:
+    """The reference's route resolution (its render_image_persistent).
+
+    Kernel B (and kernel E) need a plain sphere scene and ``hit_kernel``
+    "auto" or "v7"; under "v4" and "v6" every above-floor bounce is the
+    hit function (kernel A) plus the scatter.  ``scatter_backend`` "auto"
+    is the torch scatter, "pallas" kernel F.  The whole bounce is fused
+    unless ``fuse_bounce="off"``, an explicit ``scatter_backend``, or pixel
+    ids of 2^24 and up (the reference's ``mosaic_dims_ok``; the CUDA
+    kernels divide integers exactly at any size, so here that limit only
+    keeps the routes of the two packages the same).  Under the "jnp"
+    backend the same routes run with the plain versions at their ends."""
+    from .kernels import bounce as B
+    from .kernels import hit_sky as E
+    from .kernels import scatter as F
+    from .kernels.dispatch import resolve_backend
+
+    w = cfg.width
+    kernels = resolve_backend(cfg, device) == "kernels"
+    mosaic_dims_ok = (h_virt * w < (1 << 24)
+                      and (kpp & (kpp - 1) == 0
+                           or h_virt * w * kpp < (1 << 24)))
+    pallas_scatter = cfg.scatter_backend == "pallas"
+    if pallas_scatter and not mosaic_dims_ok:
+        raise ValueError(
+            "scatter_backend='pallas' needs pixel ids that fit the "
+            "kernel's exact-division range (height*width*n_frames < "
+            f"2^24; got {h_virt * w})")
+    fuse_wanted = (cfg.fuse_bounce == "on"
+                   or (cfg.fuse_bounce == "auto"
+                       and cfg.scatter_backend == "auto" and mosaic_dims_ok))
+    if cfg.fuse_bounce == "on" and not mosaic_dims_ok:
+        raise ValueError(
+            "fuse_bounce='on' needs pixel ids that fit the kernel's "
+            "exact-division range (height*width*n_frames < 2^24; got "
+            f"{h_virt * w})")
+    v7 = (isinstance(hit_scene, SphereTable)
+          and cfg.hit_kernel in ("auto", "v7"))
+    fused = multi = None
+    if v7 and fuse_wanted:
+        fused = B.bounce if kernels else B.bounce_plain
+        if cfg.multi_backend == "fused":
+            multi = B.bounce_multi if kernels else B.bounce_multi_plain
+    elif cfg.fuse_bounce == "on":
+        raise ValueError(
+            "fuse_bounce='on' requires the fused bounce kernel, which needs "
+            "a plain sphere scene and hit_kernel auto/v7 (got hit_kernel="
+            f"{cfg.hit_kernel!r}, scene={type(hit_scene).__name__})")
+    hit_sky = (E.hit_sky if kernels else E.hit_sky_plain) if v7 else None
+    scatter = None
+    if pallas_scatter:
+        scatter = F.scatter_respawn if kernels else F.scatter_respawn_plain
+    # Chunks that start at or below the floor run as one shot, unless the
+    # host loop must act between bounces (bin sorts, the pallas scatter).
+    one_shot = cfg.one_shot
+    if one_shot == "auto":
+        one_shot = "off" if bin_box is not None or pallas_scatter else "chunk"
+    return _Routes(fused, multi, hit_sky, scatter, one_shot)
+
+
+def render_image_persistent(scene: Scene, cam, cfg: RenderConfig
+                            ) -> torch.Tensor:
     """Render the full image on the scene's device; returns linear radiance
     [H, W, 3] f32.  Bounces run through the kernels (cfg.backend "auto" or
-    "pallas") or the plain torch ops ("jnp")."""
-    from .kernels.bounce import bounce, bounce_plain, pack_camera
-    from .kernels.dispatch import get_hit_fn_rows_accel, resolve_backend
+    "pallas") or the plain torch ops ("jnp"); :func:`resolve_routes` picks
+    which.
+
+    Multi-frame batches: a LIST of cameras renders len(cam) frames in one
+    batch, a virtual image of F * height rows with one camera per frame;
+    returns [F, H, W, 3].  A list of one camera renders as that camera."""
+    from .kernels.bounce import pack_camera, pack_cameras, unpack_camera
+    from .kernels.dispatch import get_hit_fn_rows_accel
 
     check_supported(cfg, scene)
-    if isinstance(cam, (list, tuple)) and not isinstance(cam, Camera):
-        raise NotImplementedError(
-            "multi-frame camera lists are not ported yet: ROADMAP Queue 1 "
-            "item 7 (n_frames)")
     device = scene.device
+    cams, n_frames = None, 1
+    if isinstance(cam, (list, tuple)) and not isinstance(cam, Camera):
+        cams = [c.to(device) for c in cam]
+        n_frames = len(cams)
+        if n_frames == 0:
+            raise ValueError("empty camera list")
+        if n_frames == 1:
+            cam = cams[0]
     if cam is None:
         cam = default_camera(cfg.width, cfg.height)
-    cam = cam.to(device)
+    w, h, spp = cfg.width, cfg.height, cfg.samples
+    h_virt = h * n_frames   # frames stack as a taller image
+    if n_frames > 1:
+        cam_rows = pack_cameras(cams)
+        cam = unpack_camera(cam_rows)
+    else:
+        cam = cam.to(device)
+        cam_rows = pack_camera(cam)
     # The hit scene: the sphere table, the triangle table or grid, or a
     # composite of those (kernels/dispatch.py).
     hit_scene, hit_fn = get_hit_fn_rows_accel(cfg, scene)
     bin_box = _derive_bin_box(cfg, hit_scene)
-    # Kernel B sweeps spheres only.
-    fused = None
-    if isinstance(hit_scene, SphereTable):
-        kernels = resolve_backend(cfg, device) == "kernels"
-        fused = bounce if kernels else bounce_plain
 
     if cfg.compact_quantum < 0:
         raise ValueError(f"compact_quantum must be >= 0 (0 = auto), got "
@@ -513,50 +656,66 @@ def render_image_persistent(scene: Scene, cam: Optional[Camera],
         raise ValueError(f"compact_shrink must be 0 (auto) or in (0, 1), "
                          f"got {cfg.compact_shrink}")
     shrink = cfg.compact_shrink or _COMPACT_SHRINK
-    w, h, spp = cfg.width, cfg.height, cfg.samples
-    kpp = _resolve_kpp(cfg, spp)
-    rows = max(1, min(h, cfg.rays_per_chunk // max(1, w * kpp)))
+    kpp = _resolve_kpp(cfg, spp, n_frames, w * h)
+    rows = max(1, min(h_virt, cfg.rays_per_chunk // max(1, w * kpp)))
     # Stratify off and roulette off are identities the steps can drop.
     lean = not (cfg.stratify and spp > 1) and not cfg.russian_roulette
-    if h * w * kpp >= (1 << 29):
+    if h_virt * w * kpp >= (1 << 29):
         raise ValueError(
             f"pixel-lane ids must stay below 2^29 "
-            f"(width*height*lanes_per_pixel = {h * w * kpp})")
+            f"(width*height*frames*lanes_per_pixel = {h_virt * w * kpp})")
+    routes = resolve_routes(cfg, hit_scene, device, h_virt=h_virt, kpp=kpp,
+                            bin_box=bin_box)
     quota = spp // kpp
     check_period = cfg.check_period or 8
     first_check = quota + 2
     max_steps = (quota + 1) * (cfg.max_depth + 2)
     min_lanes = 1 << 12
     dims = make_dims(cfg, w, h, spp, kpp)
-    cam_rows = pack_camera(cam)
     mk = cfg.multi_k or _MULTI_K
-    # "auto" runs chunks that start at or below the floor as one shot, but
-    # not when the state is re-binned between bounces.
-    one_shot = cfg.one_shot
-    if one_shot == "auto":
-        one_shot = "chunk" if bin_box is None else "off"
 
-    accum = torch.zeros((3, h * w), dtype=torch.float32, device=device)
+    accum = torch.zeros((3, h_virt * w), dtype=torch.float32, device=device)
+
+    def split_bounce(st, salt, step):
+        """Hit (+ sky), then scatter + respawn: two or more launches."""
+        if routes.hit_sky is not None:
+            rec, st = routes.hit_sky(hit_scene, st, cfg=cfg)
+        else:
+            rec, st = p_hit_step(hit_scene, st, cfg=cfg, hit_fn=hit_fn)
+        if routes.scatter is not None:
+            return routes.scatter(cam_rows, st, rec, salt, step, dims,
+                                  cfg=cfg, lean=lean)
+        return p_scatter_respawn_step(cam, st, rec, salt, step, dims,
+                                      cfg=cfg, lean=lean)
 
     def do_steps(st, k, step, salt):
+        # Below the floor: torch bounces (k at a time when unbinned), or
+        # kernel B's k-bounce under multi_backend="fused".  Binned scenes
+        # take single steps: a k-bounce would run on stale bins.
         tail = st.pixel.shape[1] <= _COMPACT_FLOOR
         if tail and bin_box is None:
             while k >= mk:
-                st = p_bounce_multi_step(hit_scene, cam, st, salt, step + 1,
-                                         dims, cfg=cfg, hit_fn=hit_fn, k=mk,
-                                         lean=lean)
+                if routes.multi is not None:
+                    st = routes.multi(hit_scene, cam_rows, st, salt, step + 1,
+                                      dims, cfg=cfg, k=mk, lean=lean)
+                else:
+                    st = p_bounce_multi_step(hit_scene, cam, st, salt,
+                                             step + 1, dims, cfg=cfg,
+                                             hit_fn=hit_fn, k=mk, lean=lean)
                 step += mk
                 k -= mk
         for _ in range(k):
             step += 1
             if bin_box is not None and (step - 1) % _BIN_PERIOD == 0:
                 st = _bin_sort_core(st, box=bin_box)
-            if tail or fused is None:
+            if tail:
                 st = p_bounce_step(hit_scene, cam, st, salt, step, dims,
                                    cfg=cfg, hit_fn=hit_fn, lean=lean)
+            elif routes.fused is not None:
+                st = routes.fused(hit_scene, cam_rows, st, salt, step, dims,
+                                  cfg=cfg, lean=lean)
             else:
-                st = fused(hit_scene, cam_rows, st, salt, step, dims,
-                           cfg=cfg, lean=lean)
+                st = split_bounce(st, salt, step)
         return st, step
 
     def run_loop(st, accum, salt, state_sorted):
@@ -602,8 +761,8 @@ def render_image_persistent(scene: Scene, cam: Optional[Camera],
         return st, accum
 
     i32 = dict(dtype=torch.int32, device=device)
-    for y0 in range(0, h, rows):
-        take = min(rows, h - y0)
+    for y0 in range(0, h_virt, rows):
+        take = min(rows, h_virt - y0)
         n_real = take * w * kpp
         # Pad the chunk onto the size grid with dead zero-quota lanes that
         # repeat the last pixel id (ascending order survives).
@@ -631,7 +790,7 @@ def render_image_persistent(scene: Scene, cam: Optional[Camera],
         )
         salt = (cfg.seed * 0x9E3779B1 ^ (y0 + 1) * 0x85EBCA77) & 0xFFFFFFFF
         st = p_respawn_step(cam, st, salt, 0, dims, cfg=cfg, lean=lean)
-        if one_shot == "chunk" and n <= _COMPACT_FLOOR:
+        if routes.one_shot == "chunk" and n <= _COMPACT_FLOOR:
             st = p_render_oneshot(hit_scene, cam, st, salt, 0, dims,
                                   max_steps, cfg=cfg, hit_fn=hit_fn,
                                   lean=lean)
@@ -639,8 +798,10 @@ def render_image_persistent(scene: Scene, cam: Optional[Camera],
             # Binning breaks the pixel order the argsort-free flush needs.
             st, accum = run_loop(
                 st, accum, salt,
-                state_sorted=bin_box is None and h * w * kpp < _SORT_PIX_LIM)
+                state_sorted=(bin_box is None
+                              and h_virt * w * kpp < _SORT_PIX_LIM))
         # Flush this chunk's remaining radiance.
         accum.index_add_(1, st.pixel[0] // kpp, st.radiance_sum)
 
-    return _div(accum, spp).T.reshape(h, w, 3)
+    out = _div(accum, spp).T.reshape(h_virt, w, 3)
+    return out if cams is None else out.reshape(n_frames, h, w, 3)
