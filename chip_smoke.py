@@ -22,7 +22,16 @@ checks that each kernel of a path ran in it:
   ``scatter_backend="pallas"``, ``hit_kernel="v4"``,
   ``multi_backend="fused"``), and config 4 with the pallas scatter;
 * phase 12: BASELINE config 5, an 8-frame flythrough of the final scene at
-  640x480, 32 spp, through ``render_animation`` (kernel B on 8 cameras).
+  640x480, 32 spp, through ``render_animation`` (kernel B on 8 cameras);
+* phase 13: kernels G (column sphere hit) and H (column triangle hit)
+  against their plain versions, on random rays and on the wavefront's own
+  first and second bounce rays of ``final`` (1200x800, 4 spp) and ``mesh``
+  (800x450, 4 spp);
+* phase 14: the wavefront scheduler: small renders, kernels against plain;
+  the threefry draws on the card against the CPU's; ``render("final")`` at
+  1200x800, 4 spp (kernel G) and with ``deterministic=True``, each equal
+  to its plain render; ``render("mesh")`` at 800x450, 4 spp (kernels G and
+  H); and one CLI render in a subprocess.
 
 Each phase prints one line or more; any failure raises, so the exit code is
 non-zero.  Before the last line, a ``{"kernels": [...]}`` line (each
@@ -32,6 +41,7 @@ device.
 
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --phases 0,1,6  # a subset (0 is always run)
+    python3 chip_smoke.py --phases 0,1,13,14   # the wavefront slice
 
 Needs a CUDA card and nvcc.
 """
@@ -53,6 +63,15 @@ HEADLINE_MEAN = 170.1   # the JAX renderer's u8 image mean for this scene and si
 HEADLINE_MEAN_TOL = 1.5
 CONFIG4 = dict(width=800, height=450, samples=50)   # BASELINE.json config 4
 SMALL_MESH = dict(width=160, height=90, samples=8, seed=2)
+# The wavefront's full-width render and its mesh render (phases 13-14).
+WAVEFRONT = dict(width=1200, height=800, samples=4)
+WAVEFRONT_MESH = dict(width=800, height=450, samples=4)
+# The JAX renderer's u8 image mean for ``final`` at 300x200, 4 spp, seed 0
+# (its wavefront scheduler, on the CPU; the port's plain path on the CPU
+# reads 169.872).
+WAVEFRONT_SMALL = dict(width=300, height=200, samples=4)
+WAVEFRONT_SMALL_MEAN = 169.874
+WAVEFRONT_SMALL_TOL = 0.5
 
 # The least time the card could take: the larger of the operations over
 # the f32 rate outside the tensor cores and the bytes over the memory rate
@@ -81,14 +100,17 @@ def _counters() -> dict:
     """Each kernel's launch counter: (module, attribute)."""
     from win32_raytracer_tpu_torch.kernels import bounce as B
     from win32_raytracer_tpu_torch.kernels import hit as K
+    from win32_raytracer_tpu_torch.kernels import hit_cols as G
     from win32_raytracer_tpu_torch.kernels import hit_sky as E
     from win32_raytracer_tpu_torch.kernels import scatter as F
     from win32_raytracer_tpu_torch.kernels import tri as KC
+    from win32_raytracer_tpu_torch.kernels import tri_cols as H
     from win32_raytracer_tpu_torch.kernels import tri_grid as KD
     return {"hit": (K, "LAUNCHES"), "bounce": (B, "LAUNCHES"),
             "bounce_multi": (B, "MULTI_LAUNCHES"), "hit_sky": (E, "LAUNCHES"),
             "scatter": (F, "LAUNCHES"), "tri": (KC, "LAUNCHES"),
-            "tri_grid": (KD, "LAUNCHES")}
+            "tri_grid": (KD, "LAUNCHES"), "hit_cols": (G, "LAUNCHES"),
+            "tri_cols": (H, "LAUNCHES")}
 
 
 def reset_launches() -> None:
@@ -120,6 +142,11 @@ def exact_cmp(a, b) -> tuple:
         if x.is_floating_point() and x.numel():
             err = max(err, float((x - y).abs().max()))
     return int(bad.sum()), err
+
+
+def rows_of(rec) -> tuple:
+    """A column record's fields as [rows, N] views (for exact_cmp)."""
+    return tuple(x.T if x.dim() == 2 else x[None] for x in rec)
 
 
 def random_state(dev, n: int, quota: int, seed: int = 11):
@@ -1165,6 +1192,248 @@ class Smoke:
               f"{small_means.tolist()}")
 
 
+    # ---- phase 13 ---------------------------------------------------------
+    def wavefront_kernels(self):
+        """Kernels G and H against their plain versions (ops/hit.hit_spheres,
+        ops/hit_tri.hit_triangles) on 262,144 random rays, then on the
+        wavefront's own first and second bounce rays: ``final`` at
+        1200x800, 4 spp (one chunk of 3,840,000 lanes; kernel G) and
+        ``mesh`` at 800x450, 4 spp (1,440,000 lanes; G on its spheres, H
+        on its triangles).  Every comparison must be exact: 0 lanes differ,
+        max |err| 0.  Each kernel is timed on its first-bounce rays."""
+        from win32_raytracer_tpu_torch.config import RenderConfig
+        from win32_raytracer_tpu_torch.core.rng import fold_in, prng_key
+        from win32_raytracer_tpu_torch.kernels import hit_cols as G
+        from win32_raytracer_tpu_torch.kernels import tri_cols as H
+        from win32_raytracer_tpu_torch.kernels.dispatch import get_hit_fn, hit_tables
+        from win32_raytracer_tpu_torch.ops.hit import hit_spheres
+        from win32_raytracer_tpu_torch.ops.hit_tri import hit_triangles
+        from win32_raytracer_tpu_torch.render import bounce_step, make_primary_rays
+        from win32_raytracer_tpu_torch.scene.builders import get_scene
+        from win32_raytracer_tpu_torch.scene.camera import default_camera
+
+        dev = self.dev
+        kernel = {"hit_cols": (G.hit_spheres_cols, hit_spheres, "G"),
+                  "tri_cols": (H.hit_triangles_cols, hit_triangles, "H")}
+        errs = {"hit_cols": 0.0, "tri_cols": 0.0}
+
+        def hold(name, tab, o, d, t, what):
+            kfn, pfn, letter = kernel[name]
+            rk, rp = kfn(tab, o, d, t), pfn(tab, o, d, t)
+            torch.cuda.synchronize()
+            lanes, err = exact_cmp(rows_of(rk), rows_of(rp))
+            self.say(f"13 kernel {letter}", f"{what}: {o.shape[0]} rays, hits "
+                     f"{float(rp.hit.float().mean()):.3f}: {lanes} lanes differ "
+                     f"from plain, max |err| {err:.3e}")
+            check(lanes == 0 and err == 0.0,
+                  f"kernel {letter} {what}: {lanes} lanes differ, max |err| {err}")
+            errs[name] = max(errs[name], err)
+
+        def cuda_t(x):
+            return torch.as_tensor(np.asarray(x), dtype=torch.float32,
+                                   device=dev).contiguous()
+
+        final = hit_tables(get_scene("final", device=dev))
+        mesh = hit_tables(get_scene("mesh", device=dev))
+        rng = np.random.default_rng(41)
+        n = 1 << 18
+        o = rng.uniform([-12, 0.01, -12], [12, 4, 12], (n, 3))
+        o[: n // 3] = [15.0, 2.0, 4.0] + rng.normal(0, 0.3, (n // 3, 3))
+        hold("hit_cols", final, cuda_t(o), cuda_t(rng.normal(0, 1, (n, 3))),
+             cuda_t(rng.uniform(0, 0.05, n)), "random rays vs final")
+        o = rng.uniform([-3.0, 0.0, -2.0], [3.0, 3.0, 4.0], (n, 3))
+        tgt = np.where(rng.uniform(size=(n, 1)) < 0.8,
+                       [0.0, 1.0, 0.0] + rng.normal(0, 0.7, (n, 3)),
+                       [0.0, 0.35, 2.2] + rng.normal(0, 0.4, (n, 3)))
+        hold("tri_cols", mesh.triangles, cuda_t(o), cuda_t(tgt - o),
+             torch.zeros(n, device=dev), "random rays vs mesh")
+
+        times, bounds = {}, {}
+        for name, label, size, tab, sub in (
+                ("hit_cols", "final", WAVEFRONT, final, final),
+                ("tri_cols", "mesh", WAVEFRONT_MESH, mesh, mesh.triangles)):
+            cfg = RenderConfig(**size, backend="jnp")
+            w, h, spp = cfg.width, cfg.height, cfg.samples
+            key = fold_in(prng_key(0), 0)
+            st = make_primary_rays(default_camera(w, h, device=dev), 0,
+                                   fold_in(key, 1), cfg=cfg, width=w, height=h,
+                                   spp=spp, rows=h)
+            plain_fn = get_hit_fn(cfg, dev, tab)
+            for bounce in (1, 2):
+                what = f"{label} {w}x{h}@{spp} bounce {bounce}"
+                hold(name, sub, st.origin, st.direction, st.time, what)
+                if label == "mesh":
+                    hold("hit_cols", tab.spheres, st.origin, st.direction,
+                         st.time, what + " (spheres)")
+                if bounce == 1:
+                    kfn, pfn, _ = kernel[name]
+                    args = (sub, st.origin, st.direction, st.time)
+                    times[name] = (cuda_ms(lambda: kfn(*args), 10),
+                                   cuda_ms(lambda: pfn(*args), 2))
+                    rays = st.origin.shape[0]
+                    st = bounce_step(tab, st, fold_in(key, 2), 0, cfg=cfg,
+                                     hit_fn=plain_fn)
+            # Bounds on these inputs: every ray sweeps every active sphere
+            # (triangle); 28 (24) bytes in and the 57-byte record out per
+            # ray, and the table once.
+            active = int(sub.active.sum())
+            table_bytes = sub.attrs.numel() * 4 + sub.active.numel()
+            per_pair, per_ray = ((OPS_SPHERE_PAIR, 28) if name == "hit_cols"
+                                 else (OPS_TRI_PAIR, 24))
+            bounds[name] = bound(rays * active * per_pair,
+                                 rays * (per_ray + RECORD_BYTES) + table_bytes)
+            self.say("13 times", f"kernel {kernel[name][2]} at {rays} rays x "
+                     f"{active} {'spheres' if name == 'hit_cols' else 'triangles'}"
+                     f": {times[name][0]:.3f} ms, plain {times[name][1]:.3f} ms, "
+                     f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}) "
+                     f"[{self.card}]")
+            del st
+        for name in times:
+            self.kernels.setdefault(name, {}).update(
+                ms=times[name][0], plain_ms=times[name][1],
+                max_abs_err=errs[name], bound_ms=bounds[name][0],
+                bound_by=bounds[name][1])
+
+    # ---- phase 14 ---------------------------------------------------------
+    def wavefront_path(self):
+        """The wavefront scheduler through the entry points: small renders
+        (48x32, 4 spp: ``test``, ``mesh``; a deterministic specular scene
+        at 1 spp) equal to their ``backend="jnp"`` renders; the threefry
+        draws on the card equal to the CPU's; ``render("final")`` at
+        1200x800, 4 spp through kernel G alone, equal to its plain render,
+        and a 300x200 render's mean against the JAX renderer's;
+        ``render("mesh")`` at 800x450, 4 spp through G and H; the final
+        scene with ``deterministic=True`` equal to its plain render; one
+        CLI render in a subprocess."""
+        from win32_raytracer_tpu_torch.api import render
+        from win32_raytracer_tpu_torch.config import RenderConfig, resolve_scheduler
+        from win32_raytracer_tpu_torch.core.rng import fold_in, prng_key, uniform01
+        from win32_raytracer_tpu_torch.io.image import read_image
+        from win32_raytracer_tpu_torch.scene.camera import make_camera
+        from win32_raytracer_tpu_torch.scene.spheres import SceneBuilder
+
+        dev = self.dev
+
+        def same(a, b) -> float:
+            return float(np.abs(a.astype(float) - b.astype(float)).mean())
+
+        b = SceneBuilder()
+        b.add_metal((0.0, 0.3, 0.0), 0.8, (0.9, 0.8, 0.7), 0.0)
+        b.add_metal((-1.8, 0.2, -0.5), 0.6, (0.6, 0.7, 0.9), 0.0)
+        b.add_dielectric((1.7, 0.3, 0.5), 0.6, 1.5)
+        b.add_dielectric((1.7, 0.3, 0.5), -0.5, 1.5)
+        small = RenderConfig(width=48, height=32, samples=4, seed=2)
+        pin = make_camera((0.0, 1.0, 4.0), (0.0, 0.5, 0.0), (0.0, 1.0, 0.0),
+                          45.0, 48 / 32, 0.0, 4.0)
+        cases = (("test", "test", None, small, ("hit_cols",)),
+                 ("mesh", "mesh", None, small, ("hit_cols", "tri_cols")),
+                 ("specular, deterministic, 1 spp", b.build(), pin,
+                  small.replace(samples=1, deterministic=True, reflect_thres=2.0),
+                  ("hit_cols",)))
+        for label, scene, cam, cfg, ran in cases:
+            reset_launches()
+            rk = render(scene, cam, cfg, device=dev)
+            got = launches()
+            rp = render(scene, cam, cfg.replace(backend="jnp"), device=dev)
+            d = same(rk.image, rp.image)
+            self.say("14 small", f"{label} {cfg.width}x{cfg.height}@{cfg.samples}: "
+                     f"kernels vs plain mean |diff| {d:.4f} (must be 0), means "
+                     f"{rk.image.mean():.3f}/{rp.image.mean():.3f}, launches {got}")
+            check(d == 0.0, f"wavefront small {label}: differs from plain")
+            check_route(got, ran, (), f"wavefront small {label}")
+
+        key = fold_in(fold_in(prng_key(7), 480), 2)
+        m = 1 << 20
+        on_card = uniform01(fold_in(key, 3), (m, 5), device=dev)
+        on_cpu = uniform01(fold_in(key, 3), (m, 5), device="cpu")
+        bits_equal = torch.equal(on_card.cpu().view(torch.int32),
+                                 on_cpu.view(torch.int32))
+        lanes = WAVEFRONT["width"] * WAVEFRONT["height"] * WAVEFRONT["samples"]
+        draw_ms = cuda_ms(lambda: uniform01(key, (lanes, 5), device=dev), 5)
+        self.say("14 threefry", f"{m} x 5 draws on the card vs the CPU: bit-equal "
+                 f"{bits_equal}; one [{lanes}, 5] draw {draw_ms:.3f} ms [{self.card}]")
+        check(bits_equal, "threefry draws on the card differ from the CPU's")
+
+        cfg = RenderConfig(**WAVEFRONT)
+        check(resolve_scheduler(cfg) == "wavefront", "final at 4 spp: not the wavefront")
+        warm = render("final", cfg=cfg, device=dev)
+        reset_launches()
+        torch.cuda.synchronize()
+        res = render("final", cfg=cfg, device=dev)
+        got = launches()
+        plain = render("final", cfg=cfg.replace(backend="jnp"), device=dev)
+        d = same(res.image, plain.image)
+        self.say("14 final", f"final {cfg.width}x{cfg.height}@{cfg.samples} spp, "
+                 f"wavefront: {res.duration_ms / 1e3:.4f} s (warm run "
+                 f"{warm.duration_ms / 1e3:.4f} s), {res.mrays_per_sec:.3f} "
+                 f"Mrays/s, image mean {res.image.mean():.3f}, launches {got}; "
+                 f"vs plain render ({plain.duration_ms / 1e3:.3f} s) mean |diff| "
+                 f"{d:.4f} (must be 0) [{self.card}]")
+        check(res.image.shape == (cfg.height, cfg.width, 3), "final image shape")
+        check(got["hit_cols"] == cfg.max_depth + 1,
+              f"kernel G launches {got['hit_cols']}, expected {cfg.max_depth + 1}")
+        check_route(got, ("hit_cols",), (), "final wavefront")
+        check(d == 0.0, "final wavefront render differs from its plain render")
+        self.kernels.setdefault("hit_cols", {})["launches"] = got["hit_cols"]
+
+        small_res = render("final", cfg=RenderConfig(**WAVEFRONT_SMALL), device=dev)
+        mean = float(small_res.image.mean())
+        self.say("14 final", f"final 300x200@4 image mean {mean:.3f} (JAX "
+                 f"renderer {WAVEFRONT_SMALL_MEAN} +- {WAVEFRONT_SMALL_TOL})")
+        check(abs(mean - WAVEFRONT_SMALL_MEAN) <= WAVEFRONT_SMALL_TOL,
+              f"final 300x200 mean {mean}")
+
+        cfg = RenderConfig(**WAVEFRONT_MESH)
+        warm = render("mesh", cfg=cfg, device=dev)
+        reset_launches()
+        torch.cuda.synchronize()
+        res = render("mesh", cfg=cfg, device=dev)
+        got = launches()
+        plain = render("mesh", cfg=cfg.replace(backend="jnp"), device=dev)
+        d = same(res.image, plain.image)
+        self.say("14 mesh", f"mesh {cfg.width}x{cfg.height}@{cfg.samples} spp, "
+                 f"wavefront: {res.duration_ms / 1e3:.4f} s (warm run "
+                 f"{warm.duration_ms / 1e3:.4f} s), {res.mrays_per_sec:.3f} "
+                 f"Mrays/s, image mean {res.image.mean():.3f}, launches {got}; "
+                 f"vs plain mean |diff| {d:.4f} (must be 0) [{self.card}]")
+        want = {"hit_cols": cfg.max_depth + 1, "tri_cols": cfg.max_depth + 1}
+        check({k: got[k] for k in want} == want, f"mesh launches {got}")
+        check_route(got, ("hit_cols", "tri_cols"), (), "mesh wavefront")
+        check(d == 0.0, "mesh wavefront render differs from its plain render")
+        self.kernels.setdefault("tri_cols", {})["launches"] = got["tri_cols"]
+
+        cfg = RenderConfig(**WAVEFRONT, deterministic=True)
+        rk = render("final", cfg=cfg, device=dev)
+        rp = render("final", cfg=cfg.replace(backend="jnp"), device=dev)
+        d = same(rk.image, rp.image)
+        self.say("14 deterministic", f"final {cfg.width}x{cfg.height}@"
+                 f"{cfg.samples}, deterministic: {rk.duration_ms / 1e3:.4f} s, "
+                 f"mean {rk.image.mean():.3f}; vs plain mean |diff| {d:.4f} "
+                 f"(must be 0)")
+        check(d == 0.0, "deterministic final differs from its plain render")
+
+        root = os.path.dirname(os.path.abspath(__file__))
+        out = os.path.join(root, "out", "chip_smoke_cli.bmp")
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        if os.path.exists(out):
+            os.remove(out)
+        cmd = [sys.executable, "-m", "win32_raytracer_tpu_torch.cli", "96", "64",
+               "4", "--scene", "test", "--out", out]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=root,
+                              timeout=600)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"CLI exit {proc.returncode}: {proc.stderr[-2000:]}")
+        img = read_image(out)
+        want_img = render("test", cfg=RenderConfig(width=96, height=64, samples=4),
+                          device=dev).image
+        self.say("14 cli", f"{' '.join(cmd[1:4])} ... in {wall:.2f} s (process "
+                 f"included): {' | '.join(proc.stderr.strip().splitlines())}; "
+                 f"BMP {img.shape}, equal to api.render's image: "
+                 f"{bool(np.array_equal(img, want_img))}")
+        check(img.shape == (64, 96, 3), f"CLI image shape {img.shape}")
+        check(np.array_equal(img, want_img), "CLI image differs from api.render's")
+
 # Phase 11's routes: (label, knob, kernels the route must launch, the
 # kernel whose main path it is); kernel A may run below the floor on any.
 ROUTES = (
@@ -1201,12 +1470,16 @@ KERNEL_META = {
                 "win32_raytracer_tpu/kernels/hit_pallas_v7.py:106"),
     "scatter": ("scatter_respawn", "win32_raytracer_tpu_torch/csrc/scatter.cu",
                 "win32_raytracer_tpu/kernels/scatter_pallas.py:383"),
+    "hit_cols": ("sphere_hit_cols", "win32_raytracer_tpu_torch/csrc/hit_cols.cu",
+                 "win32_raytracer_tpu/kernels/hit_pallas_v3.py:40"),
+    "tri_cols": ("triangle_hit_cols", "win32_raytracer_tpu_torch/csrc/tri_cols.cu",
+                 "win32_raytracer_tpu/kernels/tri_pallas.py:35"),
 }
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14",
                     help="comma-separated phases to run (0 always runs)")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
 
@@ -1246,6 +1519,10 @@ def main() -> int:
         smoke.routes()
     if 12 in phases:
         smoke.flythrough()
+    if 13 in phases:
+        smoke.wavefront_kernels()
+    if 14 in phases:
+        smoke.wavefront_path()
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, **{f: smoke.kernels[key][f] for f in keys},

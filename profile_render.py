@@ -13,6 +13,7 @@ fields, to profile an opt-in route.
     python3 profile_render.py final 1200 800 100
     python3 profile_render.py final 1200 800 100 fuse_bounce=off
     python3 profile_render.py final 1200 800 100 scatter_backend=pallas
+    python3 profile_render.py final 1200 800 4      # the wavefront scheduler
 
 Needs a CUDA card and nvcc (the kernels build on first use).
 """
@@ -36,6 +37,8 @@ GROUPS = (
     ("kernel F (scatter + respawn)", "scatter_respawn_kernel"),
     ("kernel C (triangle brute)", "tri_kernel"),
     ("kernel D (triangle grid)", "tri_grid_kernel"),
+    ("kernel G (sphere hit, columns)", "hit_cols_kernel"),
+    ("kernel H (triangle hit, columns)", "tri_cols_kernel"),
     ("sort", "sort"),
     ("sort", "Radix"),
     ("gather/scatter/index", "index"),
@@ -44,6 +47,9 @@ GROUPS = (
     ("copy", "copy"),
     ("copy", "Memcpy"),
     ("copy", "Memset"),
+    # Elementwise int64 ops: the counter-based draws (threefry on the
+    # wavefront, hash_uniform01 on the persistent scheduler).
+    ("int64 ops (draw hashes)", "long"),
 )
 
 

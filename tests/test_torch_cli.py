@@ -1,0 +1,99 @@
+"""PyTorch port: the command-line interface (cli.py) against the JAX
+package's parser, and its render, perf and flythrough modes on the CPU."""
+
+import argparse
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from win32_raytracer_tpu.api import render as jax_render
+from win32_raytracer_tpu.cli import build_parser as jax_build_parser
+from win32_raytracer_tpu.config import RenderConfig as JC
+from win32_raytracer_tpu_torch import cli
+from win32_raytracer_tpu_torch.api import render
+from win32_raytracer_tpu_torch.config import RenderConfig as TC
+from win32_raytracer_tpu_torch.io.image import read_image
+
+torch.set_num_threads(1)
+
+
+def _actions(parser):
+    """Every argument's (flags or dest, nargs, default, choices, type,
+    action kind), help texts aside."""
+    return [(tuple(a.option_strings) or a.dest, a.dest, a.nargs, a.default,
+             a.choices, a.type, type(a).__name__)
+            for a in parser._actions if not isinstance(a, argparse._HelpAction)]
+
+
+def test_parser_matches_reference():
+    """The same positionals (width height samples devices perf), flags,
+    defaults and choices as win32_raytracer_tpu.cli."""
+    ours, ref = _actions(cli.build_parser()), _actions(jax_build_parser())
+    assert ours == ref
+    assert [a[0] for a in ours[:5]] == ["width", "height", "samples",
+                                        "devices", "perf"]
+    args = cli.build_parser().parse_args(["320", "200", "8", "0", "perfTest"])
+    assert (args.width, args.height, args.samples, args.perf) == (320, 200, 8,
+                                                                 "perfTest")
+
+
+def test_main_writes_bmp_on_the_cpu(tmp_path, capsys):
+    """``cli 48 32 4 --scene test --platform cpu`` renders what api.render
+    renders (the wavefront scheduler, below 8 spp) and writes a BMP that
+    reads back; it matches the reference's render of the same config."""
+    out = tmp_path / "cli.bmp"
+    rc = cli.main(["48", "32", "4", "--scene", "test", "--seed", "3",
+                   "--platform", "cpu", "--out", str(out)])
+    assert rc == 0
+    img = read_image(str(out))
+    want = render("test", cfg=TC(width=48, height=32, samples=4, seed=3),
+                  device="cpu").image
+    np.testing.assert_array_equal(img, want)
+    ref = jax_render("test", cfg=JC(width=48, height=32, samples=4, seed=3)).image
+    assert np.abs(img.astype(float) - ref.astype(float)).mean() < 0.05
+    err = capsys.readouterr().err
+    assert "scene=test 48x32 spp=4 depth=10 seed=3 backend=auto" in err
+    assert f"wrote {out}" in err
+
+
+def test_perf_mode_writes_the_perf_file(tmp_path, capsys):
+    perf = tmp_path / "perf.txt"
+    rc = cli.main(["32", "24", "2", "0", "perfTest", "--scene", "test",
+                   "--platform", "cpu", "--perf-file", str(perf), "--quiet"])
+    assert rc == 0
+    ms = int(perf.read_text().strip())
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["metric"] == "Mrays/sec primary" and line["unit"] == "Mrays/s"
+    assert line["value"] > 0 and abs(line["wall_ms"] - ms) <= 1
+    assert line["config"] == "32x24@2spp scene=test"
+    assert not (tmp_path / "out.bmp").exists()
+
+
+def test_animate_writes_frames(tmp_path):
+    pattern = str(tmp_path / "fly.png")
+    rc = cli.main(["24", "16", "2", "--scene", "test", "--animate", "2",
+                   "--platform", "cpu", "--out", pattern, "--quiet"])
+    assert rc == 0
+    for i in range(2):
+        assert read_image(str(tmp_path / f"fly_{i:04d}.png")).shape == (16, 24, 3)
+
+
+def test_refusals():
+    """Not ported yet: more than one device (ROADMAP Queue 1 item 11) and
+    --checkpoint (Queue 1 item 8); --animate with --checkpoint exits 2 as
+    in the reference; an unknown --platform raises; with no platform the
+    card is required, as api.resolve_device requires it."""
+    base = ["16", "8", "2", "--scene", "test", "--quiet"]
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        cli.main(["16", "8", "2", "2", "--platform", "cpu", "--quiet"])
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        cli.main(base + ["--platform", "cpu", "--checkpoint", "x.npz"])
+    assert cli.main(base + ["--platform", "cpu", "--animate", "2",
+                            "--checkpoint", "x.npz"]) == 2
+    with pytest.raises(ValueError, match="platform"):
+        cli.main(base + ["--platform", "tpu"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(base)

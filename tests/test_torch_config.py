@@ -48,7 +48,13 @@ def test_package_imports_without_jax():
             "win32_raytracer_tpu_torch.scene.triangles, "
             "win32_raytracer_tpu_torch.scene.composite, "
             "win32_raytracer_tpu_torch.tri_accel, "
-            "win32_raytracer_tpu_torch.io.image; "
+            "win32_raytracer_tpu_torch.io.image, "
+            "win32_raytracer_tpu_torch.render, "
+            "win32_raytracer_tpu_torch.cli, "
+            "win32_raytracer_tpu_torch.ops.scatter, "
+            "win32_raytracer_tpu_torch.kernels.hit_cols, "
+            "win32_raytracer_tpu_torch.kernels.tri_cols, "
+            "win32_raytracer_tpu_torch.utils.progress; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'win32_raytracer_tpu.'))"
             " or m == 'win32_raytracer_tpu']; "
@@ -94,21 +100,22 @@ def test_unported_knobs_raise(knob):
 
 
 def test_wavefront_and_multi_frame_raise():
-    """The wavefront scheduler is not ported: single renders and
-    animations on it raise; multi-frame batches need the persistent
-    scheduler (ValueError, as in the reference)."""
+    """Single renders and animations on the wavefront scheduler run (a
+    frame at a time); multi-frame batches need the persistent scheduler
+    and raise ValueError, as in the reference; a camera list handed to
+    render raises TypeError."""
     from win32_raytracer_tpu_torch.animation import render_animation
     from win32_raytracer_tpu_torch.api import render
     from win32_raytracer_tpu_torch.scene.builders import test_scene
     from win32_raytracer_tpu_torch.scene.camera import default_camera
-    with pytest.raises(NotImplementedError, match="wavefront"):
-        render("test", cfg=RenderConfig(width=8, height=8, samples=2),
-               device="cpu")
+    res = render("test", cfg=RenderConfig(width=8, height=8, samples=2),
+                 device="cpu")
+    assert res.image.shape == (8, 8, 3)
     cams = [default_camera(8, 8)] * 2
-    with pytest.raises(NotImplementedError, match="Queue 2 item 8"):
-        render_animation(test_scene(), cams,
-                         RenderConfig(width=8, height=8, samples=2),
-                         device="cpu")
+    frames = render_animation(test_scene(), cams,
+                              RenderConfig(width=8, height=8, samples=2),
+                              device="cpu")
+    assert len(frames) == 2 and frames[0].shape == (8, 8, 3)
     with pytest.raises(ValueError, match="persistent"):
         render_animation(test_scene(), cams,
                          RenderConfig(width=8, height=8, samples=2),

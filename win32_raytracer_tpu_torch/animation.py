@@ -2,11 +2,12 @@
 BASELINE.json config 5).
 
 The reference renderer has one hard-coded camera (RayTracer.cpp:906-915);
-this drives the persistent scheduler over a camera path.  Frames render in
+this renders a camera path.  On the persistent scheduler frames render in
 batches: a batch of F frames is one virtual image of F * height rows with
 one camera per frame (``persistent.render_image_persistent`` with a camera
 list), so the scheduler's tail and its alive checks are paid once per
-batch instead of once per frame.
+batch instead of once per frame.  On the wavefront scheduler
+(deterministic renders, below 8 spp) each frame is one ``api.render``.
 """
 
 from __future__ import annotations
@@ -116,10 +117,6 @@ def render_animation(
         raise ValueError(
             f"batch_frames={batch_frames} requires the persistent "
             f"scheduler (resolved scheduler is {scheduler!r})")
-    if scheduler == "wavefront":
-        raise NotImplementedError(
-            "animations on the wavefront scheduler are not ported yet: "
-            "ROADMAP Queue 2 item 8 (wavefront render_image)")
     dev = resolve_device(device)
     scene, _, cfg = _resolve(scene, cameras[0] if cameras else None, cfg, dev)
 

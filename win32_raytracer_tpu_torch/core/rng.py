@@ -11,11 +11,21 @@
    from state (seed+1, seed, seed+1, seed); floats are
    ``(float(int32(s)) / 2^31 + 1) * 0.5``.
 
-2. ``hash_uniform01`` — the renderer's counter-based draws, bit-identical
-   to the JAX package's: (salt, step, row, lane) through two murmur3
-   finalizers.  torch has no uint32 multiply or shift on the CPU, so the
-   uint32 arithmetic runs in int64 with the product split into 16-bit
-   halves and masked back to 32 bits (no int64 overflow anywhere).
+2. ``hash_uniform01`` — the persistent scheduler's counter-based draws,
+   bit-identical to the JAX package's: (salt, step, row, lane) through two
+   murmur3 finalizers.  torch has no uint32 multiply or shift on the CPU,
+   so the uint32 arithmetic runs in int64 with the product split into
+   16-bit halves and masked back to 32 bits (no int64 overflow anywhere).
+
+3. ``prng_key`` / ``fold_in`` / ``uniform01`` — the wavefront scheduler's
+   draws: ``jax.random``'s threefry-2x32 keys and uniforms, bit for bit,
+   in the form JAX uses with ``jax_threefry_partitionable`` on (the
+   default since JAX 0.5): a key is a pair of uint32, ``fold_in(key, x)``
+   hashes the counter pair (0, x), and ``uniform01`` hashes each element's
+   flat index split into (hi, lo) words, xors the two output words and
+   keeps 23 mantissa bits.  Keys are Python ints folded on the host; only
+   the bulk hash runs as int64 tensor ops (add, xor, shift) masked to
+   32 bits.
 """
 
 from __future__ import annotations
@@ -114,6 +124,49 @@ def hash_uniform01(shape, salt, step, purpose: int,
     lane = torch.arange(n, dtype=torch.int64, device=device)
     x = _fmix32(lane[None, :] ^ row_keys[:, None])
     return (x >> 8).to(torch.float32) * _INV24
+
+
+_THREEFRY_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+_THREEFRY_PARITY = 0x1BD11BDA
+
+
+def _threefry2x32(k1: int, k2: int, x0, x1):
+    """Threefry-2x32, 20 rounds, of the counter words (x0, x1) under the
+    key (k1, k2): the rounds and key injections of JAX's
+    ``_threefry2x32_lowering``.  The words are Python ints or int64
+    tensors in [0, 2^32)."""
+    ks = (k1, k2, k1 ^ k2 ^ _THREEFRY_PARITY)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _THREEFRY_ROT[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = x0 ^ (((x1 << r) & _M32) | (x1 >> (32 - r)))
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x0, x1
+
+
+def prng_key(seed: int) -> tuple:
+    """``jax.random.PRNGKey(seed)``: the pair (0, seed mod 2^32), as JAX
+    builds it with 64-bit mode off."""
+    return (0, int(seed) & _M32)
+
+
+def fold_in(key: tuple, data: int) -> tuple:
+    """``jax.random.fold_in(key, data)``: the hash of the counter pair
+    (0, data mod 2^32), on the host."""
+    return _threefry2x32(key[0], key[1], 0, int(data) & _M32)
+
+
+def uniform01(key: tuple, shape, device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)``: U[0, 1) f32, bit for bit."""
+    n = math.prod(shape)
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    hi = idx >> 32 if n > _M32 else 0
+    b1, b2 = _threefry2x32(key[0], key[1], hi, idx & _M32)
+    bits = ((b1 ^ b2) >> 9) | 0x3F800000
+    return (bits.to(torch.int32).view(torch.float32) - 1.0).reshape(shape)
 
 
 def sample_unit_ball(u: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,7 @@
-// Device functions shared by the sphere-hit kernel (hit.cu), the fused
-// bounce kernels (bounce.cu), the split bounce's hit+sky and
+// Device functions shared by the sphere-hit kernels (hit.cu, hit_cols.cu),
+// the fused bounce kernels (bounce.cu), the split bounce's hit+sky and
 // scatter+respawn kernels (hit_sky.cu, scatter.cu) and the triangle kernels
-// (tri.cu, tri_grid.cu).
+// (tri.cu, tri_cols.cu, tri_grid.cu).
 //
 // Every function here mirrors a plain torch function of the package op for
 // op, in the same order (win32_raytracer_tpu_torch/ops/hit.py,
@@ -253,6 +253,142 @@ __device__ __forceinline__ void write_record(const HitRec& h, long long i,
   out_i[i] = h.idx;
   out_i[n + i] = h.mat;
   out_hit[i] = h.hit ? 1 : 0;
+}
+
+// ---------------------------------------------------------------------------
+// The brute hit kernels' bodies, templated on the layout of the rays they
+// read and the record they write: ROWS for the persistent scheduler (rays
+// [3, n], the record by write_record; kernels A and C), COLS for the
+// wavefront scheduler (rays [n, 3], thread k reading o[3k..3k+2]; the
+// record as out_f [n, 12] and out_i [n, 2] with the fields of
+// write_record in the same order; kernels G and H).  The sweep is the same
+// code in both.
+// ---------------------------------------------------------------------------
+
+enum class Layout { ROWS, COLS };
+
+template <Layout L>
+__device__ __forceinline__ void load3(const float* __restrict__ p, long long k,
+                                      long long n, float& x, float& y,
+                                      float& z) {
+  if (L == Layout::COLS) {
+    x = p[3 * k];
+    y = p[3 * k + 1];
+    z = p[3 * k + 2];
+  } else {
+    x = p[k];
+    y = p[n + k];
+    z = p[2 * n + k];
+  }
+}
+
+template <Layout L>
+__device__ __forceinline__ void store_record(const HitRec& h, long long i,
+                                             long long n, float* out_f,
+                                             int32_t* out_i, uint8_t* out_hit) {
+  if (L == Layout::ROWS) {
+    write_record(h, i, n, out_f, out_i, out_hit);
+    return;
+  }
+  const float vals[12] = {h.t,  h.px,  h.py,  h.pz,  h.nx,   h.ny,
+                          h.nz, h.alr, h.alg, h.alb, h.fuzz, h.ior};
+  float* row = out_f + 12 * i;
+#pragma unroll
+  for (int r = 0; r < 12; ++r) row[r] = vals[r];
+  out_i[2 * i] = h.idx;
+  out_i[2 * i + 1] = h.mat;
+  out_hit[i] = h.hit ? 1 : 0;
+}
+
+struct HitArgs {
+  const float* origin;     // [3, n] (ROWS) or [n, 3] (COLS)
+  const float* direction;  // as origin
+  const float* time;       // [n]
+  const float* attrs;      // [n_spheres, ATTR_COLS]
+  const uint8_t* active;   // [n_spheres]
+  float* out_f;            // [12, n] or [n, 12]: t, point, normal, albedo, fuzz, ior
+  int32_t* out_i;          // [2, n] or [n, 2]: idx, mat
+  uint8_t* out_hit;        // [n]
+  long long n;
+  int n_spheres;
+  float min_t;
+  void* stream;
+};
+
+// One thread per ray; the block stages the sphere table through `sh`.
+template <Layout L>
+__device__ __forceinline__ void hit_spheres_body(const HitArgs& a,
+                                                 SphereTile& sh) {
+  const long long n = a.n;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool on = i < n;
+  const long long k = on ? i : 0;  // idle threads still help stage tiles
+  float ox, oy, oz, dx, dy, dz;
+  load3<L>(a.origin, k, n, ox, oy, oz);
+  load3<L>(a.direction, k, n, dx, dy, dz);
+  const float tm = a.time[k];
+  const float aa = dx * dx + dy * dy + dz * dz;
+
+  float best_t;
+  int best_i;
+  sweep_spheres(a.attrs, a.active, a.n_spheres, sh, on, ox, oy, oz, dx, dy,
+                dz, tm, aa, a.min_t, best_t, best_i);
+  if (!on) return;
+  const HitRec h = winner_record(a.attrs, best_t, best_i, ox, oy, oz, dx, dy,
+                                 dz, tm);
+  store_record<L>(h, i, n, a.out_f, a.out_i, a.out_hit);
+}
+
+struct TriArgs {
+  const float* origin;     // [3, n] (ROWS) or [n, 3] (COLS)
+  const float* direction;  // as origin
+  const float* attrs;      // [n_tris, TRI_ATTR_COLS]
+  const uint8_t* active;   // [n_tris]
+  float* out_f;            // [12, n] or [n, 12]
+  int32_t* out_i;          // [2, n] or [n, 2]
+  uint8_t* out_hit;        // [n]
+  long long n;
+  int n_tris;
+  float min_t;
+  void* stream;
+};
+
+// One thread per ray; the block stages the triangle table through `sh`
+// and `act` tile by tile; strict < keeps the first index on ties.
+template <Layout L>
+__device__ __forceinline__ void hit_triangles_body(const TriArgs& a,
+                                                   TriTile& sh, int* act) {
+  const long long n = a.n;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool on = i < n;
+  const long long k = on ? i : 0;  // idle threads still help stage tiles
+  float ox, oy, oz, dx, dy, dz;
+  load3<L>(a.origin, k, n, ox, oy, oz);
+  load3<L>(a.direction, k, n, dx, dy, dz);
+
+  float best_t = kNoHit;
+  int best_i = -1;
+  for (int base = 0; base < a.n_tris; base += kTriTile) {
+    const int cnt = min(kTriTile, a.n_tris - base);
+    __syncthreads();  // the previous tile is consumed
+    stage_tris(a.attrs, TRI_ATTR_COLS, base, cnt, sh);
+    for (int j = threadIdx.x; j < cnt; j += blockDim.x)
+      act[j] = a.active[base + j];
+    __syncthreads();
+    if (!on) continue;
+    for (int j = 0; j < cnt; ++j) {
+      if (!act[j]) continue;
+      const float t = tri_pair_t(sh, j, ox, oy, oz, dx, dy, dz, a.min_t);
+      if (t < best_t) {
+        best_t = t;
+        best_i = base + j;
+      }
+    }
+  }
+  if (!on) return;
+  const HitRec h = tri_winner_record(a.attrs, TRI_ATTR_COLS, best_t, best_i,
+                                     ox, oy, oz, dx, dy, dz);
+  store_record<L>(h, i, n, a.out_f, a.out_i, a.out_hit);
 }
 
 // ---------------------------------------------------------------------------

@@ -124,6 +124,10 @@ def load() -> ctypes.CDLL:
             lib.wrt_scatter_respawn.restype = ctypes.c_int
             lib.wrt_hit_triangles.argtypes = [ctypes.c_void_p]
             lib.wrt_hit_triangles.restype = ctypes.c_int
+            lib.wrt_hit_spheres_cols.argtypes = [ctypes.c_void_p]
+            lib.wrt_hit_spheres_cols.restype = ctypes.c_int
+            lib.wrt_hit_triangles_cols.argtypes = [ctypes.c_void_p]
+            lib.wrt_hit_triangles_cols.restype = ctypes.c_int
             lib.wrt_hit_tri_grid.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                              ctypes.c_int]
             lib.wrt_hit_tri_grid.restype = ctypes.c_int

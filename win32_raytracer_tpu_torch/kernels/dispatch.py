@@ -1,5 +1,6 @@
 """Hit backend and acceleration selection (the reference's
-``kernels/dispatch.py``, rows layout).
+``kernels/dispatch.py``): rows layout for the persistent scheduler,
+columns (:func:`get_hit_fn`) for the wavefront.
 
 ``cfg.backend``: "auto" routes through the kernel wrappers, which launch
 the CUDA kernels for tensors on a card and run their plain versions for
@@ -24,6 +25,12 @@ Pallas backend:
   caps the triangle pass (``t_cap``): a sphere hit occludes every farther
   tile, so fewer tiles are scheduled.  The brute composite runs both
   sweeps whole, as the reference's does.
+
+The wavefront scheduler's column hit functions (:func:`get_hit_fn`) have
+no grid, as in the reference: spheres go to kernel G
+(``kernels/hit_cols.py``), meshes to the brute kernel H
+(``kernels/tri_cols.py``), composites to both through
+``scene/composite.make_hit_fn``.
 """
 
 from __future__ import annotations
@@ -31,10 +38,10 @@ from __future__ import annotations
 import torch
 
 from ..config import RenderConfig
-from ..ops.hit import SphereTable, sphere_table
-from ..ops.hit_tri import tri_table
+from ..ops.hit import SphereTable, hit_spheres, sphere_table
+from ..ops.hit_tri import hit_triangles, tri_table
 from ..ops.rows import combine_hits_rows
-from ..scene.composite import CompositeScene
+from ..scene.composite import CompositeScene, make_hit_fn
 from ..scene.spheres import SphereScene
 from ..scene.triangles import TriangleScene
 from ..tri_accel import (
@@ -42,7 +49,9 @@ from ..tri_accel import (
     hit_triangles_grid_rows_plain,
 )
 from .hit import hit_spheres_rows, hit_spheres_rows_plain
+from .hit_cols import hit_spheres_cols
 from .tri import hit_triangles_rows, hit_triangles_rows_plain
+from .tri_cols import hit_triangles_cols
 from .tri_grid import hit_triangles_grid_rows
 
 
@@ -97,6 +106,35 @@ def get_hit_fn_rows(cfg: RenderConfig, device, scene=None):
     if isinstance(scene, CompositeScene):
         return _make_composite(sphere_fn, _make_tri_pass(tri_fn))
     return tri_fn
+
+
+def get_hit_fn(cfg: RenderConfig, device, scene=None):
+    """Column hit function ``f(scene, o [N, 3], d [N, 3], t [N], min_t)``
+    for the wavefront scheduler (the reference's ``get_hit_fn``): kernel G
+    and kernel H under "auto" and "pallas", the plain ``ops`` sweeps under
+    "jnp".  Without ``scene`` the sphere sweep; with one, the function for
+    its kind (``scene/composite.make_hit_fn``)."""
+    if resolve_backend(cfg, device) == "kernels":
+        sphere_fn, tri_fn = hit_spheres_cols, hit_triangles_cols
+    else:
+        sphere_fn, tri_fn = hit_spheres, hit_triangles
+    if scene is None:
+        return sphere_fn
+    return make_hit_fn(scene, sphere_fn, tri_fn)
+
+
+def hit_tables(scene):
+    """What the column hit functions read, built once per render: the
+    sphere table, the triangle table, or a composite of those."""
+    if isinstance(scene, SphereScene):
+        return sphere_table(scene)
+    if isinstance(scene, TriangleScene):
+        return tri_table(scene)
+    if isinstance(scene, CompositeScene):
+        return CompositeScene(
+            None if scene.spheres is None else sphere_table(scene.spheres),
+            None if scene.triangles is None else tri_table(scene.triangles))
+    raise TypeError(f"unsupported scene type {type(scene).__name__}")
 
 
 def validate_tri_knobs(cfg: RenderConfig) -> None:

@@ -28,7 +28,7 @@ LAUNCHES = 0  # kernel launches by hit_spheres_rows
 hit_spheres_rows_plain = hit_rows_adapter(hit_spheres)
 
 
-class HitArgs(ctypes.Structure):  # csrc/hit.cu HitArgs
+class HitArgs(ctypes.Structure):  # csrc/common.cuh HitArgs (kernels A and G)
     _fields_ = [
         ("origin", ctypes.c_void_p), ("direction", ctypes.c_void_p),
         ("time", ctypes.c_void_p), ("attrs", ctypes.c_void_p),

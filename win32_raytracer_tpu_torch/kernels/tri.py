@@ -29,7 +29,7 @@ from .hit import record_buffers, record_rows
 LAUNCHES = 0  # kernel launches by hit_triangles_rows
 
 
-class TriArgs(ctypes.Structure):  # csrc/tri.cu TriArgs
+class TriArgs(ctypes.Structure):  # csrc/common.cuh TriArgs (kernels C and H)
     _fields_ = [
         ("origin", ctypes.c_void_p), ("direction", ctypes.c_void_p),
         ("attrs", ctypes.c_void_p), ("active", ctypes.c_void_p),

@@ -8,8 +8,10 @@ exact ties; inactive (padding) triangles are masked.  The shading normal is
 the unit geometric normal e1 x e2; entering and exiting are resolved by the
 material math, as for spheres.
 
-Rows layout throughout ([3, N] rays, records as ``HitRecordRows``).  The
-brute sweep is tiled over triangles and chunked over rays so it never
+The sweeps take rows ([3, N] rays, records as ``HitRecordRows``; the
+persistent scheduler) or columns (:func:`hit_triangles`, [N, 3] rays and a
+column ``HitRecord``; the wavefront scheduler), with the same arithmetic.
+The brute sweep is tiled over triangles and chunked over rays so it never
 holds an [N, T] array, and the winner's attributes are fetched by index.
 """
 
@@ -22,7 +24,7 @@ import torch
 
 from ..config import MIN_HIT_T
 from ..scene.triangles import TriangleScene
-from .hit import F32_MAX
+from .hit import F32_MAX, HitRecord
 from .rows import HitRecordRows
 
 # Packed triangle attribute columns.
@@ -176,3 +178,36 @@ def tri_record_rows_from_gather(o, d, t_out, g) -> HitRecordRows:
         mat_id=g[_T_MAT:_T_MAT + 1].to(torch.int32),
         albedo=g[_T_ALR:_T_ALB + 1], fuzz=g[_T_FUZZ:_T_FUZZ + 1],
         ior=g[_T_IOR:_T_IOR + 1])
+
+
+def hit_triangles(scene: Union[TriangleScene, TriTable], origin: torch.Tensor,
+                  direction: torch.Tensor, time: torch.Tensor,
+                  min_t: float = MIN_HIT_T, tile: int = 128) -> HitRecord:
+    """Column form of :func:`hit_triangles_rows`: rays o/d [N, 3], ``time``
+    [N] (unused), a column ``HitRecord`` (``ops.hit_tri.hit_triangles`` of
+    the JAX package).  The same sweep runs on the transposed views."""
+    rec = hit_triangles_rows(scene, origin.T, direction.T, time[None],
+                             min_t=min_t, tile=tile)
+    return HitRecord(
+        hit=rec.hit[0], t=rec.t[0], point=rec.point.T, normal=rec.normal.T,
+        idx=rec.idx[0], mat_id=rec.mat_id[0], albedo=rec.albedo.T,
+        fuzz=rec.fuzz[0], ior=rec.ior[0])
+
+
+def combine_hits(a: HitRecord, b: HitRecord, idx_offset_b: int = 0) -> HitRecord:
+    """Nearest of two column hit records (spheres, then triangles whose
+    indices start after the spheres'): strict ``b.t < a.t``, so geometry A
+    keeps exact ties."""
+    take_b = b.t < a.t
+    tb = take_b[:, None]
+    return HitRecord(
+        hit=a.hit | b.hit,
+        t=torch.where(take_b, b.t, a.t),
+        point=torch.where(tb, b.point, a.point),
+        normal=torch.where(tb, b.normal, a.normal),
+        idx=torch.where(take_b, b.idx + idx_offset_b, a.idx),
+        mat_id=torch.where(take_b, b.mat_id, a.mat_id),
+        albedo=torch.where(tb, b.albedo, a.albedo),
+        fuzz=torch.where(take_b, b.fuzz, a.fuzz),
+        ior=torch.where(take_b, b.ior, a.ior),
+    )
