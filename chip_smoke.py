@@ -31,7 +31,16 @@ checks that each kernel of a path ran in it:
   the threefry draws on the card against the CPU's; ``render("final")`` at
   1200x800, 4 spp (kernel G) and with ``deterministic=True``, each equal
   to its plain render; ``render("mesh")`` at 800x450, 4 spp (kernels G and
-  H); and one CLI render in a subprocess.
+  H); and one CLI render in a subprocess;
+* phase 15: kernel I (the sphere grid's pass B and merge) against its plain
+  grid sweep in rows and in columns, on random rays, a scene with inactive
+  spheres and the headline's own bounce rays under ``accel="grid"``, and
+  against kernel A (brute); the experimental adapters (v1, v2 on kernel G,
+  v5 on kernel A) against their plain versions;
+* phase 16: the sphere grid through the entry points: small grid renders
+  equal to their plain renders, the headline with ``accel="grid"``
+  (kernels A and I on every bounce), and an explicit ``hit_fn`` on the
+  persistent scheduler.
 
 Each phase prints one line or more; any failure raises, so the exit code is
 non-zero.  Before the last line, a ``{"kernels": [...]}`` line (each
@@ -42,6 +51,7 @@ device.
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --phases 0,1,6  # a subset (0 is always run)
     python3 chip_smoke.py --phases 0,1,13,14   # the wavefront slice
+    python3 chip_smoke.py --phases 0,1,15,16   # the sphere grid slice
 
 Needs a CUDA card and nvcc.
 """
@@ -101,6 +111,7 @@ def _counters() -> dict:
     from win32_raytracer_tpu_torch.kernels import bounce as B
     from win32_raytracer_tpu_torch.kernels import hit as K
     from win32_raytracer_tpu_torch.kernels import hit_cols as G
+    from win32_raytracer_tpu_torch.kernels import hit_grid as KI
     from win32_raytracer_tpu_torch.kernels import hit_sky as E
     from win32_raytracer_tpu_torch.kernels import scatter as F
     from win32_raytracer_tpu_torch.kernels import tri as KC
@@ -110,7 +121,7 @@ def _counters() -> dict:
             "bounce_multi": (B, "MULTI_LAUNCHES"), "hit_sky": (E, "LAUNCHES"),
             "scatter": (F, "LAUNCHES"), "tri": (KC, "LAUNCHES"),
             "tri_grid": (KD, "LAUNCHES"), "hit_cols": (G, "LAUNCHES"),
-            "tri_cols": (H, "LAUNCHES")}
+            "tri_cols": (H, "LAUNCHES"), "hit_grid": (KI, "LAUNCHES")}
 
 
 def reset_launches() -> None:
@@ -1434,6 +1445,297 @@ class Smoke:
         check(img.shape == (64, 96, 3), f"CLI image shape {img.shape}")
         check(np.array_equal(img, want_img), "CLI image differs from api.render's")
 
+    # ---- phase 15 ---------------------------------------------------------
+    def kernel_i(self):
+        """Kernel I (the sphere grid's pass B and merge) against its plain
+        grid sweep, in rows and in columns: random primary-like and
+        clustered-bounce batches (tests/test_hit_grid_rows.py's), the final
+        scene with a sixth of its spheres inactive, and the headline's own
+        first and second bounce rays under accel="grid" (3,932,160 lanes).
+        Every comparison must be exact: 0 lanes differ, max |err| 0.  Also
+        kernel I against kernel A (the brute sweep), winner disagreements
+        counted apart from exact-t ties; the three experimental adapters
+        against their plain versions; times with and without the torch
+        prelude (pass A by kernel A, mask, schedule) and the bound from the
+        pair tests kernel I's stats count."""
+        from win32_raytracer_tpu_torch.accel import (
+            build_grid_accel, hit_spheres_grid_plain, hit_spheres_grid_rows_plain)
+        from win32_raytracer_tpu_torch.config import RenderConfig
+        from win32_raytracer_tpu_torch.kernels import hit as K
+        from win32_raytracer_tpu_torch.kernels import hit_grid as KI
+        from win32_raytracer_tpu_torch.kernels.dispatch import get_hit_fn_rows_accel
+        from win32_raytracer_tpu_torch.kernels.experimental import (
+            hit_pallas_v1, hit_pallas_v2, hit_pallas_v5)
+        from win32_raytracer_tpu_torch.kernels.experimental.hit_grid import (
+            hit_spheres_grid_pallas)
+        from win32_raytracer_tpu_torch.ops.hit import hit_spheres, sphere_table
+        from win32_raytracer_tpu_torch.persistent import p_bounce_step
+        from win32_raytracer_tpu_torch.scene.builders import get_scene
+
+        dev = self.dev
+        cfg = RenderConfig(**HEADLINE, accel="grid", backend="jnp")
+        final = get_scene("final", device=dev)
+        gscene, plain_fn = get_hit_fn_rows_accel(cfg, final)
+        table = sphere_table(final)
+        err = 0.0
+
+        def hold(g, tab, o, d, t, what, stats=None):
+            """Kernel I in rows and in columns against the plain grid sweep,
+            then against kernel A; returns the rows record."""
+            nonlocal err
+            rk = KI.hit_spheres_grid_rows(g, o, d, t, stats=stats)
+            rp = hit_spheres_grid_rows_plain(g, o, d, t)
+            oc, dc = o.T.contiguous(), d.T.contiguous()
+            ck = KI.hit_spheres_grid_cols(g, oc, dc, t[0].contiguous())
+            cp = hit_spheres_grid_plain(g, oc, dc, t[0].contiguous())
+            torch.cuda.synchronize()
+            lanes, e = exact_cmp(tuple(rk), tuple(rp))
+            lanes_c, e_c = exact_cmp(rows_of(ck), rows_of(cp))
+            lanes_rc, _ = exact_cmp(tuple(rk), rows_of(ck))
+            err = max(err, e, e_c)
+            brute = K.hit_spheres_rows(tab, o, d, t)
+            hk, hb = rk.hit[0], brute.hit[0]
+            diff = (hk != hb) | (hk & hb & (rk.idx[0] != brute.idx[0]))
+            ties = diff & hk & hb & (rk.t[0] == brute.t[0])
+            real = int((diff & ~ties).sum())
+            self.say("15 kernel I", f"{what}: {o.shape[1]} rays, hits "
+                     f"{float(rp.hit.float().mean()):.3f}: rows {lanes} lanes "
+                     f"differ from plain (max |err| {e:.3e}), columns {lanes_c} "
+                     f"(max |err| {e_c:.3e}), rows vs columns {lanes_rc}; vs "
+                     f"kernel A (brute): {real} disagreements, {int(ties.sum())} "
+                     f"exact-t ties")
+            check(lanes == 0 and e == 0.0 and lanes_c == 0 and e_c == 0.0
+                  and lanes_rc == 0,
+                  f"kernel I {what}: {lanes}/{lanes_c}/{lanes_rc} lanes differ")
+            check(real == 0, f"kernel I {what}: {real} disagreements with the brute sweep")
+            return rk
+
+        def cuda_t(x):
+            return torch.as_tensor(np.asarray(x), dtype=torch.float32,
+                                   device=dev).contiguous()
+
+        rng = np.random.default_rng(51)
+        n, rb = 1 << 19, 2048
+        o = np.tile([15.0, 2.0, 4.0], (n, 1)) + rng.normal(0, 0.05, (n, 3))
+        d = rng.uniform([-12, 0, -12], [12, 2.5, 12], (n, 3)) - o
+        batches = {"primary-like": (o, d)}
+        centers = rng.uniform([-11, 0.0, -11], [11, 0.4, 11], (n // rb, 3))
+        o = (np.repeat(centers, rb, axis=0)
+             + rng.uniform(-0.5, 0.5, (n, 3)) * [1.0, 0.4, 1.0])
+        batches["clustered bounce"] = (o, rng.normal(0, 0.55, (n, 3)) + [0.0, 1.0, 0.0])
+        tm = cuda_t(rng.uniform(0, 0.05, (1, n)))
+        for label, (o, d) in batches.items():
+            d = d / np.linalg.norm(d, axis=1, keepdims=True)
+            hold(gscene, table, cuda_t(o.T), cuda_t(d.T), tm, f"random {label}")
+        act = final.active.clone()
+        act[torch.nonzero(act)[::6, 0]] = False
+        thin = final._replace(active=act)
+        o, d = batches["clustered bounce"]
+        d = d / np.linalg.norm(d, axis=1, keepdims=True)
+        hold(build_grid_accel(thin, time_hi=0.05), sphere_table(thin),
+             cuda_t(o.T), cuda_t(d.T), tm, "a sixth of the spheres inactive")
+
+        # The headline's chunk: the rays of bounces 1 and 2 (the plain grid
+        # bounce between them), with kernel I's tile and pair counts.
+        st, dims, cam = fresh_chunk(cfg, dev)
+        lanes = st.pixel.shape[1]
+        work, times, rays = {}, {}, {}
+        for bounce in (1, 2):
+            o, d, t = (x.contiguous() for x in (st.origin, st.direction, st.time))
+            stats = torch.zeros(2, dtype=torch.int64, device=dev)
+            hold(gscene, table, o, d, t, f"headline bounce {bounce}", stats)
+            tiles, pairs = (int(x) for x in stats.cpu())
+            work[bounce] = pairs
+            rays[bounce] = (o, d, t)
+            self.say("15 kernel I", f"headline bounce {bounce}: {tiles} CTA "
+                     f"tiles, {pairs} pair tests, {pairs / lanes:.1f} per ray "
+                     f"(brute: {int(table.active.sum())})")
+            if bounce == 1:
+                st = p_bounce_step(gscene, cam, st, 12345, 1, dims, cfg=cfg,
+                                   hit_fn=plain_fn, lean=True)
+        del st
+        fn_bytes = (lanes * (28 + 8 + RECORD_BYTES)
+                    + gscene.tile_attrs.numel() * 4 + gscene.glob_attrs.numel() * 4
+                    + (lanes // rb) * (1 + gscene.n_tiles) * 4)
+        for bounce, (o, d, t) in rays.items():
+            full = cuda_ms(lambda: KI.hit_spheres_grid_rows(gscene, o, d, t), 10)
+            pre = cuda_ms(lambda: KI.prepare(gscene, o, d, t, cfg.min_hit_t, rb,
+                                             False), 10)
+            p = KI.prepare(gscene, o, d, t, cfg.min_hit_t, rb, False)
+            alone = cuda_ms(lambda: KI.launch(p), 20)
+            plain = cuda_ms(lambda: hit_spheres_grid_rows_plain(gscene, o, d, t), 1)
+            brute = cuda_ms(lambda: K.hit_spheres_rows(table, o, d, t), 5)
+            b = bound(work[bounce] * OPS_SPHERE_PAIR, fn_bytes)
+            times[bounce] = (full, plain, b)
+            self.say("15 times", f"headline bounce {bounce} at {lanes} rays: "
+                     f"kernel I {full:.3f} ms with its prelude (prelude "
+                     f"{pre:.3f} ms, kernel alone {alone:.3f} ms), plain "
+                     f"{plain:.3f} ms, bound {b[0]:.4f} ms ({b[1]}); kernel A "
+                     f"(brute) on the same rays {brute:.3f} ms [{self.card}]")
+        # The kernels line reports the second bounce (a typical mid-path
+        # bounce: origins on the geometry, blocks still pixel-coherent).
+        full, plain, b = times[2]
+        self.kernels.setdefault("hit_grid", {}).update(
+            ms=full, plain_ms=plain, max_abs_err=err, bound_ms=b[0],
+            bound_by=b[1])
+        # The column instance (the experimental hit_grid's) on bounce 2.
+        oc, dc, tc = (x.T.contiguous() if x.shape[0] == 3 else x[0].contiguous()
+                      for x in rays[2])
+        full_c = cuda_ms(lambda: hit_spheres_grid_pallas(gscene, oc, dc, tc), 10)
+        plain_c = cuda_ms(lambda: hit_spheres_grid_plain(gscene, oc, dc, tc), 1)
+        self.say("15 times", f"column instance (hit_spheres_grid_pallas) on "
+                 f"headline bounce 2: {full_c:.3f} ms with its prelude (pass A "
+                 f"on kernel G), plain {plain_c:.3f} ms, bound {b[0]:.4f} ms "
+                 f"({b[1]}) [{self.card}]")
+
+        # The experimental adapters on one random batch each.
+        m = 1 << 18
+        o = cuda_t(rng.uniform([-12, 0.01, -12], [12, 4, 12], (m, 3)))
+        d = cuda_t(rng.normal(0, 1, (m, 3)))
+        t = cuda_t(rng.uniform(0, 0.05, m))
+        res = {"v1 (kernel G)": (hit_pallas_v1.hit_spheres_pallas(table, o, d, t),
+                                 hit_spheres(table, o, d, t)),
+               "v2 (kernel G)": (hit_pallas_v2.hit_spheres_pallas_v2(table, o, d, t),
+                                 hit_spheres(table, o, d, t))}
+        o5, d5, t5 = o.T.contiguous(), d.T.contiguous(), t[None].contiguous()
+        rk = hit_pallas_v5.hit_spheres_pallas_v5(table, o5, d5, t5)
+        rp = K.hit_spheres_rows_plain(table, o5, d5, t5)
+        torch.cuda.synchronize()
+        out = {k: exact_cmp(rows_of(a), rows_of(b)) for k, (a, b) in res.items()}
+        out["v5 (kernel A)"] = exact_cmp(tuple(rk), tuple(rp))
+        self.say("15 adapters", f"{m} random rays vs final: " + "; ".join(
+            f"{k} {dl} lanes differ from plain, max |err| {e:.3e}"
+            for k, (dl, e) in out.items()))
+        for k, (dl, e) in out.items():
+            check(dl == 0 and e == 0.0, f"adapter {k}: {dl} lanes differ, {e}")
+        active = int(table.active.sum())
+        b = bound(m * active * OPS_SPHERE_PAIR,
+                  m * (28 + RECORD_BYTES) + table.attrs.numel() * 4 + table.active.numel())
+        t_ad = {
+            "v1": (cuda_ms(lambda: hit_pallas_v1.hit_spheres_pallas(table, o, d, t), 10),
+                   cuda_ms(lambda: hit_spheres(table, o, d, t), 2)),
+            "v2": (cuda_ms(lambda: hit_pallas_v2.hit_spheres_pallas_v2(table, o, d, t), 10),
+                   cuda_ms(lambda: hit_spheres(table, o, d, t), 2)),
+            "v5": (cuda_ms(lambda: hit_pallas_v5.hit_spheres_pallas_v5(table, o5, d5, t5), 10),
+                   cuda_ms(lambda: K.hit_spheres_rows_plain(table, o5, d5, t5), 2))}
+        self.say("15 times", f"adapters at {m} rays x {active} spheres: " + "; ".join(
+            f"{k} {ms:.3f} ms (plain {pl:.3f})" for k, (ms, pl) in t_ad.items())
+            + f"; bound {b[0]:.4f} ms ({b[1]}) [{self.card}]")
+
+    # ---- phase 16 ---------------------------------------------------------
+    def grid_path(self):
+        """The sphere grid through the entry points: small ``final`` renders
+        with accel="grid" (160x120, 16 spp; the one-shot tail, then the
+        compaction floor lowered so bounces above it run; once more with
+        ray_binning="on") equal to their backend="jnp" renders; the
+        headline with accel="grid" (kernel I on every bounce beside kernel
+        A's pass A, no kernel B, B-multi or E); one small render through
+        each experimental adapter as an explicit hit_fn on the persistent
+        scheduler, equal to the same render through its plain
+        counterpart."""
+        import win32_raytracer_tpu_torch.persistent as P
+        from win32_raytracer_tpu_torch.api import render
+        from win32_raytracer_tpu_torch.config import RenderConfig
+        from win32_raytracer_tpu_torch.accel import (
+            build_grid_accel, hit_spheres_grid_plain)
+        from win32_raytracer_tpu_torch.kernels.experimental.hit_grid import (
+            hit_spheres_grid_pallas)
+        from win32_raytracer_tpu_torch.kernels.experimental.hit_pallas_v1 import (
+            hit_spheres_pallas)
+        from win32_raytracer_tpu_torch.kernels.experimental.hit_pallas_v2 import (
+            hit_spheres_pallas_v2)
+        from win32_raytracer_tpu_torch.kernels.experimental.hit_pallas_v5 import (
+            hit_spheres_pallas_v5)
+        from win32_raytracer_tpu_torch.kernels.hit import hit_spheres_rows_plain
+        from win32_raytracer_tpu_torch.ops.hit import hit_spheres
+        from win32_raytracer_tpu_torch.persistent import render_image_persistent
+        from win32_raytracer_tpu_torch.render import render as render_scene, tonemap
+        from win32_raytracer_tpu_torch.scene.builders import get_scene
+        from win32_raytracer_tpu_torch.scene.camera import default_camera
+
+        dev = self.dev
+        small = RenderConfig(**ROUTE_SMALL, accel="grid")
+        saved = P._COMPACT_FLOOR
+        try:
+            for label, floor, knob in (
+                    ("one-shot tail", saved, {}),
+                    ("compaction, bounces above the floor", 1 << 14, {}),
+                    ("ray_binning=on", 1 << 14, dict(ray_binning="on"))):
+                P._COMPACT_FLOOR = floor
+                reset_launches()
+                rk = render("final", cfg=small.replace(**knob), device=dev)
+                got = launches()
+                rp = render("final", cfg=small.replace(backend="jnp", **knob),
+                            device=dev)
+                d = float(np.abs(rk.image.astype(float) - rp.image.astype(float)).mean())
+                self.say("16 small", f"grid {label} {small.width}x{small.height}@"
+                         f"{small.samples}: kernels vs plain mean |diff| {d:.4f} "
+                         f"(must be 0), means {rk.image.mean():.3f}/"
+                         f"{rp.image.mean():.3f}, launches {got}")
+                check(d == 0.0, f"grid {label}: small render differs from plain")
+                check_route(got, ("hit", "hit_grid"), (), f"small grid {label}")
+                check(got["hit"] == got["hit_grid"],
+                      f"grid {label}: kernel A {got['hit']} vs kernel I {got['hit_grid']}")
+        finally:
+            P._COMPACT_FLOOR = saved
+
+        cfg = RenderConfig(**HEADLINE, accel="grid")
+        warm = render("final", cfg=cfg, device=dev)
+        reset_launches()
+        torch.cuda.synchronize()
+        res = render("final", cfg=cfg, device=dev)
+        got = launches()
+        mean = float(res.image.mean())
+        self.say("16 headline grid", f"final {cfg.width}x{cfg.height}@"
+                 f"{cfg.samples} spp, accel=grid: {res.duration_ms / 1e3:.4f} s "
+                 f"(warm run {warm.duration_ms / 1e3:.4f} s), "
+                 f"{res.mrays_per_sec:.3f} Mrays/s, image mean {mean:.3f} "
+                 f"(170.1 +- 1.5), launches {got} [{self.card}]")
+        check(res.image.shape == (800, 1200, 3), f"image shape {res.image.shape}")
+        check_route(got, ("hit", "hit_grid"), (), "headline grid")
+        check(got["hit"] == got["hit_grid"],
+              f"headline grid: kernel A {got['hit']} vs kernel I {got['hit_grid']}")
+        check(abs(mean - HEADLINE_MEAN) <= HEADLINE_MEAN_TOL,
+              f"headline grid image mean {mean}")
+        self.kernels.setdefault("hit_grid", {})["launches"] = got["hit_grid"]
+
+        # Explicit hit functions on the persistent scheduler: the column
+        # adapters through render(hit_fn=...) (v1, v2 on kernel G; the
+        # column grid, on kernels G and I, over the GridScene), the rows
+        # adapter v5 (kernel A) through render_image_persistent; each equal
+        # to the same render through its plain counterpart.
+        scene = get_scene("final", device=dev)
+        c = RenderConfig(**ROUTE_SMALL, scheduler="persistent")
+        cam = default_camera(c.width, c.height, device=dev)
+        gscene = build_grid_accel(scene, time_hi=float(cam.shutter_close))
+
+        def rows_render(sc, fn):
+            return tonemap(render_image_persistent(sc, cam, c, hit_fn=fn)).cpu().numpy()
+        cases = (
+            ("v1", lambda: render_scene(scene, cam, c, hit_fn=hit_spheres_pallas),
+             lambda: render_scene(scene, cam, c, hit_fn=hit_spheres), ("hit_cols",)),
+            ("v2", lambda: render_scene(scene, cam, c, hit_fn=hit_spheres_pallas_v2),
+             lambda: render_scene(scene, cam, c, hit_fn=hit_spheres), ("hit_cols",)),
+            ("v5", lambda: rows_render(scene, hit_spheres_pallas_v5),
+             lambda: rows_render(scene, hit_spheres_rows_plain), ("hit",)),
+            ("hit_grid", lambda: render_scene(gscene, cam, c, hit_fn=hit_spheres_grid_pallas),
+             lambda: render_scene(gscene, cam, c, hit_fn=hit_spheres_grid_plain),
+             ("hit_cols", "hit_grid")))
+        for label, run, plain, ran in cases:
+            reset_launches()
+            t0 = time.perf_counter()
+            img = run()
+            wall = time.perf_counter() - t0
+            got = launches()
+            d = float(np.abs(img.astype(float) - plain().astype(float)).mean())
+            self.say("16 hit_fn", f"final {c.width}x{c.height}@{c.samples}, "
+                     f"persistent, hit_fn={label} adapter: {wall:.3f} s, mean "
+                     f"{img.mean():.3f}, launches {got}; vs its plain "
+                     f"counterpart mean |diff| {d:.4f} (must be 0)")
+            check(d == 0.0, f"hit_fn={label}: render differs from plain")
+            check_route(got, ran, (), f"render(hit_fn={label} adapter)")
+
+
 # Phase 11's routes: (label, knob, kernels the route must launch, the
 # kernel whose main path it is); kernel A may run below the floor on any.
 ROUTES = (
@@ -1474,12 +1776,14 @@ KERNEL_META = {
                  "win32_raytracer_tpu/kernels/hit_pallas_v3.py:40"),
     "tri_cols": ("triangle_hit_cols", "win32_raytracer_tpu_torch/csrc/tri_cols.cu",
                  "win32_raytracer_tpu/kernels/tri_pallas.py:35"),
+    "hit_grid": ("sphere_grid_hit", "win32_raytracer_tpu_torch/csrc/hit_grid.cu",
+                 "win32_raytracer_tpu/kernels/hit_grid_rows.py:98"),
 }
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
                     help="comma-separated phases to run (0 always runs)")
     phases = {int(p) for p in ap.parse_args().phases.split(",")}
 
@@ -1523,6 +1827,10 @@ def main() -> int:
         smoke.wavefront_kernels()
     if 14 in phases:
         smoke.wavefront_path()
+    if 15 in phases:
+        smoke.kernel_i()
+    if 16 in phases:
+        smoke.grid_path()
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, **{f: smoke.kernels[key][f] for f in keys},

@@ -14,6 +14,7 @@ fields, to profile an opt-in route.
     python3 profile_render.py final 1200 800 100 fuse_bounce=off
     python3 profile_render.py final 1200 800 100 scatter_backend=pallas
     python3 profile_render.py final 1200 800 4      # the wavefront scheduler
+    python3 profile_render.py final 1200 800 100 accel=grid   # the sphere grid
 
 Needs a CUDA card and nvcc (the kernels build on first use).
 """
@@ -39,6 +40,7 @@ GROUPS = (
     ("kernel D (triangle grid)", "tri_grid_kernel"),
     ("kernel G (sphere hit, columns)", "hit_cols_kernel"),
     ("kernel H (triangle hit, columns)", "tri_cols_kernel"),
+    ("kernel I (sphere grid)", "hit_grid_kernel"),
     ("sort", "sort"),
     ("sort", "Radix"),
     ("gather/scatter/index", "index"),

@@ -87,7 +87,7 @@ def test_no_jax_import_in_package_sources():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(accel="grid"), dict(one_shot="on"), dict(compactor="route"),
+    dict(tri_sub_gate=2), dict(one_shot="on"), dict(compactor="route"),
     dict(flush_mode="window"), dict(one_shot="staged"),
     dict(tri_rebin="on"), dict(adaptive_alloc="on"),
     dict(tri_dda_k=4), dict(kpp_max=16),

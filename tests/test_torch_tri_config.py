@@ -65,8 +65,9 @@ def test_ported_tri_knobs_resolve(knob):
 
 def test_accel_routes():
     """Brute below min_tris and under accel="off"; the grid otherwise;
-    accel="grid" raises where no grid can be built; the sphere grid is
-    not ported."""
+    accel="grid" raises the reference's ValueError where no grid can be
+    built, for a mesh and for a sphere scene too small for the sphere
+    grid."""
     assert not isinstance(D.get_hit_fn_rows_accel(
         RenderConfig(), tb.mesh_scene())[0].triangles, TriGridScene)
     assert not isinstance(D.get_hit_fn_rows_accel(
@@ -74,8 +75,10 @@ def test_accel_routes():
         TriGridScene)
     with pytest.raises(ValueError, match="does not qualify"):
         D.get_hit_fn_rows_accel(RenderConfig(accel="grid"), tb.mesh_scene())
-    with pytest.raises(NotImplementedError, match="item 10"):
-        check_supported(RenderConfig(accel="grid"), tb.get_scene("test"))
+    check_supported(RenderConfig(accel="grid"), tb.get_scene("test"))
+    with pytest.raises(ValueError, match="does not qualify"):
+        D.get_hit_fn_rows_accel(RenderConfig(accel="grid"),
+                                tb.get_scene("test"))
 
 
 @pytest.mark.parametrize("backend", ["auto", "pallas"])

@@ -212,7 +212,8 @@ def test_render_matches_reference(scene, label):
 def test_entry_points_take_the_wavefront():
     """Deterministic renders at any spp and scheduler="wavefront" run the
     wavefront through api.render; an explicit hit_fn is called on the
-    scene as given; on the persistent scheduler it raises."""
+    scene as given; on the persistent scheduler it is adapted to rows and
+    gives the default route's image."""
     base = dict(width=16, height=8, seed=2)
     det = api_render("test", cfg=TC(samples=8, deterministic=True, **base),
                      device="cpu")
@@ -231,8 +232,11 @@ def test_entry_points_take_the_wavefront():
     img = render(tb.test_scene(), cfg=cfg, hit_fn=spy)
     assert calls == [16 * 8 * 2] * 4
     np.testing.assert_array_equal(img, render(tb.test_scene(), cfg=cfg))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        render(tb.test_scene(), cfg=TC(samples=8, **base), hit_fn=spy)
+    calls.clear()
+    cfg = TC(samples=8, **base)
+    img = render(tb.test_scene(), cfg=cfg, hit_fn=spy)
+    assert calls and all(n >= 16 * 8 for n in calls)   # persistent lanes
+    np.testing.assert_array_equal(img, render(tb.test_scene(), cfg=cfg))
 
 
 def test_trace_and_accumulate():

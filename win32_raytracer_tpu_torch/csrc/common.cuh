@@ -1,4 +1,5 @@
-// Device functions shared by the sphere-hit kernels (hit.cu, hit_cols.cu),
+// Device functions shared by the sphere-hit kernels (hit.cu, hit_cols.cu,
+// the sphere grid's hit_grid.cu),
 // the fused bounce kernels (bounce.cu), the split bounce's hit+sky and
 // scatter+respawn kernels (hit_sky.cu, scatter.cu) and the triangle kernels
 // (tri.cu, tri_cols.cu, tri_grid.cu).
@@ -50,6 +51,52 @@ struct SphereTile {
   int act[kTile];
 };
 
+// The pair test of ops/hit.py _sweep against staged sphere j: calls
+// on_root(t) with the near root t where disc >= 0 and t > min_t.  Kernels
+// A, B, E, G and I share it.  The square root and the division stay under
+// the disc >= 0 branch, which most pairs do not take: a form returning
+// kNoHit on both paths read 7-8% slower in kernels A, B, E and G
+// (PERF.md, the sphere grid's findings).
+template <typename OnRoot>
+__device__ __forceinline__ void sphere_pair_t(const SphereTile& sh, int j,
+                                              float ox, float oy, float oz,
+                                              float dx, float dy, float dz,
+                                              float tm, float a, float min_t,
+                                              OnRoot&& on_root) {
+  const float lerp = (tm - sh.t1[j]) * sh.invdt[j];
+  const float cx = sh.c1x[j] + sh.dcx[j] * lerp;
+  const float cy = sh.c1y[j] + sh.dcy[j] * lerp;
+  const float cz = sh.c1z[j] + sh.dcz[j] * lerp;
+  const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
+  const float b = dx * ocx + dy * ocy + dz * ocz;
+  const float r = sh.r[j];
+  const float c = ocx * ocx + ocy * ocy + ocz * ocz - r * r;
+  const float disc = b * b - a * c;
+  if (disc >= 0.0f) {
+    const float t = (-b - sqrtf(disc)) / a;
+    if (t > min_t) on_root(t);
+  }
+}
+
+// Stage the geometry columns of rows [row0, row0 + cnt) of a [*, cols]
+// sphere attribute table into `sh`; every thread of the block takes part.
+__device__ __forceinline__ void stage_spheres(const float* __restrict__ attrs,
+                                              int cols, long long row0,
+                                              int cnt, SphereTile& sh) {
+  for (int j = threadIdx.x; j < cnt; j += blockDim.x) {
+    const float* row = attrs + (size_t)(row0 + j) * cols;
+    sh.c1x[j] = row[A_C1X];
+    sh.c1y[j] = row[A_C1Y];
+    sh.c1z[j] = row[A_C1Z];
+    sh.dcx[j] = row[A_DCX];
+    sh.dcy[j] = row[A_DCY];
+    sh.dcz[j] = row[A_DCZ];
+    sh.t1[j] = row[A_T1];
+    sh.invdt[j] = row[A_INVDT];
+    sh.r[j] = row[A_RADIUS];
+  }
+}
+
 // Every thread of the block must call this: it stages the sphere table
 // through shared memory tile by tile behind __syncthreads.  Threads with
 // `on` false help load and skip the arithmetic.  best_i is -1 on a miss.
@@ -63,39 +110,20 @@ __device__ __forceinline__ void sweep_spheres(
   for (int base = 0; base < n_spheres; base += kTile) {
     const int cnt = min(kTile, n_spheres - base);
     __syncthreads();  // the previous tile is consumed
-    for (int j = threadIdx.x; j < cnt; j += blockDim.x) {
-      const float* row = attrs + (size_t)(base + j) * ATTR_COLS;
-      sh.c1x[j] = row[A_C1X];
-      sh.c1y[j] = row[A_C1Y];
-      sh.c1z[j] = row[A_C1Z];
-      sh.dcx[j] = row[A_DCX];
-      sh.dcy[j] = row[A_DCY];
-      sh.dcz[j] = row[A_DCZ];
-      sh.t1[j] = row[A_T1];
-      sh.invdt[j] = row[A_INVDT];
-      sh.r[j] = row[A_RADIUS];
+    stage_spheres(attrs, ATTR_COLS, base, cnt, sh);
+    for (int j = threadIdx.x; j < cnt; j += blockDim.x)
       sh.act[j] = active[base + j];
-    }
     __syncthreads();
     if (!on) continue;
     for (int j = 0; j < cnt; ++j) {
       if (!sh.act[j]) continue;
-      const float lerp = (tm - sh.t1[j]) * sh.invdt[j];
-      const float cx = sh.c1x[j] + sh.dcx[j] * lerp;
-      const float cy = sh.c1y[j] + sh.dcy[j] * lerp;
-      const float cz = sh.c1z[j] + sh.dcz[j] * lerp;
-      const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
-      const float b = dx * ocx + dy * ocy + dz * ocz;
-      const float r = sh.r[j];
-      const float c = ocx * ocx + ocy * ocy + ocz * ocz - r * r;
-      const float disc = b * b - a * c;
-      if (disc >= 0.0f) {
-        const float t = (-b - sqrtf(disc)) / a;
-        if (t > min_t && t < best_t) {
-          best_t = t;
-          best_i = base + j;
-        }
-      }
+      sphere_pair_t(sh, j, ox, oy, oz, dx, dy, dz, tm, a, min_t,
+                    [&](float t) {
+                      if (t < best_t) {
+                        best_t = t;
+                        best_i = base + j;
+                      }
+                    });
     }
   }
 }
@@ -108,15 +136,16 @@ struct HitRec {
   int idx, mat;
 };
 
-__device__ __forceinline__ HitRec winner_record(
-    const float* __restrict__ attrs, float best_t, int best_i,
+// The record of the sphere whose attribute row (its first ATTR_COLS
+// columns) is `row`, or of a miss when `row` is null.
+__device__ __forceinline__ HitRec sphere_record(
+    const float* __restrict__ row, float best_t,
     float ox, float oy, float oz, float dx, float dy, float dz, float tm) {
   HitRec h;
-  h.hit = best_i >= 0;
+  h.hit = row != nullptr;
   float g[ATTR_COLS];
 #pragma unroll
-  for (int c = 0; c < ATTR_COLS; ++c)
-    g[c] = h.hit ? attrs[(size_t)best_i * ATTR_COLS + c] : 0.0f;
+  for (int c = 0; c < ATTR_COLS; ++c) g[c] = h.hit ? row[c] : 0.0f;
   const float ts = h.hit ? best_t : 0.0f;
   h.t = best_t;
   h.px = ox + ts * dx;
@@ -138,6 +167,15 @@ __device__ __forceinline__ HitRec winner_record(
   h.fuzz = g[A_FUZZ];
   h.ior = g[A_IOR];
   return h;
+}
+
+// The record of sphere best_i of a [*, ATTR_COLS] table (-1: a miss).
+__device__ __forceinline__ HitRec winner_record(
+    const float* __restrict__ attrs, float best_t, int best_i,
+    float ox, float oy, float oz, float dx, float dy, float dz, float tm) {
+  return sphere_record(best_i >= 0 ? attrs + (size_t)best_i * ATTR_COLS
+                                   : nullptr,
+                       best_t, ox, oy, oz, dx, dy, dz, tm);
 }
 
 // ---------------------------------------------------------------------------

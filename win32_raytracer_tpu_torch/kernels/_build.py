@@ -131,6 +131,8 @@ def load() -> ctypes.CDLL:
             lib.wrt_hit_tri_grid.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                              ctypes.c_int]
             lib.wrt_hit_tri_grid.restype = ctypes.c_int
+            lib.wrt_hit_grid.argtypes = [ctypes.c_void_p, ctypes.c_int]
+            lib.wrt_hit_grid.restype = ctypes.c_int
             lib.wrt_error_string.argtypes = [ctypes.c_int]
             lib.wrt_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -13,7 +13,12 @@ Scene routing (:func:`get_hit_fn_rows_accel`), the reference's on its
 Pallas backend:
 
 * a plain sphere scene: kernel A (``kernels/hit.py``) under every
-  ``hit_kernel`` (:func:`validate_hit_kernel`);
+  ``hit_kernel`` (:func:`validate_hit_kernel`); under ``accel="grid"``,
+  when ``accel.build_grid_accel`` qualifies it (built for the camera's
+  shutter window), the sphere grid, kernel A over the globals then kernel I
+  (``kernels/hit_grid.py``); "auto" never picks the sphere grid, as in the
+  reference.  Under "jnp" the grid runs its plain sweep (kernel I's plain
+  version); the reference raises there instead;
 * a triangle mesh with at least ``tri_accel.build_tri_grid``'s
   ``min_tris`` (512) active triangles, under ``accel`` "auto" or "grid":
   the Morton-tile grid, kernel D (``kernels/tri_grid.py``);
@@ -37,7 +42,8 @@ from __future__ import annotations
 
 import torch
 
-from ..config import RenderConfig
+from ..accel import build_grid_accel, hit_spheres_grid_rows_plain
+from ..config import SHUTTER_CLOSE_T, RenderConfig
 from ..ops.hit import SphereTable, hit_spheres, sphere_table
 from ..ops.hit_tri import hit_triangles, tri_table
 from ..ops.rows import combine_hits_rows
@@ -50,6 +56,7 @@ from ..tri_accel import (
 )
 from .hit import hit_spheres_rows, hit_spheres_rows_plain
 from .hit_cols import hit_spheres_cols
+from .hit_grid import hit_spheres_grid_rows
 from .tri import hit_triangles_rows, hit_triangles_rows_plain
 from .tri_cols import hit_triangles_cols
 from .tri_grid import hit_triangles_grid_rows
@@ -88,19 +95,21 @@ def validate_hit_kernel(cfg: RenderConfig) -> None:
 
 
 def _hit_fns(cfg: RenderConfig, device):
-    """(sphere, brute triangle, grid triangle) rows hit functions."""
+    """(sphere, brute triangle, grid triangle, sphere grid) rows hit
+    functions."""
     validate_hit_kernel(cfg)
     if resolve_backend(cfg, device) == "kernels":
-        return hit_spheres_rows, hit_triangles_rows, hit_triangles_grid_rows
+        return (hit_spheres_rows, hit_triangles_rows, hit_triangles_grid_rows,
+                hit_spheres_grid_rows)
     return (hit_spheres_rows_plain, hit_triangles_rows_plain,
-            hit_triangles_grid_rows_plain)
+            hit_triangles_grid_rows_plain, hit_spheres_grid_rows_plain)
 
 
 def get_hit_fn_rows(cfg: RenderConfig, device, scene=None):
     """Rows-layout hit function for the persistent scheduler, without the
     grid: sphere scenes (and ``scene=None``) get the sphere sweep, triangle
     scenes the brute sweep, composites the brute composite."""
-    sphere_fn, tri_fn, _ = _hit_fns(cfg, device)
+    sphere_fn, tri_fn, _, _ = _hit_fns(cfg, device)
     if scene is None or isinstance(scene, (SphereScene, SphereTable)):
         return sphere_fn
     if isinstance(scene, CompositeScene):
@@ -194,21 +203,34 @@ def _make_composite(sphere_fn, tri_pass, cap: bool = False):
     return composite
 
 
-def get_hit_fn_rows_accel(cfg: RenderConfig, scene):
+def get_hit_fn_rows_accel(cfg: RenderConfig, scene, cam=None):
     """Resolve ``(hit_scene, hit_fn)`` for a scene, the grid applied.
 
     ``hit_scene`` is what ``hit_fn(hit_scene, o, d, t, min_t)`` reads, built
-    once per render: the sphere table of a sphere scene, the triangle
-    table of a brute mesh, the :class:`TriGridScene` of a gridded one, or a
+    once per render: the sphere table of a sphere scene (the
+    :class:`GridScene` under ``accel="grid"``), the triangle table of a
+    brute mesh, the :class:`TriGridScene` of a gridded one, or a
     :class:`CompositeScene` of those.  With ``accel`` "auto" or "grid" a
     mesh of >= 512 active triangles gets the Morton-tile grid (the brute
     sweep scales with the triangle count); "off" forces the brute sweep.
     ``tri_gather`` "fused" and "deferred" are the same here: the winner is
-    always read by index after the sweep."""
+    always read by index after the sweep.  ``cam`` (the first camera of a
+    list) bounds the sphere grid's motion extents by its shutter_close
+    (the default camera's when None)."""
     validate_tri_knobs(cfg)
-    sphere_fn, tri_fn, grid_fn = _hit_fns(cfg, scene.device)
+    sphere_fn, tri_fn, grid_fn, sgrid_fn = _hit_fns(cfg, scene.device)
     if isinstance(scene, SphereScene):
-        return sphere_table(scene), sphere_fn
+        if cfg.accel != "grid":
+            return sphere_table(scene), sphere_fn
+        time_hi = (SHUTTER_CLOSE_T if cam is None
+                   else float(cam.shutter_close))
+        gscene = build_grid_accel(scene, time_hi=time_hi)
+        if gscene is None:
+            raise ValueError(
+                "accel='grid' requested but the scene does not qualify "
+                "(sphere grids need enough small spheres — "
+                "accel.build_grid_accel)")
+        return gscene, sgrid_fn
     if isinstance(scene, TriangleScene):
         scene = CompositeScene(None, scene)
     if not isinstance(scene, CompositeScene):
@@ -233,8 +255,7 @@ def get_hit_fn_rows_accel(cfg: RenderConfig, scene):
         raise ValueError(
             "accel='grid' requested but the scene does not qualify (triangle "
             "grids need a mesh with enough triangles — "
-            "tri_accel.build_tri_grid; the sphere grid is not ported: ROADMAP "
-            "Queue 1 item 10)")
+            "tri_accel.build_tri_grid)")
     else:
         tri_pass = _make_tri_pass(tri_fn)
         hit_scene = CompositeScene(spheres, None if tri is None

@@ -21,18 +21,20 @@ the floor: the hit + sky kernel (kernels/hit_sky.py), then the scatter +
 respawn kernel (kernels/scatter.py) under ``scatter_backend="pallas"`` or
 the torch scatter.  ``hit_kernel`` "v4" and "v6" have neither fused nor
 hit + sky kernel: the sphere kernel plus the scatter.  Kernel B sweeps
-spheres only, so a scene with triangles takes the two-step bounce at every
-size, as the reference does: the hit function of kernels/dispatch.py
-(sphere kernel, then kernel C or kernel D capped by the sphere hit,
-merged), then scatter and respawn (``p_hit_step``, and
+spheres only, so a scene with triangles, the sphere grid (``accel="grid"``)
+and an explicit ``hit_fn`` take the two-step bounce at every size, as the
+reference does: the hit function of kernels/dispatch.py (sphere kernel,
+then kernel C or kernel D capped by the sphere hit, merged; or the sphere
+grid's kernels A and I), then scatter and respawn (``p_hit_step``, and
 ``p_scatter_respawn_step`` or kernel F).
 
 Multi-frame batches: a list of cameras renders its frames as one tall
 virtual image, each lane taking the camera of its row's frame.
 
-Ray binning: when the triangle side is the Morton-tile grid, every bounce
-first sorts the whole state by a chord key (origin cell, chord-exit cell,
-direction octant; ``_bin_sort_core``), so each ray block of kernel D's
+Ray binning: when the triangle side is the Morton-tile grid (and on the
+sphere grid under ``ray_binning="on"`` only), every bounce first sorts
+the whole state by a chord key (origin cell, chord-exit cell, direction
+octant; ``_bin_sort_core``), so each ray block of kernel D's
 schedule is a tight spatial wedge; dead lanes sort last with their rays
 parked outside every tile.  Binned renders take single steps (a multi-step
 would run on bins gone stale after one scatter) and never run a chunk as
@@ -50,6 +52,7 @@ from typing import NamedTuple, Optional, Union
 import numpy as np
 import torch
 
+from .accel import GridScene
 from .config import RenderConfig
 from .core.rng import hash_uniform01
 from .ops.hit import SphereTable
@@ -447,8 +450,9 @@ def _bin_sort_core(st: PathState, *, box) -> PathState:
 
 def _derive_bin_box(cfg: RenderConfig, scene):
     """The ray-binning box of a hit scene: on ("auto" or "on") whenever the
-    triangle side is a TriGridScene; None when binning is off or
-    inapplicable."""
+    triangle side is a TriGridScene; on the sphere grid's (x, z) tiles and
+    y slab under "on" only ("auto" keeps its lane order, as the
+    reference's does); None when binning is off or inapplicable."""
     if cfg.ray_binning == "off":
         return None
     g = scene if isinstance(scene, TriGridScene) else getattr(
@@ -457,6 +461,12 @@ def _derive_bin_box(cfg: RenderConfig, scene):
         sb = g.scene_box.cpu().numpy().astype(np.float64)
         lo3 = sb[0::2]
         ext = np.maximum(sb[1::2] - sb[0::2], 1e-6)
+    elif isinstance(scene, GridScene) and cfg.ray_binning == "on":
+        tb = scene.tile_boxes.cpu().numpy().astype(np.float64)
+        ys = scene.y_slab.cpu().numpy().astype(np.float64)
+        lo3 = np.array([tb[:, 0].min(), ys[0], tb[:, 2].min()])
+        hi3 = np.array([tb[:, 1].max(), ys[1], tb[:, 3].max()])
+        ext = np.maximum(hi3 - lo3, 1e-6)
     elif cfg.ray_binning == "on":
         raise ValueError(
             "ray_binning='on' needs a grid-accelerated scene "
@@ -516,21 +526,15 @@ _ROUTE_KNOBS = {
 def check_supported(cfg: RenderConfig, scene=None) -> None:
     """Raise NotImplementedError for a knob value this port does not run
     (after the reference's ValueError checks of the triangle knobs), and
-    ValueError for an unknown value of a bounce-route knob.
-    ``accel="grid"`` runs for scenes with triangles; the sphere grid is
-    not ported."""
+    ValueError for an unknown value of a bounce-route knob.  (Whether
+    ``accel="grid"`` applies to a scene is kernels/dispatch.py's check.)"""
+    del scene
     from .kernels.dispatch import validate_tri_knobs
     validate_tri_knobs(cfg)
     for field, ok in _ROUTE_KNOBS.items():
         if getattr(cfg, field) not in ok:
             raise ValueError(f"unknown {field} {getattr(cfg, field)!r} "
                              f"(use {'|'.join(v or repr(v) for v in ok)})")
-    has_tris = isinstance(scene, TriangleScene) or (
-        isinstance(scene, CompositeScene) and scene.triangles is not None)
-    if cfg.accel == "grid" and not has_tris:
-        raise NotImplementedError(
-            "RenderConfig.accel='grid' on a sphere scene is not ported yet: "
-            "ROADMAP Queue 1 item 10 (sphere grid)")
     for field, (ok, item) in _SUPPORTED.items():
         val = getattr(cfg, field)
         if val not in ok:
@@ -551,11 +555,12 @@ class _Routes(NamedTuple):
 
 
 def resolve_routes(cfg: RenderConfig, hit_scene, device, *, h_virt: int,
-                   kpp: int, bin_box) -> _Routes:
+                   kpp: int, bin_box, own_hit_fn: bool = False) -> _Routes:
     """The reference's route resolution (its render_image_persistent).
 
-    Kernel B (and kernel E) need a plain sphere scene and ``hit_kernel``
-    "auto" or "v7"; under "v4" and "v6" every above-floor bounce is the
+    Kernel B (and kernel E) need a plain sphere scene (not the sphere
+    grid), ``hit_kernel`` "auto" or "v7" and no caller's hit function
+    (``own_hit_fn``); under "v4" and "v6" every above-floor bounce is the
     hit function (kernel A) plus the scatter.  ``scatter_backend`` "auto"
     is the torch scatter, "pallas" kernel F.  The whole bounce is fused
     unless ``fuse_bounce="off"``, an explicit ``scatter_backend``, or pixel
@@ -587,7 +592,7 @@ def resolve_routes(cfg: RenderConfig, hit_scene, device, *, h_virt: int,
             "fuse_bounce='on' needs pixel ids that fit the kernel's "
             "exact-division range (height*width*n_frames < 2^24; got "
             f"{h_virt * w})")
-    v7 = (isinstance(hit_scene, SphereTable)
+    v7 = (not own_hit_fn and isinstance(hit_scene, SphereTable)
           and cfg.hit_kernel in ("auto", "v7"))
     fused = multi = None
     if v7 and fuse_wanted:
@@ -611,12 +616,15 @@ def resolve_routes(cfg: RenderConfig, hit_scene, device, *, h_virt: int,
     return _Routes(fused, multi, hit_sky, scatter, one_shot)
 
 
-def render_image_persistent(scene: Scene, cam, cfg: RenderConfig
-                            ) -> torch.Tensor:
+def render_image_persistent(scene: Scene, cam, cfg: RenderConfig,
+                            hit_fn=None) -> torch.Tensor:
     """Render the full image on the scene's device; returns linear radiance
     [H, W, 3] f32.  Bounces run through the kernels (cfg.backend "auto" or
     "pallas") or the plain torch ops ("jnp"); :func:`resolve_routes` picks
-    which.
+    which.  An explicit rows ``hit_fn(scene, o, d, t, min_t)`` is called on
+    ``scene`` as passed (a GridScene, say), with no accel resolution and
+    neither kernel B nor kernel E: every bounce is that hit function plus
+    the scatter, as in the reference.
 
     Multi-frame batches: a LIST of cameras renders len(cam) frames in one
     batch, a virtual image of F * height rows with one camera per frame;
@@ -644,9 +652,14 @@ def render_image_persistent(scene: Scene, cam, cfg: RenderConfig
     else:
         cam = cam.to(device)
         cam_rows = pack_camera(cam)
-    # The hit scene: the sphere table, the triangle table or grid, or a
-    # composite of those (kernels/dispatch.py).
-    hit_scene, hit_fn = get_hit_fn_rows_accel(cfg, scene)
+    # The hit scene: the sphere table or grid, the triangle table or grid,
+    # or a composite of those (kernels/dispatch.py).
+    own_hit_fn = hit_fn is not None
+    if own_hit_fn:
+        hit_scene = scene
+    else:
+        hit_scene, hit_fn = get_hit_fn_rows_accel(
+            cfg, scene, cams[0] if cams else cam)
     bin_box = _derive_bin_box(cfg, hit_scene)
 
     if cfg.compact_quantum < 0:
@@ -665,7 +678,7 @@ def render_image_persistent(scene: Scene, cam, cfg: RenderConfig
             f"pixel-lane ids must stay below 2^29 "
             f"(width*height*frames*lanes_per_pixel = {h_virt * w * kpp})")
     routes = resolve_routes(cfg, hit_scene, device, h_virt=h_virt, kpp=kpp,
-                            bin_box=bin_box)
+                            bin_box=bin_box, own_hit_fn=own_hit_fn)
     quota = spp // kpp
     check_period = cfg.check_period or 8
     first_check = quota + 2

@@ -221,19 +221,18 @@ def render(scene: Scene, cam: Optional[Camera] = None,
     (top row first) on the scene's device.  The scheduler follows
     ``config.resolve_scheduler``: the wavefront for deterministic renders
     and below 8 spp, else the persistent one.  ``hit_fn`` (a column hit
-    function) replaces the wavefront's resolved one."""
+    function, called on ``scene`` as passed) replaces the resolved one; the
+    persistent scheduler runs it through ``ops/rows.hit_rows_adapter``."""
     cfg = cfg or RenderConfig()
     if cam is None:
         cam = default_camera(cfg.width, cfg.height, device=scene.device)
     scheduler = resolve_scheduler(cfg)
     if scheduler == "persistent":
-        if hit_fn is not None:
-            raise NotImplementedError(
-                "an explicit hit_fn on the persistent scheduler is not "
-                "ported yet: ROADMAP Queue 1 item 5 (hit_fn adapter); it "
-                "resolves its hit functions from cfg.backend")
+        from .ops.rows import hit_rows_adapter
         from .persistent import render_image_persistent
-        linear = render_image_persistent(scene, cam, cfg)
+        linear = render_image_persistent(
+            scene, cam, cfg,
+            hit_fn=None if hit_fn is None else hit_rows_adapter(hit_fn))
     elif scheduler == "wavefront":
         linear = render_image(scene, cam, cfg, hit_fn=hit_fn)
     else:
