@@ -7,7 +7,11 @@ through both paths, then drives the main paths through the kernels and
 checks that each kernel of a path ran in it:
 
 * phases 2-5: the headline (the RTIOW final scene at 1200x800, 100 spp;
-  kernels A and B);
+  kernels A and B), each kernel held exactly to its plain version, kernel
+  A at one and at two rays per thread, on
+  random inputs, on tables with exact ties, inactive rows and mixed
+  shutter intervals, and on the headline's own bounces; kernel A timed at
+  the batch sizes the headline's tail launches;
 * phase 6: kernel C (brute triangle sweep) against its plain version;
 * phase 7: kernel D (Morton-tile grid sweep) against its plain version and
   against kernel C, at BASELINE config 4's chunk;
@@ -40,7 +44,14 @@ checks that each kernel of a path ran in it:
 * phase 16: the sphere grid through the entry points: small grid renders
   equal to their plain renders, the headline with ``accel="grid"``
   (kernels A and I on every bounce), and an explicit ``hit_fn`` on the
-  persistent scheduler.
+  persistent scheduler;
+* phase 17: kernels A and B timed alone at the headline's shapes, with the
+  public entry points only, so that ``--root`` can point it at another
+  checkout of the package (an earlier commit, for a side-by-side timing).
+
+Phase 1 prints each sweep kernel's registers and spills and, from
+``cuobjdump -sass`` of the built library, the instruction mix of each
+kernel's innermost sweep loops.
 
 Each phase prints one line or more; any failure raises, so the exit code is
 non-zero.  Before the last line, a ``{"kernels": [...]}`` line (each
@@ -52,6 +63,8 @@ device.
     python3 chip_smoke.py --phases 0,1,6  # a subset (0 is always run)
     python3 chip_smoke.py --phases 0,1,13,14   # the wavefront slice
     python3 chip_smoke.py --phases 0,1,15,16   # the sphere grid slice
+    python3 chip_smoke.py --phases 0,1,2,3,5,9,10,13,15   # the packed sweep
+    python3 chip_smoke.py --phases 0,1,17 --root out/parent  # A, B of a checkout
 
 Needs a CUDA card and nvcc.
 """
@@ -61,6 +74,8 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -69,6 +84,7 @@ import numpy as np
 import torch
 
 HEADLINE = dict(width=1200, height=800, samples=100)
+RANDOM_RAYS = 1 << 18   # rays (lanes) of phases 2 and 3's random inputs
 HEADLINE_MEAN = 170.1   # the JAX renderer's u8 image mean for this scene and size
 HEADLINE_MEAN_TOL = 1.5
 CONFIG4 = dict(width=800, height=450, samples=50)   # BASELINE.json config 4
@@ -89,12 +105,18 @@ WAVEFRONT_SMALL_TOL = 0.5
 PEAK_F32 = 67e12        # FLOP/s
 PEAK_BYTES = 3.35e12    # B/s
 # f32 operations per pair test, counted from csrc/common.cuh: a sphere
-# (sweep_spheres) 26 multiplies, adds and subtractions and the
-# discriminant's compare (the root's five more where the ray meets the
+# (sweep_packed) 23 multiplies, adds and subtractions and the
+# discriminant's compare where its tile of 256 rows shares one (t1, invdt)
+# and the lerp is formed once per ray and tile, 25 and the compare where
+# it does not (sphere_ops; the root's five more where the ray meets the
 # sphere are not counted); a triangle (tri_pair_t) 46 multiplies, adds,
 # subtractions and the division, and 6 compares.
-OPS_SPHERE_PAIR = 27
+OPS_SPHERE_PAIR, OPS_SPHERE_PAIR_LERP = 24, 26
 OPS_TRI_PAIR = 52
+# The library is built with --fmad=false, so every multiply and add of a
+# pair test issues alone: the f32 pipes retire 67e12 / 2 of them a second,
+# and a sweep's floor under --fmad=false is twice its bound.
+PEAK_F32_UNFUSED = PEAK_F32 / 2
 # Kernel F's f32 operations, an upper count from csrc/common.cuh: scatter
 # and roulette ~200 per live lane (each transcendental call as one), draws
 # and respawn ~60 per lane.  Its bytes bound it by an order of magnitude.
@@ -210,6 +232,30 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls captured in one CUDA
+    graph and replayed: no host work between the launches, so a small
+    launch is timed on the card and not by its Python wrapper (which
+    ``cuda_ms`` measures where the wrapper is the slower)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (3 * reps)
+
+
 def pearson(a: np.ndarray, b: np.ndarray) -> float:
     x = a.astype(np.float64).reshape(-1) - a.mean()
     y = b.astype(np.float64).reshape(-1) - b.mean()
@@ -219,6 +265,20 @@ def pearson(a: np.ndarray, b: np.ndarray) -> float:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
+
+
+def sphere_ops(table) -> int:
+    """f32 operations of one ray's pair tests against every active row of
+    a sphere table (SphereTable), tile by tile as sweep_packed stages it."""
+    act = table.active.cpu().numpy()
+    tv = table.attrs[:, 6:8].cpu().numpy().view(np.uint32)
+    ops = 0
+    for base in range(0, len(act), 256):
+        on = act[base:base + 256]
+        rows = tv[base:base + 256][on]
+        shared = len(rows) == 0 or bool((rows == rows[0]).all())
+        ops += int(on.sum()) * (OPS_SPHERE_PAIR if shared else OPS_SPHERE_PAIR_LERP)
+    return ops
 
 
 def bound(ops: float, nbytes: float) -> tuple:
@@ -258,6 +318,126 @@ def fresh_chunk(cfg, dev, salt: int = 12345):
     cam = default_camera(w, h, device=dev)
     dims = make_dims(cfg, w, h, spp, kpp)
     return p_respawn_step(cam, st, salt, 0, dims, cfg=cfg, lean=True), dims, cam
+
+
+def variant_tables(table) -> dict:
+    """The final scene's table and three variants that the packed sweep
+    must get exactly right: "holes", every seventh sphere inactive besides
+    the padding; "ties", rows 300-339 copying the geometry of rows 4-43 and
+    rows 470-479 that of rows 40-49 (each keeping its own index, so the
+    later row must lose every exact tie, also across tiles); "moving", the
+    ties with every fifth row's
+    shutter interval moved first, so no tile shares one (t1, invdt)."""
+    from win32_raytracer_tpu_torch.ops.hit import SphereTable
+
+    out = {"final": table}
+    for kind in ("holes", "ties", "moving"):
+        attrs, active = table.attrs.clone(), table.active.clone()
+        if kind == "holes":
+            active[4:488:7] = False
+        if kind == "moving":
+            attrs[::5, 6] = 0.25                       # t1
+            attrs[::5, 7] = 1.0 / (1.0 - attrs[::5, 6])  # invdt
+        if kind in ("ties", "moving"):
+            for dst, src in ((slice(300, 340), slice(4, 44)),
+                             (slice(470, 480), slice(40, 50))):
+                attrs[dst, :9] = attrs[src, :9]
+        out[kind] = SphereTable(attrs.contiguous(), active.contiguous())
+    return out
+
+
+def aim_at_ties(o, d, table, seed: int) -> None:
+    """Turn the first quarter of rays o/d [3, N] (card tensors) toward the
+    spheres of rows 4-49, the ones the "ties" tables duplicate."""
+    rng = np.random.default_rng(seed)
+    q = o.shape[1] // 4
+    tgt = table.attrs[torch.as_tensor(rng.integers(4, 50, q), device=o.device), :3]
+    noise = torch.as_tensor(rng.normal(0, 0.02, (q, 3)), dtype=torch.float32,
+                            device=o.device)
+    d[:, :q] = (tgt - o[:, :q].T + noise).T
+
+
+def ptxas_lines(log: str, keys: tuple) -> list:
+    """'kernel: N registers, S/L bytes spill stores/loads' for each entry
+    function of nvcc's -Xptxas -v output whose name holds one of ``keys``."""
+    out, name, spill = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = f"{m.group(1)}/{m.group(2)} bytes spill stores/loads"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name and any(k in name for k in keys):
+            out.append(f"{demangle(name)}: {m.group(1)} registers, {spill}")
+    return out
+
+
+def demangle(name: str) -> str:
+    try:
+        out = subprocess.run(["c++filt", name], capture_output=True, text=True,
+                             timeout=30).stdout.strip()
+    except (OSError, subprocess.TimeoutExpired):
+        out = ""
+    return out.split("(")[0] if out else name
+
+
+def sass_text(lib_path: str) -> str:
+    """``cuobjdump -sass`` of the built library."""
+    cuda = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    exe = shutil.which("cuobjdump") or os.path.join(cuda, "bin", "cuobjdump")
+    return subprocess.run([exe, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=600, check=True).stdout
+
+
+SASS_CLASSES = ("LDS", "FADD", "FMUL", "FFMA", "FSETP", "BRA", "BSSY", "BSYNC")
+
+
+def sass_sweep_mix(dump: str, keys: tuple) -> dict:
+    """The issued instructions per pair test in the sweep loops of each
+    kernel of a ``cuobjdump -sass`` dump whose name holds one of ``keys``.
+
+    A loop is the code from a branch target up to a branch back to it.  A
+    pair test is one ``FSETP.GE ... RZ`` (the ``disc >= 0`` compare).  A
+    loop's hot path is its code outside the loops nested in it and outside
+    the root blocks, the code inside it that a forward branch right after
+    such a compare jumps over (most pairs miss, so they never run it).  Returns {kernel:
+    [{"pairs": p, "per_pair": instructions / p, "LDS": ..., ...}, ...]}
+    for each loop with a pair test on its hot path, the counts per pair."""
+    out = {}
+    for part in re.split(r"\n\s*Function : ", dump)[1:]:
+        name, _, body = part.partition("\n")
+        name = name.strip()
+        if not any(k in name for k in keys):
+            continue
+        ins = [(int(m.group(1), 16), m.group(3).strip()) for m in re.finditer(
+            r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([^;]*);", body)]
+        loops, skips = [], []
+        for k, (addr, op) in enumerate(ins):
+            m = re.match(r"BRA (?:`\()?(0x[0-9a-f]+)", op)
+            if not m:
+                continue
+            tgt = int(m.group(1), 16)
+            if tgt <= addr:
+                loops.append((tgt, addr))
+            elif k and re.match(r"FSETP\.GE\.AND .*, RZ, PT", ins[k - 1][1]):
+                skips.append((addr, tgt))
+        mixes = []
+        for lo, hi in loops:
+            inner = [(a, b) for a, b in loops if lo <= a and b <= hi and (a, b) != (lo, hi)]
+            hot = [op for a, op in ins if lo <= a <= hi
+                   and not any(x <= a <= y for x, y in inner)
+                   and not any(lo <= x < a < y <= hi for x, y in skips)]
+            pairs = sum(bool(re.match(r"FSETP\.GE\.AND .*, RZ, PT", op)) for op in hot)
+            if not pairs:
+                continue
+            mix = {"pairs": pairs, "per_pair": round(len(hot) / pairs, 2)}
+            for c in SASS_CLASSES:
+                mix[c] = round(sum(op.split(" ")[0].split(".")[0] == c for op in hot) / pairs, 2)
+            mixes.append(mix)
+        out[demangle(name)] = mixes
+    return out
 
 
 def tri_arrays(tris) -> tuple:
@@ -337,52 +517,6 @@ def fmt_cmp(c: dict) -> str:
             f"|err| t/point/normal {c['err']:.3e}")
 
 
-def compare_hit(rk, rp, what: str) -> tuple:
-    """Kernel A's record ``rk`` against the plain one ``rp``, held to phase
-    2's bounds; returns (hit-mask, winner disagreement, max |err|)."""
-    hit_k, hit_p = rk.hit[0].cpu().numpy(), rp.hit[0].cpu().numpy()
-    idx_k, idx_p = rk.idx[0].cpu().numpy(), rp.idx[0].cpu().numpy()
-    hit_dis = float((hit_k != hit_p).mean())
-    idx_dis = float((idx_k != idx_p).mean())
-    agree = (idx_k == idx_p) & hit_k & hit_p
-    err, ok = 0.0, True
-    for f in ("t", "point", "normal"):
-        a = getattr(rk, f).cpu().numpy()[:, agree]
-        b = getattr(rp, f).cpu().numpy()[:, agree]
-        err = max(err, float(np.abs(a - b).max(initial=0.0)))
-        ok &= bool(np.allclose(a, b, rtol=1e-5, atol=1e-5))
-    check(hit_dis <= 1e-4, f"kernel A {what}: hit-mask disagreement {hit_dis}")
-    check(idx_dis <= 1e-3, f"kernel A {what}: winner disagreement {idx_dis}")
-    check(ok, f"kernel A {what}: t/point/normal outside rtol=atol=1e-5")
-    return hit_dis, idx_dis, err
-
-
-def compare_bounce(fk, fp, what: str) -> tuple:
-    """Kernel B's state ``fk`` against the plain one ``fp``, held to phase
-    3's bounds; returns (alive disagreement, {depth, sample} disagreement
-    on agreeing lanes, least close share, max |err|)."""
-    al_k = fk.path_alive[0].cpu().numpy()
-    al_p = fp.path_alive[0].cpu().numpy()
-    al_dis = float((al_k != al_p).mean())
-    agree = al_k == al_p
-    int_dis = {f: float((getattr(fk, f)[0].cpu().numpy()[agree]
-                         != getattr(fp, f)[0].cpu().numpy()[agree]).mean())
-               for f in ("depth", "sample")}
-    same = agree & (fk.depth[0].cpu().numpy() == fp.depth[0].cpu().numpy())
-    close, err = {}, 0.0
-    for f in ("origin", "direction", "time", "throughput", "radiance_sum"):
-        a = getattr(fk, f).cpu().numpy()[:, same]
-        b = getattr(fp, f).cpu().numpy()[:, same]
-        close[f] = float(np.isclose(a, b, rtol=1e-4, atol=1e-4).all(axis=0).mean())
-        err = max(err, float(np.abs(a - b).max(initial=0.0)))
-    check(al_dis < 0.01, f"kernel B {what}: alive disagreement {al_dis}")
-    for f, v in int_dis.items():
-        check(v < 0.01, f"kernel B {what}: {f} disagreement {v}")
-    for f, v in close.items():
-        check(v > 0.99, f"kernel B {what}: {f} close share {v}")
-    return al_dis, int_dis, min(close.values()), err
-
-
 class Smoke:
     def __init__(self, card: str):
         self.card = card
@@ -400,11 +534,19 @@ class Smoke:
         path = _build.build()
         _build.load()
         secs = time.perf_counter() - t0
-        ptxas = [ln.strip() for ln in _build.build_log.splitlines()
-                 if "registers" in ln or "spill" in ln]
         self.say("1 build", f"{os.path.basename(path)} in {secs:.2f} s "
-                 f"(nvcc {_build.build_seconds:.2f} s); "
-                 + " | ".join(ptxas[-4:]))
+                 f"(nvcc {_build.build_seconds:.2f} s) from {_build.CSRC}")
+        for ln in ptxas_lines(_build.build_log, SWEEP_KERNELS):
+            self.say("1 ptxas", ln)
+        try:
+            loops = sass_sweep_mix(sass_text(path), SWEEP_KERNELS)
+        except (OSError, subprocess.SubprocessError) as e:
+            self.say("1 sass", f"cuobjdump unavailable ({e})")
+            return
+        for name, mixes in loops.items():
+            self.say("1 sass", f"{name}: per pair test, each sweep loop's hot "
+                     "path: " + "; ".join(", ".join(f"{k} {v}" for k, v in mix.items())
+                                          for mix in mixes))
 
     # ---- phase 2 ----------------------------------------------------------
     def kernel_a(self):
@@ -414,7 +556,7 @@ class Smoke:
 
         scene = get_scene("final", device=self.dev)
         table = sphere_table(scene)
-        n = 1 << 18
+        n = RANDOM_RAYS
         rng = np.random.default_rng(7)
         o = np.empty((3, n), np.float32)
         # A third from above the ground, a third from the camera region,
@@ -435,15 +577,27 @@ class Smoke:
         tm = rng.uniform(0, 0.05, (1, n)).astype(np.float32)
         o_t, d_t, t_t = (torch.from_numpy(x).to(self.dev) for x in (o, d, tm))
 
-        rk = K.hit_spheres_rows(table, o_t, d_t, t_t)
-        rp = K.hit_spheres_rows_plain(table, o_t, d_t, t_t)
-        torch.cuda.synchronize()
-        hit_dis, idx_dis, err = compare_hit(rk, rp, "random rays")
-        self.say("2 kernel A", f"{n} rays vs final scene: hit-mask "
-                 f"disagreement {hit_dis:.2e} (<=1e-4), winner disagreement "
-                 f"{idx_dis:.2e} (<=1e-3), hits {float(rk.hit.float().mean()):.3f}, "
-                 f"max |err| t/point/normal {err:.3e} (rtol=atol=1e-5)")
         self.scene, self.table = scene, table
+        for kind, tab in variant_tables(table).items():
+            d_k = d_t.clone()
+            if kind != "final":
+                aim_at_ties(o_t, d_k, tab, seed=8)
+            rp = K.hit_spheres_rows_plain(tab, o_t, d_k, t_t)
+            res = {}
+            for label, kw in HIT_FORMS:
+                lanes, err = exact_cmp(tuple(K.hit_spheres_rows(tab, o_t, d_k, t_t, **kw)),
+                                       tuple(rp))
+                res[label] = (lanes, err)
+            tied = int(((rp.idx >= 4) & (rp.idx < 50) & rp.hit).sum())
+            self.say("2 kernel A", f"{n} rays vs the {kind} table "
+                     f"({int(tab.active.sum())} active), hits "
+                     f"{float(rp.hit.float().mean()):.3f}, won by a row the "
+                     f"ties tables copy {tied}: " + "; ".join(
+                         f"{k} {v[0]} lanes differ, max |err| {v[1]:.1e}"
+                         for k, v in res.items()))
+            for label, (lanes, err) in res.items():
+                check(lanes == 0 and err == 0.0,
+                      f"kernel A {label} on {kind}: {lanes} lanes, {err}")
 
     # ---- phase 3 ----------------------------------------------------------
     def kernel_b(self):
@@ -455,27 +609,33 @@ class Smoke:
         # Sizes that are not powers of two, so a reciprocal-multiply in
         # place of a division cannot hide.
         w, h, spp, kpp = 640, 205, 12, 2
-        n = 1 << 18
+        n = RANDOM_RAYS
         dev = self.dev
         st = random_state(dev, n, spp // kpp)
         cam_rows = B.pack_camera(default_camera(w, h, device=dev))
-        for lean, extra in ((True, {}),
-                            (False, dict(russian_roulette=True,
-                                         rr_start_depth=1, stratify=True))):
+        tables = variant_tables(self.table)
+        cases = [("final", True, {}),
+                 ("final", False, dict(russian_roulette=True, rr_start_depth=1,
+                                       stratify=True)),
+                 ("ties", True, {}), ("moving", True, {})]
+        for kind, lean, extra in cases:
             cfg = RenderConfig(width=w, height=h, samples=spp,
                                lanes_per_pixel=kpp, **extra)
             dims = make_dims(cfg, w, h, spp, kpp)
-            args = (self.table, cam_rows, st, 0xABC123, 4, dims)
-            fk = B.bounce(*args, cfg=cfg, lean=lean)
+            sk = st
+            if kind != "final":
+                d = st.direction.clone()
+                aim_at_ties(st.origin, d, tables[kind], seed=9)
+                sk = st._replace(direction=d)
+            args = (tables[kind], cam_rows, sk, 0xABC123, 4, dims)
             fp = B.bounce_plain(*args, cfg=cfg, lean=lean)
-            torch.cuda.synchronize()
-            al_dis, int_dis, close, err = compare_bounce(
-                fk, fp, f"random state lean={lean}")
-            self.say("3 kernel B", f"lean={lean}: {n} random lanes at "
-                     f"{w}x{h}, kpp {kpp}: alive disagreement {al_dis:.2e} "
-                     f"(<1%), depth/sample {int_dis['depth']:.2e}/"
-                     f"{int_dis['sample']:.2e} (<1%), min close share "
-                     f"{close:.5f} (>99%), max |err| {err:.3e}")
+            lanes, err = exact_cmp(tuple(B.bounce(*args, cfg=cfg, lean=lean)),
+                                   tuple(fp))
+            self.say("3 kernel B", f"lean={lean}, {kind} table: {n} random "
+                     f"lanes at {w}x{h}, kpp {kpp}: {lanes} lanes differ, "
+                     f"max |err| {err:.1e}")
+            check(lanes == 0 and err == 0.0,
+                  f"kernel B lean={lean} {kind}: {lanes} lanes, {err}")
 
     # ---- phase 4 ----------------------------------------------------------
     def small_render(self):
@@ -505,13 +665,33 @@ class Smoke:
 
     # ---- phase 5 ----------------------------------------------------------
     def headline(self):
+        """The headline twice: a warm run that records the batch sizes the
+        tail hands kernel A, then the counted run."""
         from win32_raytracer_tpu_torch.api import render
         from win32_raytracer_tpu_torch.config import RenderConfig
+        from win32_raytracer_tpu_torch.kernels import dispatch as D
+        from win32_raytracer_tpu_torch.kernels import hit as K
 
         cfg = RenderConfig(**HEADLINE)
-        warm = render("final", cfg=cfg, device="cuda")
+        sizes = {}
+        real = D.hit_spheres_rows
+
+        def spy(scene, origin, *a, **k):
+            n = origin.shape[1]
+            sizes[n] = sizes.get(n, 0) + 1
+            return real(scene, origin, *a, **k)
+        D.hit_spheres_rows = spy
+        try:
+            warm = render("final", cfg=cfg, device="cuda")
+        finally:
+            D.hit_spheres_rows = real
+        self.tail_sizes = dict(sorted(sizes.items(), reverse=True))
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
         self.say("5 headline", f"warm run {warm.duration_ms / 1e3:.3f} s, "
-                 f"mean {warm.image.mean():.3f} [{self.card}]")
+                 f"mean {warm.image.mean():.3f}; kernel A's batches (rays: "
+                 f"launches, rays per thread) " + ", ".join(
+                     f"{n}: {c}, {K.rays_per_thread(n, sms)}"
+                     for n, c in self.tail_sizes.items()) + f" [{self.card}]")
         reset_launches()
         torch.cuda.synchronize()
         res = render("final", cfg=cfg, device="cuda")
@@ -530,11 +710,14 @@ class Smoke:
 
     # ---- kernels at main-path shapes: agreement and times -----------------
     def kernel_main_shapes(self):
-        """Holds each kernel against its plain version on inputs the
+        """Holds each kernel exactly against its plain version on inputs the
         headline gives it, then times both.  Kernel B gets the headline
         chunk's first bounce (every lane fresh from the camera) and its
-        second (the plain first bounce's output); kernel A gets rays of both,
-        in a batch as large as the below-floor tail hands it."""
+        second (the plain first bounce's output); kernel A gets rays of
+        both, in a batch as large as the below-floor tail hands it and in
+        tail-sized batches, in each of its launch forms.  Kernel A is timed
+        at the tail's batch sizes (phase 5's warm run) and at 524,288,
+        65,536 and 8,192 rays, at one and at two rays per thread."""
         from win32_raytracer_tpu_torch.config import RenderConfig
         from win32_raytracer_tpu_torch.kernels import bounce as B
         from win32_raytracer_tpu_torch.kernels import hit as K
@@ -546,70 +729,138 @@ class Smoke:
         st, dims, cam = fresh_chunk(cfg, self.dev)
         n, kpp = st.pixel.shape[1], dims.kpp
         n_real = w * h * kpp
-        dev = self.dev
+        dev, table = self.dev, self.table
         cam_rows = B.pack_camera(cam)
         m = _COMPACT_FLOOR  # the largest batch the below-floor hit sees
-        # Lanes spread evenly over the image, as a compacted tail batch is.
-        pick = torch.linspace(0, n_real - 1, m, device=dev).long()
+
+        def spread(state, size):
+            """``size`` lanes spread evenly over the image, as a compacted
+            tail batch is: their (origin, direction, time)."""
+            pick = torch.linspace(0, n_real - 1, size, device=dev).long()
+            return tuple(x[:, pick].contiguous()
+                         for x in (state.origin, state.direction, state.time))
 
         errs = {"hit": 0.0, "bounce": 0.0}
         state = st
         for step in (1, 2):
-            args = (self.table, cam_rows, state, 12345, step, dims)
-            fk = B.bounce(*args, cfg=cfg, lean=True)
+            args = (table, cam_rows, state, 12345, step, dims)
             fp = B.bounce_plain(*args, cfg=cfg, lean=True)
-            torch.cuda.synchronize()
-            al_dis, int_dis, close, err = compare_bounce(
-                fk, fp, f"headline bounce {step}")
-            errs["bounce"] = max(errs["bounce"], err)
-            o, d, tm = (x[:, pick].contiguous()
-                        for x in (state.origin, state.direction, state.time))
-            rk = K.hit_spheres_rows(self.table, o, d, tm)
-            rp = K.hit_spheres_rows_plain(self.table, o, d, tm)
-            torch.cuda.synchronize()
-            hit_dis, idx_dis, herr = compare_hit(rk, rp, f"headline rays {step}")
-            errs["hit"] = max(errs["hit"], herr)
-            self.say("main shapes", f"bounce {step} at {n} lanes "
-                     f"({w}x{h}, kpp {kpp}, lean): alive disagreement "
-                     f"{al_dis:.2e}, depth/sample {int_dis['depth']:.2e}/"
-                     f"{int_dis['sample']:.2e}, min close share {close:.5f}, "
-                     f"max |err| {err:.3e}; hit on {m} of its rays: "
-                     f"hit-mask {hit_dis:.2e}, winner {idx_dis:.2e}, max "
-                     f"|err| {herr:.3e}, hits {float(rp.hit.float().mean()):.3f}")
+            res = {"B": exact_cmp(tuple(B.bounce(*args, cfg=cfg, lean=True)),
+                                  tuple(fp))}
+            errs["bounce"] = max(errs["bounce"], res["B"][1])
+            for size in (m, 1 << 16, 1 << 12):
+                rays = spread(state, size)
+                rp = tuple(K.hit_spheres_rows_plain(table, *rays))
+                for label, kw in HIT_FORMS:
+                    lanes, err = exact_cmp(tuple(K.hit_spheres_rows(table, *rays, **kw)), rp)
+                    res[f"A {label} at {size}"] = (lanes, err)
+                    errs["hit"] = max(errs["hit"], err)
+            self.say("main shapes", f"bounce {step} at {n} lanes ({w}x{h}, "
+                     f"kpp {kpp}, lean), kernel A on tail batches of its rays: "
+                     + "; ".join(f"{k} {v[0]} lanes differ, max |err| {v[1]:.1e}"
+                                 for k, v in res.items()))
+            for label, (lanes, err) in res.items():
+                check(lanes == 0 and err == 0.0,
+                      f"headline bounce {step}: {label}: {lanes} lanes, {err}")
             state = PathState(*(x.contiguous() for x in fp))
-        del fk, fp, rk, rp, state
+        del fp, state
 
-        args = (self.table, cam_rows, st, 12345, 1, dims)
-        o, d, tm = (x[:, pick].contiguous() for x in (st.origin, st.direction, st.time))
-        times = {
-            "bounce": (cuda_ms(lambda: B.bounce(*args, cfg=cfg, lean=True), 10),
-                       cuda_ms(lambda: B.bounce_plain(*args, cfg=cfg, lean=True), 2)),
-            "hit": (cuda_ms(lambda: K.hit_spheres_rows(self.table, o, d, tm), 10),
-                    cuda_ms(lambda: K.hit_spheres_rows_plain(self.table, o, d, tm), 3)),
-        }
+        ray_ops = sphere_ops(table)
+        table_bytes = table.attrs.numel() * 4 + table.active.numel()
         # Bounds on these inputs: kernel A sweeps every active sphere for
-        # each of its m rays (28 bytes in, the record out); kernel B sweeps
+        # each of its rays (28 bytes in, the record out); kernel B sweeps
         # them for each live lane (73 bytes of state in, 61 out per lane).
-        active = int(self.table.active.sum())
-        table_bytes = self.table.attrs.numel() * 4 + self.table.active.numel()
+        # Kernel B at both bounces, event-timed (cuda_ms: wall per call, the
+        # card's time at this size) and from a CUDA graph (graph_ms: the
+        # card's time alone).
+        st2 = B.bounce(table, cam_rows, st, 12345, 1, dims, cfg=cfg, lean=True)
+        b_ms = {}
+        for step, state in ((1, st), (2, st2)):
+            fn = (lambda state=state, step=step: B.bounce(
+                table, cam_rows, state, 12345, step, dims, cfg=cfg, lean=True))
+            b_ms[step] = (cuda_ms(fn, 10), graph_ms(fn, 5))
+        b_plain = cuda_ms(lambda: B.bounce_plain(table, cam_rows, st, 12345, 1,
+                                                 dims, cfg=cfg, lean=True), 2)
         live = int(st.path_alive.sum())
-        bounds = {
-            "hit": bound(m * active * OPS_SPHERE_PAIR,
-                         m * (28 + RECORD_BYTES) + table_bytes),
-            "bounce": bound(live * active * OPS_SPHERE_PAIR,
-                            n * (73 + 61) + table_bytes + 21 * 4),
-        }
-        for name, (ms, plain) in times.items():
-            self.kernels.setdefault(name, {}).update(
-                ms=ms, plain_ms=plain, max_abs_err=errs[name],
-                bound_ms=bounds[name][0], bound_by=bounds[name][1])
-        self.say("times", f"bounce at {n} lanes ({live} live): kernel "
-                 f"{times['bounce'][0]:.3f} ms, plain {times['bounce'][1]:.3f} ms, "
-                 f"bound {bounds['bounce'][0]:.3f} ms ({bounds['bounce'][1]}); "
-                 f"hit at {m} rays: kernel {times['hit'][0]:.3f} ms, plain "
-                 f"{times['hit'][1]:.3f} ms, bound {bounds['hit'][0]:.4f} ms "
-                 f"({bounds['hit'][1]}) [{self.card}]")
+        b_bound = bound(live * ray_ops, n * (73 + 61) + table_bytes + CAM_BYTES)
+        self.kernels.setdefault("bounce", {}).update(
+            ms=b_ms[1][0], plain_ms=b_plain,
+            max_abs_err=errs["bounce"], bound_ms=b_bound[0], bound_by=b_bound[1])
+        for step, state in ((1, st), (2, st2)):
+            lv = int(state.path_alive.sum())
+            lb = bound(lv * ray_ops, n * (73 + 61) + table_bytes + CAM_BYTES)[0]
+            floor = lv * ray_ops / PEAK_F32_UNFUSED * 1e3
+            self.say("times", f"kernel B, bounce {step}, {n} lanes ({lv} live): "
+                     f"{b_ms[step][0]:.4f} ms (graph {b_ms[step][1]:.4f})"
+                     + (f", plain {b_plain:.3f} ms" if step == 1 else "")
+                     + f", bound {lb:.4f} ms, --fmad=false floor {floor:.4f} ms "
+                     f"[{self.card}]")
+        del st2
 
+        # Kernel A at the tail's batch sizes (phase 5's warm run) and at
+        # 524,288, 65,536 and 8,192 rays, at one and two rays per thread.  A
+        # small batch's wall per call is its Python wrapper's; graph_ms gives
+        # the card's time.  The kernels line takes the event-timed ms at
+        # 524,288 rays, as it does for every kernel.
+        tail = getattr(self, "tail_sizes", {})
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        for size in sorted(set(tail) | {m, 1 << 16, 1 << 13}, reverse=True):
+            rays = spread(st, size)
+            t = {}
+            for r in (1, 2):
+                fn = lambda r=r: K.hit_spheres_rows(table, *rays, _rays=r)
+                t[f"{r} ray(s)/thread"] = (cuda_ms(fn, max(10, (1 << 21) // size)),
+                                           graph_ms(fn, 20))
+            bnd = bound(size * ray_ops, size * (28 + RECORD_BYTES) + table_bytes)
+            floor = size * ray_ops / PEAK_F32_UNFUSED * 1e3
+            if size == m:
+                ms = cuda_ms(lambda: K.hit_spheres_rows(table, *rays), 20)
+                plain = cuda_ms(lambda: K.hit_spheres_rows_plain(table, *rays), 3)
+                self.kernels.setdefault("hit", {}).update(
+                    ms=ms, plain_ms=plain, max_abs_err=errs["hit"],
+                    bound_ms=bnd[0], bound_by=bnd[1])
+            self.say("times", f"kernel A at {size} rays ({tail.get(size, 0)} "
+                     "headline launches; default "
+                     f"{K.rays_per_thread(size, sms)} ray(s)/thread): "
+                     + ", ".join(f"{k} {v[0]:.4f} ms (graph {v[1]:.4f})"
+                                 for k, v in t.items())
+                     + f"; bound {bnd[0]:.4f} ms ({bnd[1]}), --fmad=false "
+                     f"floor {floor:.4f} ms [{self.card}]")
+
+    # ---- phase 17 ---------------------------------------------------------
+    def ab_times(self):
+        """Kernels A and B alone at the headline's shapes, through the
+        public wrappers with their default launch forms only, so that the
+        same code times an earlier checkout of the package (--root): kernel
+        B on the headline chunk's first bounce, kernel A on 524,288,
+        262,144, 65,536, 32,768 and 8,192 of its rays, each event-timed and
+        from a CUDA graph.  One JSON line."""
+        from win32_raytracer_tpu_torch.config import RenderConfig
+        from win32_raytracer_tpu_torch.kernels import bounce as B
+        from win32_raytracer_tpu_torch.kernels import hit as K
+        from win32_raytracer_tpu_torch.ops.hit import sphere_table
+        from win32_raytracer_tpu_torch.scene.builders import get_scene
+
+        cfg = RenderConfig(**HEADLINE)
+        table = sphere_table(get_scene("final", device=self.dev))
+        st, dims, cam = fresh_chunk(cfg, self.dev)
+        cam_rows = B.pack_camera(cam)
+        n_real = cfg.width * cfg.height * dims.kpp
+
+        def bounce():
+            return B.bounce(table, cam_rows, st, 12345, 1, dims, cfg=cfg, lean=True)
+        out = {"bounce_ms": cuda_ms(bounce, 20), "bounce_graph_ms": graph_ms(bounce, 10)}
+        for size in (1 << 19, 1 << 18, 1 << 16, 1 << 15, 1 << 13):
+            pick = torch.linspace(0, n_real - 1, size, device=self.dev).long()
+            o, d, t = (x[:, pick].contiguous() for x in (st.origin, st.direction, st.time))
+
+            def hit():
+                return K.hit_spheres_rows(table, o, d, t)
+            out[f"hit_ms_{size}"] = cuda_ms(hit, max(20, (1 << 22) // size))
+            out[f"hit_graph_ms_{size}"] = graph_ms(hit, 20)
+        import win32_raytracer_tpu_torch as pkg
+        print(json.dumps({"ab_times": out, "package": os.path.dirname(pkg.__file__),
+                          "card": self.card}), flush=True)
 
     # ---- phase 6 ----------------------------------------------------------
     def kernel_c(self):
@@ -945,10 +1196,9 @@ class Smoke:
         # lane (53 bytes in, the record, radiance and alive out: 70); F
         # reads 61 bytes of state per lane and the 48-byte record of the
         # live ones, and writes 49 bytes per lane.
-        active = int(table.active.sum())
         table_bytes = table.attrs.numel() * 4 + table.active.numel()
         bounds = {
-            "hit_sky": bound(n * active * OPS_SPHERE_PAIR,
+            "hit_sky": bound(n * sphere_ops(table),
                              n * (53 + 70) + table_bytes),
             "scatter": bound(live * OPS_SCATTER_LIVE + n * OPS_RESPAWN,
                              n * (61 + 49) + live * 48 + CAM_BYTES),
@@ -1027,8 +1277,7 @@ class Smoke:
         ms = cuda_ms(lambda: B.bounce_multi(*args, cfg=cfg, k=k, lean=True), 20)
         four = cuda_ms(four_launches, 20)
         plain = cuda_ms(lambda: B.bounce_multi_plain(*args, cfg=cfg, k=k, lean=True), 1)
-        active = int(table.active.sum())
-        b = bound(sum(live) * active * OPS_SPHERE_PAIR,
+        b = bound(sum(live) * sphere_ops(table),
                   m * (73 + 61) + table.attrs.numel() * 4 + table.active.numel()
                   + CAM_BYTES)
         self.kernels.setdefault("bounce_multi", {}).update(
@@ -1289,9 +1538,9 @@ class Smoke:
             # ray, and the table once.
             active = int(sub.active.sum())
             table_bytes = sub.attrs.numel() * 4 + sub.active.numel()
-            per_pair, per_ray = ((OPS_SPHERE_PAIR, 28) if name == "hit_cols"
-                                 else (OPS_TRI_PAIR, 24))
-            bounds[name] = bound(rays * active * per_pair,
+            ray_ops, per_ray = ((sphere_ops(sub), 28) if name == "hit_cols"
+                                else (active * OPS_TRI_PAIR, 24))
+            bounds[name] = bound(rays * ray_ops,
                                  rays * (per_ray + RECORD_BYTES) + table_bytes)
             self.say("13 times", f"kernel {kernel[name][2]} at {rays} rays x "
                      f"{active} {'spheres' if name == 'hit_cols' else 'triangles'}"
@@ -1554,6 +1803,7 @@ class Smoke:
                 st = p_bounce_step(gscene, cam, st, 12345, 1, dims, cfg=cfg,
                                    hit_fn=plain_fn, lean=True)
         del st
+        pair_ops = sphere_ops(table) / int(table.active.sum())   # per pair test
         fn_bytes = (lanes * (28 + 8 + RECORD_BYTES)
                     + gscene.tile_attrs.numel() * 4 + gscene.glob_attrs.numel() * 4
                     + (lanes // rb) * (1 + gscene.n_tiles) * 4)
@@ -1565,7 +1815,7 @@ class Smoke:
             alone = cuda_ms(lambda: KI.launch(p), 20)
             plain = cuda_ms(lambda: hit_spheres_grid_rows_plain(gscene, o, d, t), 1)
             brute = cuda_ms(lambda: K.hit_spheres_rows(table, o, d, t), 5)
-            b = bound(work[bounce] * OPS_SPHERE_PAIR, fn_bytes)
+            b = bound(work[bounce] * pair_ops, fn_bytes)
             times[bounce] = (full, plain, b)
             self.say("15 times", f"headline bounce {bounce} at {lanes} rays: "
                      f"kernel I {full:.3f} ms with its prelude (prelude "
@@ -1608,8 +1858,7 @@ class Smoke:
             for k, (dl, e) in out.items()))
         for k, (dl, e) in out.items():
             check(dl == 0 and e == 0.0, f"adapter {k}: {dl} lanes differ, {e}")
-        active = int(table.active.sum())
-        b = bound(m * active * OPS_SPHERE_PAIR,
+        b = bound(m * sphere_ops(table),
                   m * (28 + RECORD_BYTES) + table.attrs.numel() * 4 + table.active.numel())
         t_ad = {
             "v1": (cuda_ms(lambda: hit_pallas_v1.hit_spheres_pallas(table, o, d, t), 10),
@@ -1618,7 +1867,8 @@ class Smoke:
                    cuda_ms(lambda: hit_spheres(table, o, d, t), 2)),
             "v5": (cuda_ms(lambda: hit_pallas_v5.hit_spheres_pallas_v5(table, o5, d5, t5), 10),
                    cuda_ms(lambda: K.hit_spheres_rows_plain(table, o5, d5, t5), 2))}
-        self.say("15 times", f"adapters at {m} rays x {active} spheres: " + "; ".join(
+        self.say("15 times", f"adapters at {m} rays x {int(table.active.sum())} "
+                 "spheres: " + "; ".join(
             f"{k} {ms:.3f} ms (plain {pl:.3f})" for k, (ms, pl) in t_ad.items())
             + f"; bound {b[0]:.4f} ms ({b[1]}) [{self.card}]")
 
@@ -1757,6 +2007,17 @@ FLY_SMALL_MIN_R = 0.9
 FLY_MEAN_TOL = 6.0
 
 
+# Kernel A's launch forms, each held exactly to the plain sweep: the
+# default (rays per thread by batch size), one and two rays per thread.
+HIT_FORMS = (("default", {}),
+             ("R=1", dict(_rays=1)),
+             ("R=2", dict(_rays=2)))
+
+# The kernels whose registers and sweep loops phase 1 prints: the packed
+# sweep's (A, B, B-multi) and the old sweep's (E, G).
+SWEEP_KERNELS = ("hit_kernel", "bounce_kernel", "bounce_multi_kernel",
+                 "hit_sky_kernel", "hit_cols_kernel")
+
 KERNEL_META = {
     "hit": ("sphere_hit", "win32_raytracer_tpu_torch/csrc/hit.cu",
             "win32_raytracer_tpu/kernels/hit_pallas_v6.py:181"),
@@ -1785,7 +2046,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
                     help="comma-separated phases to run (0 always runs)")
-    phases = {int(p) for p in ap.parse_args().phases.split(",")}
+    ap.add_argument("--root", default=None,
+                    help="import win32_raytracer_tpu_torch from this checkout "
+                         "(phase 17 times another commit's kernels A and B)")
+    args = ap.parse_args()
+    phases = {int(p) for p in args.phases.split(",")}
+    if args.root:
+        sys.path.insert(0, os.path.abspath(args.root))
 
     # ---- phase 0 ----
     if not torch.cuda.is_available():
@@ -1793,9 +2060,10 @@ def main() -> int:
               "CUDA card", file=sys.stderr)
         return 2
     card = card_line()
+    import win32_raytracer_tpu_torch  # (fails outside the repo)
     print(f"[0 device] {card}; torch {torch.__version__}, CUDA "
-          f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}", flush=True)
-    import win32_raytracer_tpu_torch  # noqa: F401  (fails outside the repo)
+          f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}; package "
+          f"{os.path.dirname(win32_raytracer_tpu_torch.__file__)}", flush=True)
 
     smoke = Smoke(card)
     if phases - {0}:
@@ -1831,6 +2099,8 @@ def main() -> int:
         smoke.kernel_i()
     if 16 in phases:
         smoke.grid_path()
+    if 17 in phases:
+        smoke.ab_times()
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, **{f: smoke.kernels[key][f] for f in keys},

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from .vec import dot, normalize
+from .vec import dot, normalize, sqrt_rn
 
 LAMBERTIAN = 0
 METAL = 1
@@ -37,7 +37,7 @@ def refract(d: torch.Tensor, n: torch.Tensor, ni_over_nt: torch.Tensor,
     dt = dot(nd, n)
     disc = discriminant_bias - ni_over_nt * ni_over_nt * (1.0 - dt * dt)
     ok = disc > 0.0
-    safe = torch.sqrt(torch.clamp_min(disc, 0.0))
+    safe = sqrt_rn(torch.clamp_min(disc, 0.0))
     refr = ni_over_nt[..., None] * (nd - n * dt[..., None]) - n * safe[..., None]
     return refr, ok
 

@@ -35,6 +35,8 @@ import math
 import numpy as np
 import torch
 
+from .vec import sqrt_rn
+
 _LCG_MUL = np.array([214013, 17405, 214013, 69069], dtype=np.uint32)
 _LCG_ADD = np.array([2531011, 10395331, 13737667, 1], dtype=np.uint32)
 
@@ -175,7 +177,7 @@ def sample_unit_ball(u: torch.Tensor) -> torch.Tensor:
     z = 1.0 - 2.0 * u[..., 0]
     phi = (2.0 * math.pi) * u[..., 1]
     r = torch.pow(u[..., 2], 1.0 / 3.0)
-    s = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+    s = sqrt_rn(torch.clamp_min(1.0 - z * z, 0.0))
     return torch.stack([r * s * torch.cos(phi), r * s * torch.sin(phi), r * z],
                        dim=-1)
 
@@ -183,7 +185,7 @@ def sample_unit_ball(u: torch.Tensor) -> torch.Tensor:
 def sample_unit_disc(u: torch.Tensor) -> torch.Tensor:
     """u[..., 2] uniforms -> points uniform on the unit disc, z = 0
     (RayTracer.cpp:203-216)."""
-    r = torch.sqrt(u[..., 0])
+    r = sqrt_rn(u[..., 0])
     theta = (2.0 * math.pi) * u[..., 1]
     return torch.stack([r * torch.cos(theta), r * torch.sin(theta),
                         torch.zeros_like(r)], dim=-1)

@@ -18,12 +18,19 @@
 // draws key on (salt, step, lane index) as in k launches of bounce_kernel,
 // and no lane reads another's state.
 //
-// What bounds them on an H100: the sphere sweep, S pair tests per live lane
-// and bounce (27 f32 operations each, as in hit.cu), against 73 bytes of
-// state read and 61 written per lane (once per launch, whatever k is).
-// Design: one thread per lane; the hit record stays in registers; sphere
-// tiles are staged through shared memory as in hit.cu; dead lanes skip the
-// sweep (they only help stage tiles) since their hit record is never read.
+// What bounds them on an H100: instruction issue in the sphere sweep, S
+// pair tests per live lane and bounce (as in hit.cu), against 73 bytes of
+// state read and 61 written per lane (once per launch, whatever k is).  At
+// the headline's 3,932,160 lanes (3,840,000 live) the bound is 0.671 ms
+// (23 multiplies and adds and a compare per pair test over 67 TFLOP/s),
+// the --fmad=false floor of the unfused operations 1.343 ms; kernel B
+// takes 2.03 ms, where the sweep it replaced (46 instructions per pair
+// test against 28 now) took 3.09 (PERF.md section 6).
+// Design: one thread per lane and the packed sweep of hit.cu
+// (csrc/common.cuh sweep_packed); the hit record stays in registers; dead
+// lanes skip the sweep (they only help stage tiles) since their hit record
+// is never read.  (Two lanes per thread read slower on the headline's
+// second bounce.)
 #include "common.cuh"
 
 using namespace wrt;
@@ -50,19 +57,27 @@ struct BounceArgs {
 // One bounce of lane i (every thread of the block calls it: the sweep
 // stages tiles behind __syncthreads).
 template <bool LEAN>
-__device__ __forceinline__ void bounce_lane(const BounceArgs& a, SphereTile& sh,
+__device__ __forceinline__ void bounce_lane(const BounceArgs& a, PackedTile& sh,
                                             bool on, long long i, int32_t step,
                                             Lane& st) {
-  const float aa = st.d[0] * st.d[0] + st.d[1] * st.d[1] + st.d[2] * st.d[2];
-  float best_t;
-  int best_i;
-  sweep_spheres(a.attrs, a.active, a.n_spheres, sh, on && st.alive, st.o[0],
-                st.o[1], st.o[2], st.d[0], st.d[1], st.d[2], st.tm, aa,
-                a.min_t, best_t, best_i);
+  Rays<1> ry;
+  ry.ox[0] = st.o[0];
+  ry.oy[0] = st.o[1];
+  ry.oz[0] = st.o[2];
+  ry.dx[0] = st.d[0];
+  ry.dy[0] = st.d[1];
+  ry.dz[0] = st.d[2];
+  ry.tm[0] = st.tm;
+  ry.a[0] = st.d[0] * st.d[0] + st.d[1] * st.d[1] + st.d[2] * st.d[2];
+  float best_t[1];
+  int best_i[1];
+  sweep_packed<1>(a.attrs, a.active, a.n_spheres, sh, on && st.alive, ry,
+                  a.min_t, best_t, best_i);
   if (!on) return;
 
-  const HitRec h = winner_record(a.attrs, best_t, best_i, st.o[0], st.o[1],
-                                 st.o[2], st.d[0], st.d[1], st.d[2], st.tm);
+  const HitRec h = winner_record(a.attrs, best_t[0], best_i[0], st.o[0],
+                                 st.o[1], st.o[2], st.d[0], st.d[1], st.d[2],
+                                 st.tm);
   hit_sky(h.hit, st.d[0], st.d[1], st.d[2], st.thr, st.rad, st.alive);
 
   float u[10];
@@ -72,7 +87,7 @@ __device__ __forceinline__ void bounce_lane(const BounceArgs& a, SphereTile& sh,
 
 template <bool LEAN>
 __global__ void __launch_bounds__(kBlock) bounce_kernel(const BounceArgs a) {
-  __shared__ SphereTile sh;
+  __shared__ PackedTile sh;
   const long long n = a.n;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const bool on = i < n;
@@ -84,7 +99,7 @@ __global__ void __launch_bounds__(kBlock) bounce_kernel(const BounceArgs a) {
 template <bool LEAN>
 __global__ void __launch_bounds__(kBlock) bounce_multi_kernel(const BounceArgs a,
                                                               int k) {
-  __shared__ SphereTile sh;
+  __shared__ PackedTile sh;
   const long long n = a.n;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const bool on = i < n;

@@ -128,6 +128,199 @@ __device__ __forceinline__ void sweep_spheres(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The packed sweep (kernels A and B, and B-multi through B's bounce_lane):
+// sphere_pair_t's arithmetic, op for op, with fewer instructions around it.
+//  * Only active rows are staged, in ascending order, each carrying its
+//    original row: no per-pair active load and branch, no padding rows, and
+//    the strict < still keeps the lowest row on ties.
+//  * The geometry is packed for 16-byte shared loads, {c1, r*r} and
+//    {dc, 0} per sphere, with {t1, invdt} and the original row (an int,
+//    read only for a root) beside them.  r*r is the f32 product _sweep
+//    forms for every pair, formed once.
+//  * Where every staged row has the same (t1, invdt) bits (every sphere of
+//    the built-in scenes: t1 = 0, t2 = 1), the lerp (tm - t1) * invdt is
+//    one value per ray and tile: the same operands, the same rounding.
+//  * Each chunk of 32 staged spheres is swept twice: for the bits
+//    disc >= 0, with no branch, then for the roots of the set bits.
+//  * R rays per thread (kernel A two on a batch that fills the card, else
+//    one; B one), so each staged sphere serves R pair tests per load.
+// A pair test is 23 f32 multiplies, adds and subtractions and a compare
+// (25 and a compare where the tile's (t1, invdt) differ).  E, G and I keep
+// sweep_spheres, whose pair test does 26 and a compare.
+// tests/test_torch_sweep_packed.py holds this visiting order, written in
+// torch, against ops/hit.py _sweep bit for bit.
+// ---------------------------------------------------------------------------
+
+struct PackedTile {
+  float4 cr[kBlock];           // c1x, c1y, c1z, r*r
+  float4 dr[kBlock];           // dcx, dcy, dcz, 0
+  float2 tv[kBlock];           // t1, invdt
+  int row[kBlock];             // the original row
+  int warp_cnt[kBlock / 32];   // active rows per warp of the stage
+};
+
+template <int R>
+struct Rays {  // R rays of one thread; a = |d|^2
+  float ox[R], oy[R], oz[R], dx[R], dy[R], dz[R], tm[R], a[R];
+};
+
+// Stage the active rows among rows [row0, row0 + rows) (rows <= kBlock) of
+// a [*, ATTR_COLS] table into `sh`, ascending; returns how many, and sets
+// `uniform` when they all share their (t1, invdt) bits.  blockDim.x must be
+// kBlock and every thread must call it.  Its first barrier orders it after
+// the previous tile's readers; it ends behind a barrier.
+__device__ __forceinline__ int stage_packed(const float* __restrict__ attrs,
+                                            const uint8_t* __restrict__ active,
+                                            int row0, int rows,
+                                            PackedTile& sh, bool& uniform) {
+  const int j = threadIdx.x;
+  const int lane = j & 31, warp = j >> 5;
+  const bool act = j < rows && active[row0 + j];
+  const unsigned ballot = __ballot_sync(0xffffffffu, act);
+  if (lane == 0) sh.warp_cnt[warp] = __popc(ballot);
+  __syncthreads();
+  int pos = __popc(ballot & ((1u << lane) - 1u)), total = 0;
+#pragma unroll
+  for (int w = 0; w < kBlock / 32; ++w) {
+    const int c = sh.warp_cnt[w];
+    pos += w < warp ? c : 0;
+    total += c;
+  }
+  float t1 = 0.0f, invdt = 0.0f;
+  if (act) {
+    const float* row = attrs + (size_t)(row0 + j) * ATTR_COLS;
+    const float r = row[A_RADIUS];
+    t1 = row[A_T1];
+    invdt = row[A_INVDT];
+    sh.cr[pos] = make_float4(row[A_C1X], row[A_C1Y], row[A_C1Z], r * r);
+    sh.dr[pos] = make_float4(row[A_DCX], row[A_DCY], row[A_DCZ], 0.0f);
+    sh.tv[pos] = make_float2(t1, invdt);
+    sh.row[pos] = row0 + j;
+  }
+  __syncthreads();
+  const bool odd = act && (__float_as_uint(t1) != __float_as_uint(sh.tv[0].x) ||
+                           __float_as_uint(invdt) != __float_as_uint(sh.tv[0].y));
+  uniform = !__syncthreads_or(odd);
+  return total;
+}
+
+// b and the discriminant of ray r of `ry` against staged sphere j, whose
+// lerp (tm - t1) * invdt is `l`: sphere_pair_t's arithmetic up to disc.
+template <int R>
+__device__ __forceinline__ float2 packed_disc(const PackedTile& sh, int j,
+                                              const Rays<R>& ry, int r,
+                                              float l) {
+  const float4 cr = sh.cr[j];
+  const float4 dr = sh.dr[j];
+  const float cx = cr.x + dr.x * l;
+  const float cy = cr.y + dr.y * l;
+  const float cz = cr.z + dr.z * l;
+  const float ocx = ry.ox[r] - cx, ocy = ry.oy[r] - cy, ocz = ry.oz[r] - cz;
+  const float b = ry.dx[r] * ocx + ry.dy[r] * ocy + ry.dz[r] * ocz;
+  const float c = ocx * ocx + ocy * ocy + ocz * ocz - cr.w;
+  return make_float2(b, b * b - ry.a[r] * c);
+}
+
+// The pair tests of R rays against the cnt staged spheres of `sh`, in
+// chunks of 32 spheres; UNIFORM: every staged row has tv[0]'s (t1, invdt).
+// A chunk's first pass forms each pair's discriminant and keeps only the
+// bit disc >= 0, with no branch; the second visits the set bits in
+// ascending order and forms those roots, recomputing b and disc by the
+// same operations.  Most pairs miss, so the hot pass issues no root, no
+// branch and no reconvergence, and the strict < over ascending rows keeps
+// sphere_pair_t's winner.
+template <int R, bool UNIFORM>
+__device__ __forceinline__ void sweep_packed_tile(const PackedTile& sh,
+                                                  int cnt, const Rays<R>& ry,
+                                                  float min_t, float* best_t,
+                                                  int* best_i) {
+  float lerp[R];
+  if (UNIFORM) {
+    const float2 tv = sh.tv[0];
+#pragma unroll
+    for (int r = 0; r < R; ++r) lerp[r] = (ry.tm[r] - tv.x) * tv.y;
+  }
+  for (int j0 = 0; j0 < cnt; j0 += 32) {  // j0 + 31 < kBlock: in bounds
+    unsigned m[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) m[r] = 0u;
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      float2 tv = make_float2(0.0f, 0.0f);
+      if (!UNIFORM) tv = sh.tv[j0 + k];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float l = UNIFORM ? lerp[r] : (ry.tm[r] - tv.x) * tv.y;
+        const float disc = packed_disc(sh, j0 + k, ry, r, l).y;
+        m[r] |= (disc >= 0.0f ? 1u : 0u) << k;
+      }
+    }
+    const int left = cnt - j0;  // rows past cnt hold stale values
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (left < 32) m[r] &= (1u << left) - 1u;
+      while (m[r]) {
+        const int j = j0 + __ffs(m[r]) - 1;
+        m[r] &= m[r] - 1u;
+        const float l = UNIFORM ? lerp[r] : (ry.tm[r] - sh.tv[j].x) * sh.tv[j].y;
+        const float2 bd = packed_disc(sh, j, ry, r, l);
+        const float t = (-bd.x - sqrtf(bd.y)) / ry.a[r];
+        if (t > min_t && t < best_t[r]) {
+          best_t[r] = t;
+          best_i[r] = sh.row[j];
+        }
+      }
+    }
+  }
+}
+
+// Every thread of the block must call this: the nearest root of each of
+// its R rays over the active rows among the table's n_spheres, staged tile
+// by tile.  Threads with `on` false help stage and skip the arithmetic.
+// best_i is the original row, -1 on a miss.
+template <int R>
+__device__ __forceinline__ void sweep_packed(const float* __restrict__ attrs,
+                                             const uint8_t* __restrict__ active,
+                                             int n_spheres,
+                                             PackedTile& sh, bool on,
+                                             const Rays<R>& ry, float min_t,
+                                             float* best_t, int* best_i) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    best_t[r] = kNoHit;
+    best_i[r] = -1;
+  }
+  for (int base = 0; base < n_spheres; base += kBlock) {
+    bool uniform;
+    const int cnt = stage_packed(attrs, active, base,
+                                 min(kBlock, n_spheres - base), sh, uniform);
+    if (!on || cnt == 0) continue;
+    if (uniform)
+      sweep_packed_tile<R, true>(sh, cnt, ry, min_t, best_t, best_i);
+    else
+      sweep_packed_tile<R, false>(sh, cnt, ry, min_t, best_t, best_i);
+  }
+}
+
+// Ray k of a rows-layout batch ([3, n] origin and direction, [n] time)
+// into slot r of `ry`.
+template <int R>
+__device__ __forceinline__ void load_ray_rows(const float* __restrict__ o,
+                                              const float* __restrict__ d,
+                                              const float* __restrict__ tm,
+                                              long long k, long long n, int r,
+                                              Rays<R>& ry) {
+  ry.ox[r] = o[k];
+  ry.oy[r] = o[n + k];
+  ry.oz[r] = o[2 * n + k];
+  ry.dx[r] = d[k];
+  ry.dy[r] = d[n + k];
+  ry.dz[r] = d[2 * n + k];
+  ry.tm[r] = tm[k];
+  ry.a[r] = ry.dx[r] * ry.dx[r] + ry.dy[r] * ry.dy[r] + ry.dz[r] * ry.dz[r];
+}
+
 // The winner's record (ops/hit.py hit_spheres after the sweep): attributes
 // fetched by index, all zero on a miss.
 struct HitRec {

@@ -6,27 +6,71 @@
 // one computes ops/hit.py's exact f32 pair test, so it agrees with the plain
 // sweep and not with v6's ~2e-4 winner flips.
 //
-// What bounds it on an H100: the S pair tests per ray (26 f32 multiplies,
-// adds and subtractions and a compare each, five more where the ray meets
-// the sphere; 488 active spheres for the final scene), not memory (28 bytes
-// in and 57 out per ray).  Design (csrc/common.cuh hit_spheres_body, shared
-// with kernel G): one thread per ray; the block stages the sphere table
-// through shared memory in tiles of kTile spheres, so each attribute is read
-// from device memory once per block and broadcast from shared memory to all
-// of its threads; the winner's attributes are fetched by index once.
+// What bounds it on an H100: instruction issue in the S pair tests per ray
+// (488 active spheres for the final scene), not memory (28 bytes in and 57
+// out per ray).  Each pair test is 23 f32 multiplies, adds and
+// subtractions and a compare where the tile shares one lerp (every tile of
+// the built-in scenes), 25 and a compare where it does not: 0.0917 ms at
+// 524,288 rays over 67 TFLOP/s.  --fmad=false keeps them unfused, so they
+// retire at half that rate: a floor of 0.183 ms.  The sweep it replaced
+// issued 46 instructions per pair test, ten of them shared loads; this one
+// issues 27-28 (chip_smoke.py phase 1 counts them in the SASS), and takes
+// 0.26 ms at 524,288 rays where the old one took 0.44 (PERF.md section 6
+// has the measured times).
+//
+// Design (csrc/common.cuh sweep_packed): each block stages the table's
+// active rows, ascending, packed for 16-byte shared loads and with their
+// original rows, so a pair test issues two LDS.128 and no active test; the
+// lerp is formed once per ray and tile where the tile's (t1, invdt) agree;
+// a first pass over 32 spheres keeps only the bits disc >= 0, so the hot
+// loop has no branch, and a second forms the roots of the set bits.  A
+// thread sweeps two rays, so one load serves two pair tests, where the
+// batch still gives every SM a block of 512 rays; a smaller batch (the
+// persistent tail compacts down to 4,096 rays) takes one ray per thread,
+// so that twice as many SMs get a block.  The winner's attributes are
+// fetched by index once.
 #include "common.cuh"
 
 using namespace wrt;
 
+// Rays blockIdx.x * kBlock * R + r * kBlock + threadIdx.x, r < R.
+template <int R>
 __global__ void __launch_bounds__(kBlock) hit_kernel(const HitArgs a) {
-  __shared__ SphereTile sh;
-  hit_spheres_body<Layout::ROWS>(a, sh);
+  __shared__ PackedTile sh;
+  const long long n = a.n;
+  const long long i0 = (long long)blockIdx.x * (kBlock * R) + threadIdx.x;
+  Rays<R> ry;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const long long i = i0 + (long long)r * kBlock;
+    load_ray_rows(a.origin, a.direction, a.time, i < n ? i : 0, n, r, ry);
+  }
+  float best_t[R];
+  int best_i[R];
+  sweep_packed<R>(a.attrs, a.active, a.n_spheres, sh, i0 < n, ry, a.min_t,
+                  best_t, best_i);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const long long i = i0 + (long long)r * kBlock;
+    if (i >= n) break;
+    const HitRec h = winner_record(a.attrs, best_t[r], best_i[r], ry.ox[r],
+                                   ry.oy[r], ry.oz[r], ry.dx[r], ry.dy[r],
+                                   ry.dz[r], ry.tm[r]);
+    write_record(h, i, n, a.out_f, a.out_i, a.out_hit);
+  }
 }
 
-extern "C" int wrt_hit_spheres(const HitArgs* a) {
+// rays: 1 or 2 rays per thread (kernels/hit.py rays_per_thread).
+extern "C" int wrt_hit_spheres(const HitArgs* a, int rays) {
   if (a->n <= 0) return 0;
-  const unsigned grid = (unsigned)((a->n + kBlock - 1) / kBlock);
-  hit_kernel<<<grid, kBlock, 0, (cudaStream_t)a->stream>>>(*a);
+  if (rays != 1 && rays != 2) return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = (cudaStream_t)a->stream;
+  const long long per_block = (long long)kBlock * rays;
+  const unsigned grid = (unsigned)((a->n + per_block - 1) / per_block);
+  if (rays == 2)
+    hit_kernel<2><<<grid, kBlock, 0, stream>>>(*a);
+  else
+    hit_kernel<1><<<grid, kBlock, 0, stream>>>(*a);
   return (int)cudaGetLastError();
 }
 

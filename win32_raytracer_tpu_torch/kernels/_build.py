@@ -111,7 +111,7 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            lib.wrt_hit_spheres.argtypes = [ctypes.c_void_p]
+            lib.wrt_hit_spheres.argtypes = [ctypes.c_void_p, ctypes.c_int]
             lib.wrt_hit_spheres.restype = ctypes.c_int
             lib.wrt_bounce.argtypes = [ctypes.c_void_p, ctypes.c_int]
             lib.wrt_bounce.restype = ctypes.c_int

@@ -1,9 +1,11 @@
 """Kernel A: the sphere hit sweep in rows layout (``csrc/hit.cu``).
 
 Replaces ``win32_raytracer_tpu/kernels/hit_pallas_v6.py`` (``_hit_kernel_v6``),
-the persistent scheduler's below-floor hit.  Bound by the S pair tests per
-ray; one thread per ray, sphere tiles staged through shared memory (the
-source note in csrc/hit.cu has the detail).
+the persistent scheduler's below-floor hit.  Bound by instruction issue in
+the S pair tests per ray: each block stages the active spheres packed for
+wide shared loads, and each thread sweeps two rays where the batch still
+gives every SM a block, one ray where it does not
+(:func:`rays_per_thread`; the source note in csrc/hit.cu has the detail).
 
 :func:`hit_spheres_rows` launches the kernel for CUDA tensors and runs the
 plain version, :func:`hit_spheres_rows_plain` (ops/hit.py), for tensors on
@@ -13,7 +15,8 @@ the CPU; it raises for anything else.
 from __future__ import annotations
 
 import ctypes
-from typing import Union
+import functools
+from typing import Optional, Union
 
 import torch
 
@@ -23,7 +26,9 @@ from ..ops.rows import HitRecordRows, hit_rows_adapter
 from ..scene.spheres import SphereScene
 from . import _build
 
-LAUNCHES = 0  # kernel launches by hit_spheres_rows
+LAUNCHES = 0  # launches of hit_kernel by hit_spheres_rows
+
+_BLOCK = 256  # csrc/common.cuh kBlock
 
 hit_spheres_rows_plain = hit_rows_adapter(hit_spheres)
 
@@ -56,12 +61,29 @@ def record_buffers(n: int, dev):
             torch.empty((1, n), dtype=torch.bool, device=dev))
 
 
+def rays_per_thread(n: int, n_sms: int) -> int:
+    """Rays each thread of kernel A sweeps for a batch of ``n`` on a card of
+    ``n_sms`` SMs: two while blocks of 2 x 256 rays give every SM one, else
+    one, so that a small batch spreads over twice as many SMs."""
+    return 2 if -(-n // (2 * _BLOCK)) >= n_sms else 1
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def hit_spheres_rows(scene: Union[SphereScene, SphereTable],
                      origin: torch.Tensor, direction: torch.Tensor,
-                     time: torch.Tensor,
-                     min_t: float = MIN_HIT_T) -> HitRecordRows:
-    """Nearest front-face hit of rays o/d [3, N], t [1, N] f32."""
+                     time: torch.Tensor, min_t: float = MIN_HIT_T, *,
+                     _rays: Optional[int] = None) -> HitRecordRows:
+    """Nearest front-face hit of rays o/d [3, N], t [1, N] f32.
+
+    ``_rays`` (1 or 2; default :func:`rays_per_thread`) forces the launch
+    form on a card, for checks; the record is the same whatever it is."""
     global LAUNCHES
+    if _rays not in (None, 1, 2):
+        raise ValueError(f"hit_spheres_rows: _rays must be 1 or 2, not {_rays}")
     dev = origin.device
     if dev.type == "cpu":
         return hit_spheres_rows_plain(scene, origin, direction, time,
@@ -79,6 +101,8 @@ def hit_spheres_rows(scene: Union[SphereScene, SphereTable],
             (tab.active, "active", torch.bool, (s,))):
         _build.check_tensor(t, name, dt, shape, dev)
 
+    rays = _rays or rays_per_thread(n, _sm_count(dev.index or 0))
+
     out_f, out_i, hit = record_buffers(n, dev)
     if n:
         lib = _build.load()
@@ -87,7 +111,7 @@ def hit_spheres_rows(scene: Union[SphereScene, SphereTable],
             tab.attrs.data_ptr(), tab.active.data_ptr(), out_f.data_ptr(),
             out_i.data_ptr(), hit.data_ptr(), n, s, float(min_t),
             _build.stream_handle(dev))
-        _build.check(lib.wrt_hit_spheres(ctypes.addressof(args)),
+        _build.check(lib.wrt_hit_spheres(ctypes.addressof(args), rays),
                      "hit_spheres_rows")
         LAUNCHES += 1
     return record_rows(out_f, out_i, hit)

@@ -17,6 +17,7 @@ from typing import NamedTuple, Union
 import torch
 
 from ..config import MIN_HIT_T
+from ..core.vec import sqrt_rn
 from ..scene.spheres import SphereScene
 
 # No-hit sentinel (the reference's numeric_limits<float>::max stand-in).
@@ -104,7 +105,7 @@ def _sweep(tab: SphereTable, origin, direction, time, min_t, tile):
         r = tl[:, _A_RADIUS][None, :]
         c = ocx * ocx + ocy * ocy + ocz * ocz - r * r
         disc = b_half * b_half - a * c          # = discriminant / 4
-        t = (-b_half - torch.sqrt(torch.clamp_min(disc, 0.0))) / a
+        t = (-b_half - sqrt_rn(torch.clamp_min(disc, 0.0))) / a
         valid = (disc >= 0.0) & (t > min_t) & act
         t = torch.where(valid, t, F32_MAX)
         tile_t = t.min(dim=1).values

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..config import MIN_HIT_T
+from ..core.vec import sqrt_rn
 from ..scene.triangles import TriangleScene
 from .hit import F32_MAX, HitRecord
 from .rows import HitRecordRows
@@ -170,7 +171,7 @@ def tri_record_rows_from_gather(o, d, t_out, g) -> HitRecordRows:
     gx = e1[1:2] * e2[2:3] - e1[2:3] * e2[1:2]
     gy = e1[2:3] * e2[0:1] - e1[0:1] * e2[2:3]
     gz = e1[0:1] * e2[1:2] - e1[1:2] * e2[0:1]
-    norm = torch.sqrt(torch.clamp_min(gx * gx + gy * gy + gz * gz, 1e-30))
+    norm = sqrt_rn(torch.clamp_min(gx * gx + gy * gy + gz * gz, 1e-30))
     normal = torch.cat([gx, gy, gz], dim=0) / norm
     return HitRecordRows(
         hit=hit, t=t_out, point=point, normal=normal,

@@ -17,6 +17,7 @@ import torch
 
 from ..config import MIN_HIT_T, RenderConfig
 from ..core import materials as mat
+from ..core.vec import sqrt_rn
 from ..scene.camera import Camera
 from .hit import HitRecord
 
@@ -62,7 +63,7 @@ def rdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def rnormalize(a: torch.Tensor) -> torch.Tensor:
-    return a / torch.clamp_min(torch.sqrt(rdot(a, a)), 1e-37)
+    return a / torch.clamp_min(sqrt_rn(rdot(a, a)), 1e-37)
 
 
 def sky_color_rows(d: torch.Tensor) -> torch.Tensor:
@@ -84,7 +85,7 @@ def refract_rows(d, n, ni_over_nt, discriminant_bias):
     disc = discriminant_bias - ni_over_nt * ni_over_nt * (1.0 - dt * dt)
     ok = disc > 0.0
     refr = (ni_over_nt * (nd - n * dt)
-            - n * torch.sqrt(torch.clamp_min(disc, 0.0)))
+            - n * sqrt_rn(torch.clamp_min(disc, 0.0)))
     return refr, ok
 
 
@@ -95,7 +96,7 @@ def sample_unit_ball_rows(u: torch.Tensor) -> torch.Tensor:
     z = 1.0 - 2.0 * u[0:1]
     phi = _TWO_PI * u[1:2]
     r = torch.exp(torch.log(u[2:3]) * (1.0 / 3.0))
-    s = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+    s = sqrt_rn(torch.clamp_min(1.0 - z * z, 0.0))
     return torch.cat([r * s * torch.cos(phi), r * s * torch.sin(phi), r * z])
 
 
@@ -108,7 +109,7 @@ def camera_rays_rows(cam: Camera, u: torch.Tensor, v: torch.Tensor,
         return f if f.dim() == 2 else f[:, None]
 
     time = cam.shutter_open + (cam.shutter_close - cam.shutter_open) * draws[0:1]
-    r = torch.sqrt(draws[1:2]) * cam.lens_radius
+    r = sqrt_rn(draws[1:2]) * cam.lens_radius
     theta = _TWO_PI * draws[2:3]
     offset = (col(cam.right_axis) * (r * torch.cos(theta))
               + col(cam.up_axis) * (r * torch.sin(theta)))

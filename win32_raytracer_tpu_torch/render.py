@@ -37,6 +37,7 @@ import torch
 from .config import RenderConfig, resolve_scheduler
 from .core.materials import sky_color
 from .core.rng import fold_in, prng_key, uniform01
+from .core.vec import sqrt_rn
 from .ops.scatter import scatter
 from .persistent import Scene, _div
 from .scene.camera import Camera, camera_rays, default_camera
@@ -210,7 +211,7 @@ def render_image(scene: Scene, cam: Optional[Camera], cfg: RenderConfig,
 
 def tonemap(linear: torch.Tensor) -> torch.Tensor:
     """Gamma-2 + u8 quantization (RayTracer.cpp:948-954)."""
-    c = torch.sqrt(torch.clamp_min(linear, 0.0))
+    c = sqrt_rn(torch.clamp_min(linear, 0.0))
     return torch.clamp(torch.floor(255.99 * c), 0.0, 255.0).to(torch.uint8)
 
 

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from .config import MIN_HIT_T
+from .core.vec import sqrt_rn
 from .ops.hit import F32_MAX
 from .ops.hit_tri import (
     TRI_ATTR_COLS, _T_ALB, _T_ALR, _T_E1X, _T_E2X, _T_FUZZ, _T_IDX, _T_IOR,
@@ -281,7 +282,7 @@ def tri_block_schedule_rows(grid: TriGridScene, origin: torch.Tensor,
 
     d2 = (direction[0] * direction[0] + direction[1] * direction[1]
           + direction[2] * direction[2])
-    dmax = torch.sqrt(torch.where(empty, 0.0, d2).reshape(nb, ray_block)
+    dmax = sqrt_rn(torch.where(empty, 0.0, d2).reshape(nb, ray_block)
                       .amax(1))
     dist2 = torch.zeros((nb, grid.n_tiles), dtype=torch.float32,
                         device=origin.device)
@@ -291,7 +292,7 @@ def tri_block_schedule_rows(grid: TriGridScene, origin: torch.Tensor,
             o_mins[ax][:, None] - bx[None, :, 2 * ax + 1]), 0.0)
         dist2 = dist2 + gap * gap
     tlo = torch.clamp_min(
-        torch.sqrt(dist2) / torch.clamp_min(dmax, float(_EPS))[:, None],
+        sqrt_rn(dist2) / torch.clamp_min(dmax, float(_EPS))[:, None],
         float(np.float32(min_t)))
     cap_eff = torch.where(empty, 0.0, hi_t)[None, :]
     return overlap.to(torch.int32), tlo, cap_eff
