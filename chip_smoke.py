@@ -13,8 +13,9 @@ checks that each kernel of a path ran in it:
   shutter intervals, and on the headline's own bounces; kernel A timed at
   the batch sizes the headline's tail launches;
 * phase 6: kernel C (brute triangle sweep) against its plain version;
-* phase 7: kernel D (Morton-tile grid sweep) against its plain version and
-  against kernel C, at BASELINE config 4's chunk;
+* phase 7: kernel D (Morton-tile grid sweep: its schedule kernel, then the
+  sweep) against its plain version and against kernel C, at BASELINE
+  config 4's chunk, the schedule kernel against the torch prelude;
 * phase 8: mesh and mesh20k renders, kernels against plain, then
   ``render("mesh")`` (kernels A and C) and config 4, ``render("mesh20k")``
   at 800x450, 50 spp (kernels A and D);
@@ -36,22 +37,25 @@ checks that each kernel of a path ran in it:
   1200x800, 4 spp (kernel G) and with ``deterministic=True``, each equal
   to its plain render; ``render("mesh")`` at 800x450, 4 spp (kernels G and
   H); and one CLI render in a subprocess;
-* phase 15: kernel I (the sphere grid's pass B and merge) against its plain
+* phase 15: kernel I (the sphere grid: its schedule kernel, pass A and the
+  block schedule, then the sweep, pass B and the merge) against its plain
   grid sweep in rows and in columns, on random rays, a scene with inactive
   spheres and the headline's own bounce rays under ``accel="grid"``, and
   against kernel A (brute); the experimental adapters (v1, v2 on kernel G,
   v5 on kernel A) against their plain versions;
 * phase 16: the sphere grid through the entry points: small grid renders
   equal to their plain renders, the headline with ``accel="grid"``
-  (kernels A and I on every bounce), and an explicit ``hit_fn`` on the
-  persistent scheduler;
-* phase 17: kernels A and B timed alone at the headline's shapes, with the
-  public entry points only, so that ``--root`` can point it at another
-  checkout of the package (an earlier commit, for a side-by-side timing).
+  (kernel I's two launches on every bounce), and an explicit ``hit_fn`` on
+  the persistent scheduler;
+* phase 17: kernels A and B timed alone at the headline's shapes, and the
+  grid wrappers (D at config 4's chunk, I at the grid headline's second
+  bounce), with the public entry points only, so that ``--root`` can
+  point it at another checkout of the package (an earlier commit, for a
+  side-by-side timing).
 
-Phase 1 prints each sweep kernel's registers and spills and, from
-``cuobjdump -sass`` of the built library, the instruction mix of each
-kernel's innermost sweep loops.
+Phase 1 prints each sweep kernel's registers, spills and shared memory
+and, from ``cuobjdump -sass`` of the built library, the instruction mix
+of each kernel's innermost sweep loops.
 
 Each phase prints one line or more; any failure raises, so the exit code is
 non-zero.  Before the last line, a ``{"kernels": [...]}`` line (each
@@ -64,7 +68,7 @@ device.
     python3 chip_smoke.py --phases 0,1,13,14   # the wavefront slice
     python3 chip_smoke.py --phases 0,1,15,16   # the sphere grid slice
     python3 chip_smoke.py --phases 0,1,2,3,5,9,10,13,15   # the packed sweep
-    python3 chip_smoke.py --phases 0,1,17 --root out/parent  # A, B of a checkout
+    python3 chip_smoke.py --phases 0,1,17 --root out/parent  # A, B, D, I of a checkout
 
 Needs a CUDA card and nvcc.
 """
@@ -113,6 +117,20 @@ PEAK_BYTES = 3.35e12    # B/s
 # subtractions and the division, and 6 compares.
 OPS_SPHERE_PAIR, OPS_SPHERE_PAIR_LERP = 24, 26
 OPS_TRI_PAIR = 52
+# Kernel D's any-touch test per lane and walk entry (csrc/tri_grid.cu
+# any_touch): 6 subtractions, 6 multiplies, 12 min/max, a multiply, an add
+# and the compare.  Its schedule kernel: per lane the scene-box clip and the
+# segment's extremes (tri_accel.clip_segment_to_box and
+# tri_block_schedule_rows: 6 subtractions, 6 divisions, 15 min/max, 12 for
+# the segment ends, 5 for |d|^2, 13 folds), per block and tile the overlap
+# and entry bound (6 compares, 18 for the gaps, a root, a division and 3
+# clamps).  The sphere grid's schedule kernel: pass A's pair tests (24 each)
+# and per lane the footprint (2 divisions, 4 subtractions, 8 min/max, 4
+# multiplies, 4 adds, 4 folds).
+OPS_ANY_TOUCH = 27
+OPS_TRI_CLIP = 57
+OPS_TRI_TLO = 29
+OPS_FOOTPRINT = 26
 # The library is built with --fmad=false, so every multiply and add of a
 # pair test issues alone: the f32 pipes retire 67e12 / 2 of them a second,
 # and a sweep's floor under --fmad=false is twice its bound.
@@ -142,8 +160,9 @@ def _counters() -> dict:
     return {"hit": (K, "LAUNCHES"), "bounce": (B, "LAUNCHES"),
             "bounce_multi": (B, "MULTI_LAUNCHES"), "hit_sky": (E, "LAUNCHES"),
             "scatter": (F, "LAUNCHES"), "tri": (KC, "LAUNCHES"),
-            "tri_grid": (KD, "LAUNCHES"), "hit_cols": (G, "LAUNCHES"),
-            "tri_cols": (H, "LAUNCHES"), "hit_grid": (KI, "LAUNCHES")}
+            "tri_grid": (KD, "LAUNCHES"), "tri_grid_sched": (KD, "SCHED_LAUNCHES"),
+            "hit_cols": (G, "LAUNCHES"), "tri_cols": (H, "LAUNCHES"),
+            "hit_grid": (KI, "LAUNCHES"), "hit_grid_sched": (KI, "SCHED_LAUNCHES")}
 
 
 def reset_launches() -> None:
@@ -358,8 +377,9 @@ def aim_at_ties(o, d, table, seed: int) -> None:
 
 
 def ptxas_lines(log: str, keys: tuple) -> list:
-    """'kernel: N registers, S/L bytes spill stores/loads' for each entry
-    function of nvcc's -Xptxas -v output whose name holds one of ``keys``."""
+    """'kernel: N registers, S/L bytes spill stores/loads, M bytes smem'
+    for each entry function of nvcc's -Xptxas -v output whose name holds
+    one of ``keys``."""
     out, name, spill = [], None, ""
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -370,7 +390,9 @@ def ptxas_lines(log: str, keys: tuple) -> list:
             spill = f"{m.group(1)}/{m.group(2)} bytes spill stores/loads"
         m = re.search(r"Used (\d+) registers", ln)
         if m and name and any(k in name for k in keys):
-            out.append(f"{demangle(name)}: {m.group(1)} registers, {spill}")
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out.append(f"{demangle(name)}: {m.group(1)} registers, {spill}, "
+                       f"{smem.group(1) if smem else 0} bytes smem")
     return out
 
 
@@ -391,7 +413,12 @@ def sass_text(lib_path: str) -> str:
                           text=True, timeout=600, check=True).stdout
 
 
-SASS_CLASSES = ("LDS", "FADD", "FMUL", "FFMA", "FSETP", "BRA", "BSSY", "BSYNC")
+SASS_CLASSES = ("LDS", "LDG", "FADD", "FMUL", "FFMA", "FSETP", "MUFU", "BRA",
+                "BSSY", "BSYNC", "BAR")
+# The instruction that marks one pair test: a sphere's ``disc >= 0``
+# compare; a triangle's reciprocal of det (tri_pair_t's division).
+SPHERE_PAIR_MARK = r"FSETP\.GE\.AND .*, RZ, PT"
+TRI_PAIR_MARK = r"MUFU\.RCP"
 
 
 def sass_sweep_mix(dump: str, keys: tuple) -> dict:
@@ -399,7 +426,8 @@ def sass_sweep_mix(dump: str, keys: tuple) -> dict:
     kernel of a ``cuobjdump -sass`` dump whose name holds one of ``keys``.
 
     A loop is the code from a branch target up to a branch back to it.  A
-    pair test is one ``FSETP.GE ... RZ`` (the ``disc >= 0`` compare).  A
+    pair test is one ``FSETP.GE ... RZ`` (the ``disc >= 0`` compare), or in
+    a triangle kernel (``tri`` in its name) one ``MUFU.RCP``.  A
     loop's hot path is its code outside the loops nested in it and outside
     the root blocks, the code inside it that a forward branch right after
     such a compare jumps over (most pairs miss, so they never run it).  Returns {kernel:
@@ -411,6 +439,7 @@ def sass_sweep_mix(dump: str, keys: tuple) -> dict:
         name = name.strip()
         if not any(k in name for k in keys):
             continue
+        mark = TRI_PAIR_MARK if "tri" in name else SPHERE_PAIR_MARK
         ins = [(int(m.group(1), 16), m.group(3).strip()) for m in re.finditer(
             r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([^;]*);", body)]
         loops, skips = [], []
@@ -429,7 +458,7 @@ def sass_sweep_mix(dump: str, keys: tuple) -> dict:
             hot = [op for a, op in ins if lo <= a <= hi
                    and not any(x <= a <= y for x, y in inner)
                    and not any(lo <= x < a < y <= hi for x, y in skips)]
-            pairs = sum(bool(re.match(r"FSETP\.GE\.AND .*, RZ, PT", op)) for op in hot)
+            pairs = sum(bool(re.match(mark, op)) for op in hot)
             if not pairs:
                 continue
             mix = {"pairs": pairs, "per_pair": round(len(hot) / pairs, 2)}
@@ -829,12 +858,13 @@ class Smoke:
 
     # ---- phase 17 ---------------------------------------------------------
     def ab_times(self):
-        """Kernels A and B alone at the headline's shapes, through the
-        public wrappers with their default launch forms only, so that the
-        same code times an earlier checkout of the package (--root): kernel
-        B on the headline chunk's first bounce, kernel A on 524,288,
-        262,144, 65,536, 32,768 and 8,192 of its rays, each event-timed and
-        from a CUDA graph.  One JSON line."""
+        """Kernels A and B alone at the headline's shapes, and the grid
+        wrappers at theirs, through the public wrappers with their default
+        launch forms only, so that the same code times an earlier checkout
+        of the package (--root): kernel B on the headline chunk's first
+        bounce, kernel A on 524,288, 262,144, 65,536, 32,768 and 8,192 of
+        its rays, each event-timed and from a CUDA graph; kernels D and I
+        (grid_times).  One JSON line."""
         from win32_raytracer_tpu_torch.config import RenderConfig
         from win32_raytracer_tpu_torch.kernels import bounce as B
         from win32_raytracer_tpu_torch.kernels import hit as K
@@ -858,9 +888,60 @@ class Smoke:
                 return K.hit_spheres_rows(table, o, d, t)
             out[f"hit_ms_{size}"] = cuda_ms(hit, max(20, (1 << 22) // size))
             out[f"hit_graph_ms_{size}"] = graph_ms(hit, 20)
+        del st
+        out.update(self.grid_times())
         import win32_raytracer_tpu_torch as pkg
         print(json.dumps({"ab_times": out, "package": os.path.dirname(pkg.__file__),
                           "card": self.card}), flush=True)
+
+    def grid_times(self) -> dict:
+        """The grid wrappers at their main-path shapes, event-timed through
+        the public entry points only (phase 17): kernel D
+        (hit_triangles_grid_rows) on config 4's binned second bounce, capped
+        by the sphere pass, and kernel I (hit_spheres_grid_rows, and its
+        column instance through the experimental hit_spheres_grid_pallas)
+        on the grid headline's second bounce; each chunk's first bounce is
+        taken by the package's own hit functions."""
+        from win32_raytracer_tpu_torch.config import RenderConfig
+        from win32_raytracer_tpu_torch.kernels import hit as K
+        from win32_raytracer_tpu_torch.kernels import hit_grid as KI
+        from win32_raytracer_tpu_torch.kernels import tri_grid as KD
+        from win32_raytracer_tpu_torch.kernels.dispatch import get_hit_fn_rows_accel
+        from win32_raytracer_tpu_torch.kernels.experimental.hit_grid import (
+            hit_spheres_grid_pallas)
+        from win32_raytracer_tpu_torch.persistent import (
+            _bin_sort_core, _derive_bin_box, p_bounce_step)
+        from win32_raytracer_tpu_torch.scene.builders import get_scene
+
+        dev, out = self.dev, {}
+        cfg = RenderConfig(**CONFIG4)
+        hit_scene, fn = get_hit_fn_rows_accel(cfg, get_scene("mesh20k", device=dev))
+        box = _derive_bin_box(cfg, hit_scene)
+        st, dims, cam = fresh_chunk(cfg, dev)
+        st = _bin_sort_core(st, box=box)
+        st = p_bounce_step(hit_scene, cam, st, 12345, 1, dims, cfg=cfg, hit_fn=fn,
+                           lean=True)
+        st = _bin_sort_core(st, box=box)
+        o, d, t = (x.contiguous() for x in (st.origin, st.direction, st.time))
+        cap = K.hit_spheres_rows(hit_scene.spheres, o, d, t).t.contiguous()
+        zeros = torch.zeros_like(t)
+        grid = hit_scene.triangles
+        out["tri_grid_ms"] = cuda_ms(
+            lambda: KD.hit_triangles_grid_rows(grid, o, d, zeros, t_cap=cap), 20)
+        del st, o, d, t, cap, zeros
+
+        cfg = RenderConfig(**HEADLINE, accel="grid")
+        gscene, fn = get_hit_fn_rows_accel(cfg, get_scene("final", device=dev))
+        st, dims, cam = fresh_chunk(cfg, dev)
+        st = p_bounce_step(gscene, cam, st, 12345, 1, dims, cfg=cfg, hit_fn=fn,
+                           lean=True)
+        o, d, t = (x.contiguous() for x in (st.origin, st.direction, st.time))
+        del st
+        out["hit_grid_ms"] = cuda_ms(lambda: KI.hit_spheres_grid_rows(gscene, o, d, t), 20)
+        oc, dc, tc = o.T.contiguous(), d.T.contiguous(), t[0].contiguous()
+        out["hit_grid_cols_ms"] = cuda_ms(
+            lambda: hit_spheres_grid_pallas(gscene, oc, dc, tc), 20)
+        return out
 
     # ---- phase 6 ----------------------------------------------------------
     def kernel_c(self):
@@ -930,7 +1011,12 @@ class Smoke:
         config 4's chunk (mesh20k, 800x450, 50 spp: 720,896 lanes): the
         binned first bounce without t_cap; the binned second bounce with
         the sphere pass's t_cap; the second again with the early exit and
-        the any-touch skip off."""
+        the any-touch skip off; median tiles of 200 rows and ray blocks of
+        1,000 lanes, with the knobs on and off.  Every comparison must be exact (no disagreement, no
+        differing tie, max |err| 0), and the schedule kernel's sched,
+        bounds and segment ends integer-equal to the torch prelude's.
+        Times: both launches, each alone, and the prelude; bounds from the
+        pair and any-touch tests the sweep's stats count."""
         from win32_raytracer_tpu_torch.config import RenderConfig
         from win32_raytracer_tpu_torch.kernels import hit as K
         from win32_raytracer_tpu_torch.kernels import tri as KC
@@ -961,23 +1047,30 @@ class Smoke:
         cap2 = K.hit_spheres_rows(spheres, o2, d2, t2).t.contiguous()
         del st
         zeros = torch.zeros((1, n), device=dev)
+        rb = DEFAULT_TRI_GRID_RAY_BLOCK
         err, times, work = 0.0, {}, {}
         arms = (("bounce 1", o1, d1, None, True),
                 ("bounce 2, t_cap", o2, d2, cap2, True),
                 ("bounce 2, t_cap, early exit and any-touch off", o2, d2, cap2, False))
         for label, o, d, cap, knobs in arms:
             kw = dict(t_cap=cap, early_exit=knobs, any_skip=knobs)
-            stats = torch.zeros(2, dtype=torch.int64, device=dev)
+            stats = torch.zeros(4, dtype=torch.int64, device=dev)
             rk = KD.hit_triangles_grid_rows(grid, o, d, zeros, stats=stats, **kw)
             rp = hit_triangles_grid_rows_plain(grid, o, d, zeros, **kw)
             torch.cuda.synchronize()
             c = compare_tri(rk, rp, o, d, tris, f"kernel D {label}",
                             below_cap(rk, rp, cap))
+            check(c["disagree"] == 0 and c["ties"] == 0 and c["err"] == 0.0,
+                  f"kernel D {label}: not exact against plain ({fmt_cmp(c)})")
             err = max(err, c["err"])
-            tiles, pairs = (int(x) for x in stats.cpu())
+            self.schedule_d(grid, o, d, cap, cfg.min_hit_t, rb, label)
+            tiles, pairs, touches, walked = (int(x) for x in stats.cpu())
+            ctas = -(-n // rb) * -(-rb // KD.SWEEP_LANES_PER_CTA)
             self.say("7 kernel D", f"{label} vs plain: {fmt_cmp(c)}; swept "
                      f"{tiles} CTA tiles, {pairs} pair tests "
-                     f"({pairs / n:.0f} per lane)")
+                     f"({pairs / n:.0f} per lane), {touches} any-touch tests; "
+                     f"per CTA ({ctas}): {walked / ctas:.1f} schedule entries "
+                     f"walked, {tiles / ctas:.1f} tiles staged")
             if cap is None:
                 cb = compare_tri(rk, KC.hit_triangles_rows(grid.base, o, d, zeros),
                                  o, d, tris, f"kernel D {label} vs kernel C")
@@ -988,44 +1081,86 @@ class Smoke:
             times[label] = (
                 cuda_ms(lambda: KD.hit_triangles_grid_rows(grid, o, d, zeros, **kw), 5),
                 cuda_ms(lambda: hit_triangles_grid_rows_plain(grid, o, d, zeros, **kw), 1))
-            work[label] = pairs
-        # The kernels line reports the main path's case: the second bounce,
-        # capped by the sphere pass, knobs at their defaults.
-        main = arms[1][0]
+            work[label] = (pairs, touches)
         fn_bytes = (n * (24 + 4 + RECORD_BYTES) + grid.tile_attrs.numel() * 4
                     + grid.tile_boxes.numel() * 4)
-        b = bound(work[main] * OPS_TRI_PAIR, fn_bytes)
-        self.kernels.setdefault("tri_grid", {}).update(
-            ms=times[main][0], plain_ms=times[main][1], max_abs_err=err,
-            bound_ms=b[0], bound_by=b[1])
+        sched_bytes = (n * (24 + 4 + 4) + grid.tile_boxes.numel() * 4
+                       + 2 * (-(-n // rb)) * (grid.n_tiles + 1) * 4)
+        sched_ops = n * OPS_TRI_CLIP + (-(-n // rb)) * grid.n_tiles * OPS_TRI_TLO
+        sb = bound(sched_ops, sched_bytes)
         for label, o, d, cap, knobs in arms:
-            bl = bound(work[label] * OPS_TRI_PAIR, fn_bytes)
-            # The wrapper's torch prelude (block schedule, quantised boxes)
-            # alone, then the kernel alone on its output.
-            pre = cuda_ms(lambda: KD.prepare(grid, o, d, cap, cfg.min_hit_t,
-                                             DEFAULT_TRI_GRID_RAY_BLOCK), 5)
-            p = KD.prepare(grid, o, d, cap, cfg.min_hit_t,
-                           DEFAULT_TRI_GRID_RAY_BLOCK)
-            alone = cuda_ms(lambda: KD.launch(p, knobs, knobs), 10)
+            pairs, touches = work[label]
+            # The wrapper's bound: both launches' operations, the function's
+            # bytes (rays in, record out, the grid's tables).
+            bl = bound(pairs * OPS_TRI_PAIR + touches * OPS_ANY_TOUCH + sched_ops,
+                       fn_bytes)
+            # Each launch alone: the schedule kernel, then the sweep on its
+            # output; the schedule's plain version (the torch prelude).
+            p = KD.prepare(grid, o, d, cap, cfg.min_hit_t, rb)
+            sched_ms = cuda_ms(lambda: KD.schedule(p), 10)
+            sweep_ms = cuda_ms(lambda: KD.launch(p, knobs, knobs), 10)
+            pre = cuda_ms(lambda: KD.schedule_plain(grid, o, d, cap, cfg.min_hit_t, rb), 5)
             self.say("7 times", f"{label} at {n} lanes: kernel D "
-                     f"{times[label][0]:.3f} ms (schedule prelude {pre:.3f} ms, "
-                     f"kernel alone {alone:.3f} ms), plain "
+                     f"{times[label][0]:.3f} ms (schedule kernel {sched_ms:.4f} ms, "
+                     f"its torch prelude {pre:.3f} ms, bound {sb[0]:.4f} ms ({sb[1]}); "
+                     f"sweep alone {sweep_ms:.3f} ms), plain "
                      f"{times[label][1]:.3f} ms, bound {bl[0]:.4f} ms "
                      f"({bl[1]}) [{self.card}]")
+            if label == arms[1][0]:
+                # The kernels line reports the main path's case: the second
+                # bounce, capped by the sphere pass, knobs at their defaults.
+                self.kernels.setdefault("tri_grid", {}).update(
+                    ms=times[label][0], plain_ms=times[label][1], max_abs_err=err,
+                    bound_ms=bl[0], bound_by=bl[1])
+                self.kernels.setdefault("tri_grid_sched", {}).update(
+                    ms=sched_ms, plain_ms=pre, max_abs_err=0.0, bound_ms=sb[0],
+                    bound_by=sb[1])
         self.say("7 times", f"kernel C on bounce 1's rays ({grid.base.padded_size} "
                  f"triangles): {times['brute']:.3f} ms [{self.card}]")
 
-        # Knobs off their defaults: median-split tiles of 200 rows (two
-        # shared-memory passes, the second partial) and ray blocks of 1,000
-        # lanes (partial CTAs, padded rays).
+        # Knobs off their defaults on bounce 2 with t_cap: median-split
+        # tiles of 200 rows (50 rows for each of a lane's four threads) and
+        # ray blocks of 1,000 lanes (a CTA of 8 lanes closing each block,
+        # filler rays in the last); the early exit and any-touch skip on,
+        # then off.
         odd = build_tri_grid(grid.base, tile_rows=200, partition="median")
-        kw = dict(t_cap=cap2, ray_block=1000)
-        rk = KD.hit_triangles_grid_rows(odd, o2, d2, zeros, **kw)
-        rp = hit_triangles_grid_rows_plain(odd, o2, d2, zeros, **kw)
-        c = compare_tri(rk, rp, o2, d2, tris, "kernel D odd knobs",
-                        below_cap(rk, rp, cap2))
-        self.say("7 kernel D", f"bounce 2, t_cap, median tiles of 200 rows, "
-                 f"ray blocks of 1000 vs plain: {fmt_cmp(c)}")
+        for knobs in (True, False):
+            label = (f"bounce 2, t_cap, median tiles of {odd.tile_rows} rows, "
+                     f"ray blocks of 1000, early exit and any-touch "
+                     f"{'on' if knobs else 'off'}")
+            kw = dict(t_cap=cap2, ray_block=1000, early_exit=knobs, any_skip=knobs)
+            stats = torch.zeros(4, dtype=torch.int64, device=dev)
+            rk = KD.hit_triangles_grid_rows(odd, o2, d2, zeros, stats=stats, **kw)
+            rp = hit_triangles_grid_rows_plain(odd, o2, d2, zeros, **kw)
+            torch.cuda.synchronize()
+            c = compare_tri(rk, rp, o2, d2, tris, f"kernel D {label}",
+                            below_cap(rk, rp, cap2))
+            tiles, pairs, touches, _ = (int(x) for x in stats.cpu())
+            self.say("7 kernel D", f"{label} vs plain: {fmt_cmp(c)}; swept "
+                     f"{tiles} CTA tiles of {odd.n_tiles}, {pairs} pair tests, "
+                     f"{touches} any-touch tests")
+            check(c["disagree"] == 0 and c["ties"] == 0 and c["err"] == 0.0,
+                  f"kernel D {label}: not exact against plain ({fmt_cmp(c)})")
+            check(pairs > 0, f"kernel D {label}: no pair test")
+        self.schedule_d(odd, o2, d2, cap2, cfg.min_hit_t, 1000,
+                        f"bounce 2, t_cap, median tiles of {odd.tile_rows} "
+                        "rows, ray blocks of 1000")
+
+    def schedule_d(self, grid, o, d, cap, min_t, rb, label):
+        """Kernel D's schedule kernel integer-equal to its torch prelude:
+        sched, bounds and the real lanes' segment ends."""
+        from win32_raytracer_tpu_torch.kernels import tri_grid as KD
+        p = KD.prepare(grid, o, d, cap, min_t, rb)
+        KD.schedule(p)
+        sched, bounds, cap_eff = KD.schedule_plain(grid, o, d, cap, min_t, rb)
+        torch.cuda.synchronize()
+        n = o.shape[1]
+        same = (torch.equal(p.sched, sched) and torch.equal(p.bounds, bounds)
+                and torch.equal(p.cap_eff, cap_eff[0, :n]))
+        self.say("7 schedule", f"{label}: schedule kernel vs torch prelude: "
+                 f"sched, bounds and segment ends {'equal' if same else 'DIFFER'} "
+                 f"({sched.shape[0]} blocks, {int(sched[:, 0].sum())} scheduled tiles)")
+        check(same, f"kernel D schedule {label}: differs from the torch prelude")
 
     # ---- phase 8 ----------------------------------------------------------
     def mesh_renders(self):
@@ -1062,7 +1197,7 @@ class Smoke:
         P._bin_sort_core = counted_sort
         try:
             for name, path in (("mesh", ("hit", "tri")),
-                               ("mesh20k", ("hit", "tri_grid"))):
+                               ("mesh20k", ("hit", "tri_grid_sched", "tri_grid"))):
                 warm = render(name, cfg=cfg, device=self.dev)
                 reset_launches()
                 sorts.clear()
@@ -1358,7 +1493,8 @@ class Smoke:
                  f"Mrays/s, image mean {mean:.3f} (small plain "
                  f"{self.small_mesh_means['mesh20k']:.3f}), launches {got} "
                  f"[{self.card}]")
-        check_route(got, ("hit", "tri_grid", "scatter"), (), "config 4 pallas scatter")
+        check_route(got, ("hit", "tri_grid_sched", "tri_grid", "scatter"), (),
+                    "config 4 pallas scatter")
         check(abs(mean - self.small_mesh_means["mesh20k"]) <= 3.0,
               f"config 4 pallas scatter image mean {mean}")
 
@@ -1703,10 +1839,12 @@ class Smoke:
         first and second bounce rays under accel="grid" (3,932,160 lanes).
         Every comparison must be exact: 0 lanes differ, max |err| 0.  Also
         kernel I against kernel A (the brute sweep), winner disagreements
-        counted apart from exact-t ties; the three experimental adapters
-        against their plain versions; times with and without the torch
-        prelude (pass A by kernel A, mask, schedule) and the bound from the
-        pair tests kernel I's stats count."""
+        counted apart from exact-t ties; the schedule kernel's schedule and
+        pass A equal to their plain version on every input, in both
+        layouts; the three experimental adapters against their plain
+        versions; times of both launches, each alone and the schedule's
+        plain version, and bounds from the pair tests the sweep's stats
+        count and pass A's."""
         from win32_raytracer_tpu_torch.accel import (
             build_grid_accel, hit_spheres_grid_plain, hit_spheres_grid_rows_plain)
         from win32_raytracer_tpu_torch.config import RenderConfig
@@ -1757,6 +1895,9 @@ class Smoke:
                   and lanes_rc == 0,
                   f"kernel I {what}: {lanes}/{lanes_c}/{lanes_rc} lanes differ")
             check(real == 0, f"kernel I {what}: {real} disagreements with the brute sweep")
+            for cols in (False, True):
+                self.schedule_i(g, *((oc, dc, t[0].contiguous()) if cols else (o, d, t)),
+                                cfg.min_hit_t, 2048, cols, what)
             return rk
 
         def cuda_t(x):
@@ -1796,46 +1937,61 @@ class Smoke:
             tiles, pairs = (int(x) for x in stats.cpu())
             work[bounce] = pairs
             rays[bounce] = (o, d, t)
+            per_cta = KI.SWEEP_LANES_PER_CTA
+            ctas = lanes // rb * -(-rb // per_cta)
             self.say("15 kernel I", f"headline bounce {bounce}: {tiles} CTA "
-                     f"tiles, {pairs} pair tests, {pairs / lanes:.1f} per ray "
-                     f"(brute: {int(table.active.sum())})")
+                     f"tiles ({tiles / ctas:.1f} per CTA of {ctas}, each a "
+                     f"schedule entry walked and staged), {pairs} pair tests, "
+                     f"{pairs / lanes:.1f} per ray, {pairs / max(tiles, 1) / per_cta:.1f} "
+                     f"per lane and staged tile (brute: {int(table.active.sum())})")
             if bounce == 1:
                 st = p_bounce_step(gscene, cam, st, 12345, 1, dims, cfg=cfg,
                                    hit_fn=plain_fn, lean=True)
         del st
         pair_ops = sphere_ops(table) / int(table.active.sum())   # per pair test
-        fn_bytes = (lanes * (28 + 8 + RECORD_BYTES)
-                    + gscene.tile_attrs.numel() * 4 + gscene.glob_attrs.numel() * 4
-                    + (lanes // rb) * (1 + gscene.n_tiles) * 4)
+        n_glob = int((gscene.glob_attrs[:, 8] != 0).sum())
+        fn_bytes = (lanes * (28 + RECORD_BYTES) + gscene.tile_attrs.numel() * 4
+                    + gscene.glob_attrs.numel() * 4 + gscene.tile_boxes.numel() * 4)
+        sched_bytes = (lanes * (28 + RECORD_BYTES) + gscene.glob_attrs.numel() * 4
+                       + gscene.tile_boxes.numel() * 4
+                       + (lanes // rb) * (1 + gscene.n_tiles) * 4)
+        pass_a_ops = lanes * n_glob * OPS_SPHERE_PAIR
+        sb = bound(pass_a_ops + lanes * OPS_FOOTPRINT, sched_bytes)
         for bounce, (o, d, t) in rays.items():
             full = cuda_ms(lambda: KI.hit_spheres_grid_rows(gscene, o, d, t), 10)
-            pre = cuda_ms(lambda: KI.prepare(gscene, o, d, t, cfg.min_hit_t, rb,
-                                             False), 10)
             p = KI.prepare(gscene, o, d, t, cfg.min_hit_t, rb, False)
+            sched_ms = cuda_ms(lambda: KI.schedule(p), 20)
             alone = cuda_ms(lambda: KI.launch(p), 20)
+            pre = cuda_ms(lambda: KI.schedule_plain(gscene, o, d, t, cfg.min_hit_t,
+                                                    rb, False), 2)
             plain = cuda_ms(lambda: hit_spheres_grid_rows_plain(gscene, o, d, t), 1)
             brute = cuda_ms(lambda: K.hit_spheres_rows(table, o, d, t), 5)
-            b = bound(work[bounce] * pair_ops, fn_bytes)
-            times[bounce] = (full, plain, b)
+            b = bound(work[bounce] * pair_ops + pass_a_ops + lanes * OPS_FOOTPRINT,
+                      fn_bytes)
+            times[bounce] = (full, plain, b, sched_ms, pre)
             self.say("15 times", f"headline bounce {bounce} at {lanes} rays: "
-                     f"kernel I {full:.3f} ms with its prelude (prelude "
-                     f"{pre:.3f} ms, kernel alone {alone:.3f} ms), plain "
+                     f"kernel I {full:.3f} ms, both launches (schedule kernel "
+                     f"{sched_ms:.4f} ms, bound {sb[0]:.4f} ms ({sb[1]}), its plain "
+                     f"version {pre:.3f} ms; sweep alone {alone:.3f} ms), plain "
                      f"{plain:.3f} ms, bound {b[0]:.4f} ms ({b[1]}); kernel A "
                      f"(brute) on the same rays {brute:.3f} ms [{self.card}]")
         # The kernels line reports the second bounce (a typical mid-path
         # bounce: origins on the geometry, blocks still pixel-coherent).
-        full, plain, b = times[2]
+        full, plain, b, sched_ms, pre = times[2]
         self.kernels.setdefault("hit_grid", {}).update(
             ms=full, plain_ms=plain, max_abs_err=err, bound_ms=b[0],
             bound_by=b[1])
+        self.kernels.setdefault("hit_grid_sched", {}).update(
+            ms=sched_ms, plain_ms=pre, max_abs_err=0.0, bound_ms=sb[0],
+            bound_by=sb[1])
         # The column instance (the experimental hit_grid's) on bounce 2.
         oc, dc, tc = (x.T.contiguous() if x.shape[0] == 3 else x[0].contiguous()
                       for x in rays[2])
         full_c = cuda_ms(lambda: hit_spheres_grid_pallas(gscene, oc, dc, tc), 10)
         plain_c = cuda_ms(lambda: hit_spheres_grid_plain(gscene, oc, dc, tc), 1)
         self.say("15 times", f"column instance (hit_spheres_grid_pallas) on "
-                 f"headline bounce 2: {full_c:.3f} ms with its prelude (pass A "
-                 f"on kernel G), plain {plain_c:.3f} ms, bound {b[0]:.4f} ms "
+                 f"headline bounce 2: {full_c:.3f} ms, both launches, plain "
+                 f"{plain_c:.3f} ms, bound {b[0]:.4f} ms "
                  f"({b[1]}) [{self.card}]")
 
         # The experimental adapters on one random batch each.
@@ -1872,14 +2028,35 @@ class Smoke:
             f"{k} {ms:.3f} ms (plain {pl:.3f})" for k, (ms, pl) in t_ad.items())
             + f"; bound {b[0]:.4f} ms ({b[1]}) [{self.card}]")
 
+    def schedule_i(self, g, o, d, t, min_t, rb, cols, what):
+        """Kernel I's schedule kernel integer-equal to its plain version:
+        the schedule, and pass A's t and original index on every lane."""
+        from win32_raytracer_tpu_torch.kernels import hit_grid as KI
+        p = KI.prepare(g, o, d, t, min_t, rb, cols)
+        KI.schedule(p)
+        t_a, i_a, sched = KI.schedule_plain(g, o, d, t, min_t, rb, cols)
+        torch.cuda.synchronize()
+        n = p.n
+        hit = t_a[:n] < 1e30
+        idx = torch.where(hit, g.glob_attrs[i_a[:n].clamp_min(0), 15].to(torch.int32), 0)
+        rec_t = p.rec.t if cols else p.rec.t[0]
+        rec_i = p.rec.idx if cols else p.rec.idx[0]
+        same = (torch.equal(p.sched, sched) and torch.equal(rec_t, t_a[:n])
+                and torch.equal(rec_i, idx))
+        self.say("15 schedule", f"{what} ({'columns' if cols else 'rows'}): "
+                 f"schedule kernel vs plain: schedule and pass A "
+                 f"{'equal' if same else 'DIFFER'} ({sched.shape[0]} blocks, "
+                 f"{int(sched[:, 0].sum())} scheduled tiles)")
+        check(same, f"kernel I schedule {what}: differs from its plain version")
+
     # ---- phase 16 ---------------------------------------------------------
     def grid_path(self):
         """The sphere grid through the entry points: small ``final`` renders
         with accel="grid" (160x120, 16 spp; the one-shot tail, then the
         compaction floor lowered so bounces above it run; once more with
         ray_binning="on") equal to their backend="jnp" renders; the
-        headline with accel="grid" (kernel I on every bounce beside kernel
-        A's pass A, no kernel B, B-multi or E); one small render through
+        headline with accel="grid" (kernel I's schedule kernel and sweep on
+        every bounce, no kernel A, B, B-multi or E); one small render through
         each experimental adapter as an explicit hit_fn on the persistent
         scheduler, equal to the same render through its plain
         counterpart."""
@@ -1923,9 +2100,10 @@ class Smoke:
                          f"(must be 0), means {rk.image.mean():.3f}/"
                          f"{rp.image.mean():.3f}, launches {got}")
                 check(d == 0.0, f"grid {label}: small render differs from plain")
-                check_route(got, ("hit", "hit_grid"), (), f"small grid {label}")
-                check(got["hit"] == got["hit_grid"],
-                      f"grid {label}: kernel A {got['hit']} vs kernel I {got['hit_grid']}")
+                check_route(got, GRID_ROUTE, (), f"small grid {label}")
+                check(got["hit_grid_sched"] == got["hit_grid"],
+                      f"grid {label}: schedule {got['hit_grid_sched']} vs "
+                      f"sweep {got['hit_grid']} launches")
         finally:
             P._COMPACT_FLOOR = saved
 
@@ -1942,12 +2120,14 @@ class Smoke:
                  f"{res.mrays_per_sec:.3f} Mrays/s, image mean {mean:.3f} "
                  f"(170.1 +- 1.5), launches {got} [{self.card}]")
         check(res.image.shape == (800, 1200, 3), f"image shape {res.image.shape}")
-        check_route(got, ("hit", "hit_grid"), (), "headline grid")
-        check(got["hit"] == got["hit_grid"],
-              f"headline grid: kernel A {got['hit']} vs kernel I {got['hit_grid']}")
+        check_route(got, GRID_ROUTE, (), "headline grid")
+        check(got["hit_grid_sched"] == got["hit_grid"],
+              f"headline grid: schedule {got['hit_grid_sched']} vs sweep "
+              f"{got['hit_grid']} launches")
         check(abs(mean - HEADLINE_MEAN) <= HEADLINE_MEAN_TOL,
               f"headline grid image mean {mean}")
-        self.kernels.setdefault("hit_grid", {})["launches"] = got["hit_grid"]
+        for k in GRID_ROUTE:
+            self.kernels.setdefault(k, {})["launches"] = got[k]
 
         # Explicit hit functions on the persistent scheduler: the column
         # adapters through render(hit_fn=...) (v1, v2 on kernel G; the
@@ -1970,7 +2150,7 @@ class Smoke:
              lambda: rows_render(scene, hit_spheres_rows_plain), ("hit",)),
             ("hit_grid", lambda: render_scene(gscene, cam, c, hit_fn=hit_spheres_grid_pallas),
              lambda: render_scene(gscene, cam, c, hit_fn=hit_spheres_grid_plain),
-             ("hit_cols", "hit_grid")))
+             GRID_ROUTE))
         for label, run, plain, ran in cases:
             reset_launches()
             t0 = time.perf_counter()
@@ -1997,6 +2177,8 @@ ROUTES = (
      ("bounce", "bounce_multi"), "bounce_multi"),
 )
 ROUTE_SMALL = dict(width=160, height=120, samples=16, seed=2)
+# Kernel I's launches on the sphere grid: schedule kernel, then the sweep.
+GRID_ROUTE = ("hit_grid_sched", "hit_grid")
 CONFIG5 = dict(width=640, height=480, samples=32, seed=3)   # bench/configs.py:85-110
 # The small flythrough: config 5's views at 96x72, 8 spp.  Batched against
 # unbatched frames draw other seeds, so only their statistics agree.
@@ -2014,9 +2196,11 @@ HIT_FORMS = (("default", {}),
              ("R=2", dict(_rays=2)))
 
 # The kernels whose registers and sweep loops phase 1 prints: the packed
-# sweep's (A, B, B-multi) and the old sweep's (E, G).
+# sweep's (A, B, B-multi), the old sweep's (E, G) and the grids' (D, I).
 SWEEP_KERNELS = ("hit_kernel", "bounce_kernel", "bounce_multi_kernel",
-                 "hit_sky_kernel", "hit_cols_kernel")
+                 "hit_sky_kernel", "hit_cols_kernel", "tri_grid_kernel",
+                 "hit_grid_kernel", "tri_grid_schedule_kernel",
+                 "hit_grid_schedule_kernel")
 
 KERNEL_META = {
     "hit": ("sphere_hit", "win32_raytracer_tpu_torch/csrc/hit.cu",
@@ -2039,6 +2223,13 @@ KERNEL_META = {
                  "win32_raytracer_tpu/kernels/tri_pallas.py:35"),
     "hit_grid": ("sphere_grid_hit", "win32_raytracer_tpu_torch/csrc/hit_grid.cu",
                  "win32_raytracer_tpu/kernels/hit_grid_rows.py:98"),
+    # The schedule kernels take the XLA prelude of the same TPU kernels.
+    "tri_grid_sched": ("triangle_grid_schedule",
+                       "win32_raytracer_tpu_torch/csrc/tri_grid.cu",
+                       "win32_raytracer_tpu/kernels/tri_grid_rows.py:252"),
+    "hit_grid_sched": ("sphere_grid_schedule",
+                       "win32_raytracer_tpu_torch/csrc/hit_grid.cu",
+                       "win32_raytracer_tpu/kernels/hit_grid_rows.py:98"),
 }
 
 
@@ -2048,7 +2239,8 @@ def main() -> int:
                     help="comma-separated phases to run (0 always runs)")
     ap.add_argument("--root", default=None,
                     help="import win32_raytracer_tpu_torch from this checkout "
-                         "(phase 17 times another commit's kernels A and B)")
+                         "(phase 17 times another commit's kernels A, B, D "
+                         "and I)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
     if args.root:

@@ -38,9 +38,11 @@ GROUPS = (
     ("kernel F (scatter + respawn)", "scatter_respawn_kernel"),
     ("kernel C (triangle brute)", "tri_kernel"),
     ("kernel D (triangle grid)", "tri_grid_kernel"),
+    ("kernel D schedule (triangle grid)", "tri_grid_schedule_kernel"),
     ("kernel G (sphere hit, columns)", "hit_cols_kernel"),
     ("kernel H (triangle hit, columns)", "tri_cols_kernel"),
     ("kernel I (sphere grid)", "hit_grid_kernel"),
+    ("kernel I schedule (sphere grid)", "hit_grid_schedule_kernel"),
     ("sort", "sort"),
     ("sort", "Radix"),
     ("gather/scatter/index", "index"),

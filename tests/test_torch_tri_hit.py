@@ -218,7 +218,7 @@ def test_block_schedule_matches_reference_prelude():
                      * JG._TLO_INV)
     want[:, 1::2] = (np.asarray(jnp.ceil(bclip[:, 1::2]).astype(jnp.int32) + 1)
                      * JG._TLO_INV)
-    np.testing.assert_array_equal(KD.quantized_boxes(tg.tile_boxes).numpy(),
+    np.testing.assert_array_equal(tacc.quantized_boxes(tg.tile_boxes).numpy(),
                                   want)
 
 

@@ -39,6 +39,17 @@ constexpr float kTwoPi = 6.28318530717958647692f;     // f32(2 pi)
 constexpr int kBlock = 256;                           // lanes per block
 constexpr int kTile = 256;                            // spheres per smem tile
 
+// torch.minimum / torch.maximum: NaN if either operand is NaN (fminf and
+// fmaxf would drop it).  Exact in any order, so block reductions by these
+// equal torch's amin / amax.
+__device__ __forceinline__ float tmin(float a, float b) {
+  return (a < b || a != a) ? a : b;
+}
+__device__ __forceinline__ float tmax(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+__device__ __forceinline__ float f32_inf() { return __int_as_float(0x7f800000); }
+
 // ---------------------------------------------------------------------------
 // Sphere sweep (ops/hit.py _sweep): nearest front-face root with t > min_t
 // over every active sphere, strict < so the first index keeps ties.
@@ -53,7 +64,7 @@ struct SphereTile {
 
 // The pair test of ops/hit.py _sweep against staged sphere j: calls
 // on_root(t) with the near root t where disc >= 0 and t > min_t.  Kernels
-// A, B, E, G and I share it.  The square root and the division stay under
+// E and G share it.  The square root and the division stay under
 // the disc >= 0 branch, which most pairs do not take: a form returning
 // kNoHit on both paths read 7-8% slower in kernels A, B, E and G
 // (PERF.md, the sphere grid's findings).
@@ -129,11 +140,13 @@ __device__ __forceinline__ void sweep_spheres(
 }
 
 // ---------------------------------------------------------------------------
-// The packed sweep (kernels A and B, and B-multi through B's bounce_lane):
-// sphere_pair_t's arithmetic, op for op, with fewer instructions around it.
-//  * Only active rows are staged, in ascending order, each carrying its
-//    original row: no per-pair active load and branch, no padding rows, and
-//    the strict < still keeps the lowest row on ties.
+// The packed sweep (kernels A and B, B-multi through B's bounce_lane, and
+// both of kernel I's launches): sphere_pair_t's arithmetic, op for op,
+// with fewer instructions around it.
+//  * Only active rows are staged, in candidate order (ascending; kernel I's
+//    sweep: its scheduled tiles ascending, then their rows), each carrying
+//    its table row: no per-pair active load and branch, no padding rows,
+//    and the strict < still keeps the lowest row on ties.
 //  * The geometry is packed for 16-byte shared loads, {c1, r*r} and
 //    {dc, 0} per sphere, with {t1, invdt} and the original row (an int,
 //    read only for a root) beside them.  r*r is the f32 product _sweep
@@ -141,15 +154,18 @@ __device__ __forceinline__ void sweep_spheres(
 //  * Where every staged row has the same (t1, invdt) bits (every sphere of
 //    the built-in scenes: t1 = 0, t2 = 1), the lerp (tm - t1) * invdt is
 //    one value per ray and tile: the same operands, the same rounding.
-//  * Each chunk of 32 staged spheres is swept twice: for the bits
-//    disc >= 0, with no branch, then for the roots of the set bits.
+//  * Each chunk of 32 staged spheres (8 for kernel I's few globals) is
+//    swept twice: for the bits disc >= 0, with no branch, then for the
+//    roots of the set bits.
 //  * R rays per thread (kernel A two on a batch that fills the card, else
-//    one; B one), so each staged sphere serves R pair tests per load.
+//    one; B one; kernel I's sweep two), so each staged sphere serves R pair
+//    tests per load.
 // A pair test is 23 f32 multiplies, adds and subtractions and a compare
-// (25 and a compare where the tile's (t1, invdt) differ).  E, G and I keep
+// (25 and a compare where the tile's (t1, invdt) differ).  E and G keep
 // sweep_spheres, whose pair test does 26 and a compare.
-// tests/test_torch_sweep_packed.py holds this visiting order, written in
-// torch, against ops/hit.py _sweep bit for bit.
+// tests/test_torch_sweep_packed.py and tests/test_torch_grid_sched.py hold
+// these visiting orders, written in torch, against ops/hit.py _sweep and
+// accel._sweep_tiles bit for bit.
 // ---------------------------------------------------------------------------
 
 struct PackedTile {
@@ -165,38 +181,52 @@ struct Rays {  // R rays of one thread; a = |d|^2
   float ox[R], oy[R], oz[R], dx[R], dy[R], dz[R], tm[R], a[R];
 };
 
-// Stage the active rows among rows [row0, row0 + rows) (rows <= kBlock) of
-// a [*, ATTR_COLS] table into `sh`, ascending; returns how many, and sets
-// `uniform` when they all share their (t1, invdt) bits.  blockDim.x must be
-// kBlock and every thread must call it.  Its first barrier orders it after
-// the previous tile's readers; it ends behind a barrier.
-__device__ __forceinline__ int stage_packed(const float* __restrict__ attrs,
-                                            const uint8_t* __restrict__ active,
-                                            int row0, int rows,
-                                            PackedTile& sh, bool& uniform) {
-  const int j = threadIdx.x;
-  const int lane = j & 31, warp = j >> 5;
-  const bool act = j < rows && active[row0 + j];
-  const unsigned ballot = __ballot_sync(0xffffffffu, act);
-  if (lane == 0) sh.warp_cnt[warp] = __popc(ballot);
+// The exclusive prefix count of `pred` over the CTA's threads in thread
+// order, and its total.  blockDim.x must be kBlock and every thread must
+// call it; `warp_cnt` (kBlock / 32 ints of shared memory) must not be read
+// by another call until a barrier after this one.
+__device__ __forceinline__ int cta_prefix(bool pred, int* warp_cnt, int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned ballot = __ballot_sync(0xffffffffu, pred);
+  if (lane == 0) warp_cnt[warp] = __popc(ballot);
   __syncthreads();
-  int pos = __popc(ballot & ((1u << lane) - 1u)), total = 0;
+  int pos = __popc(ballot & ((1u << lane) - 1u));
+  total = 0;
 #pragma unroll
   for (int w = 0; w < kBlock / 32; ++w) {
-    const int c = sh.warp_cnt[w];
+    const int c = warp_cnt[w];
     pos += w < warp ? c : 0;
     total += c;
   }
+  return pos;
+}
+
+// Stage the active rows among `rows` (<= kBlock) candidate rows of a
+// [*, cols] sphere attribute table into `sh`, in candidate order; returns
+// how many, and sets `uniform` when they all share their (t1, invdt) bits.
+// cand(j, row) gives candidate j's table row and whether it is active.
+// blockDim.x must be kBlock and every thread must call it.  Its first
+// barrier orders it after the previous tile's readers; it ends behind a
+// barrier.
+template <typename Cand>
+__device__ __forceinline__ int stage_packed_rows(const float* __restrict__ attrs,
+                                                 int cols, int rows, Cand&& cand,
+                                                 PackedTile& sh, bool& uniform) {
+  const int j = threadIdx.x;
+  int row = 0;
+  const bool act = j < rows && cand(j, row);
+  int total;
+  const int pos = cta_prefix(act, sh.warp_cnt, total);
   float t1 = 0.0f, invdt = 0.0f;
   if (act) {
-    const float* row = attrs + (size_t)(row0 + j) * ATTR_COLS;
-    const float r = row[A_RADIUS];
-    t1 = row[A_T1];
-    invdt = row[A_INVDT];
-    sh.cr[pos] = make_float4(row[A_C1X], row[A_C1Y], row[A_C1Z], r * r);
-    sh.dr[pos] = make_float4(row[A_DCX], row[A_DCY], row[A_DCZ], 0.0f);
+    const float* g = attrs + (size_t)row * cols;
+    const float r = g[A_RADIUS];
+    t1 = g[A_T1];
+    invdt = g[A_INVDT];
+    sh.cr[pos] = make_float4(g[A_C1X], g[A_C1Y], g[A_C1Z], r * r);
+    sh.dr[pos] = make_float4(g[A_DCX], g[A_DCY], g[A_DCZ], 0.0f);
     sh.tv[pos] = make_float2(t1, invdt);
-    sh.row[pos] = row0 + j;
+    sh.row[pos] = row;
   }
   __syncthreads();
   const bool odd = act && (__float_as_uint(t1) != __float_as_uint(sh.tv[0].x) ||
@@ -223,14 +253,15 @@ __device__ __forceinline__ float2 packed_disc(const PackedTile& sh, int j,
 }
 
 // The pair tests of R rays against the cnt staged spheres of `sh`, in
-// chunks of 32 spheres; UNIFORM: every staged row has tv[0]'s (t1, invdt).
+// chunks of CH (<= 32, dividing kBlock) spheres; UNIFORM: every staged row
+// has tv[0]'s (t1, invdt).
 // A chunk's first pass forms each pair's discriminant and keeps only the
 // bit disc >= 0, with no branch; the second visits the set bits in
 // ascending order and forms those roots, recomputing b and disc by the
 // same operations.  Most pairs miss, so the hot pass issues no root, no
 // branch and no reconvergence, and the strict < over ascending rows keeps
 // sphere_pair_t's winner.
-template <int R, bool UNIFORM>
+template <int R, bool UNIFORM, int CH = 32>
 __device__ __forceinline__ void sweep_packed_tile(const PackedTile& sh,
                                                   int cnt, const Rays<R>& ry,
                                                   float min_t, float* best_t,
@@ -241,12 +272,12 @@ __device__ __forceinline__ void sweep_packed_tile(const PackedTile& sh,
 #pragma unroll
     for (int r = 0; r < R; ++r) lerp[r] = (ry.tm[r] - tv.x) * tv.y;
   }
-  for (int j0 = 0; j0 < cnt; j0 += 32) {  // j0 + 31 < kBlock: in bounds
+  for (int j0 = 0; j0 < cnt; j0 += CH) {  // j0 + CH - 1 < kBlock: in bounds
     unsigned m[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) m[r] = 0u;
 #pragma unroll
-    for (int k = 0; k < 32; ++k) {
+    for (int k = 0; k < CH; ++k) {
       float2 tv = make_float2(0.0f, 0.0f);
       if (!UNIFORM) tv = sh.tv[j0 + k];
 #pragma unroll
@@ -259,7 +290,7 @@ __device__ __forceinline__ void sweep_packed_tile(const PackedTile& sh,
     const int left = cnt - j0;  // rows past cnt hold stale values
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      if (left < 32) m[r] &= (1u << left) - 1u;
+      if (left < CH) m[r] &= (1u << left) - 1u;
       while (m[r]) {
         const int j = j0 + __ffs(m[r]) - 1;
         m[r] &= m[r] - 1u;
@@ -276,9 +307,40 @@ __device__ __forceinline__ void sweep_packed_tile(const PackedTile& sh,
 }
 
 // Every thread of the block must call this: the nearest root of each of
-// its R rays over the active rows among the table's n_spheres, staged tile
-// by tile.  Threads with `on` false help stage and skip the arithmetic.
-// best_i is the original row, -1 on a miss.
+// its R rays over the active candidates among n_cand rows of a [*, cols]
+// table (stage_packed_rows' cand(k, row), k in [0, n_cand)), staged kBlock
+// candidates at a time in candidate order.  Threads with `on` false help
+// stage and skip the arithmetic.  best_i is the table row, -1 on a miss.
+// Returns the rows staged (each a pair test of every ray with `on`).
+template <int R, typename Cand>
+__device__ __forceinline__ int sweep_packed_rows(const float* __restrict__ attrs,
+                                                  int cols, int n_cand, Cand&& cand,
+                                                  PackedTile& sh, bool on,
+                                                  const Rays<R>& ry, float min_t,
+                                                  float* best_t, int* best_i) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    best_t[r] = kNoHit;
+    best_i[r] = -1;
+  }
+  int staged = 0;
+  for (int base = 0; base < n_cand; base += kBlock) {
+    bool uniform;
+    const int cnt = stage_packed_rows(
+        attrs, cols, min(kBlock, n_cand - base),
+        [&](int j, int& row) { return cand(base + j, row); }, sh, uniform);
+    staged += cnt;
+    if (!on || cnt == 0) continue;
+    if (uniform)
+      sweep_packed_tile<R, true>(sh, cnt, ry, min_t, best_t, best_i);
+    else
+      sweep_packed_tile<R, false>(sh, cnt, ry, min_t, best_t, best_i);
+  }
+  return staged;
+}
+
+// sweep_packed_rows over the active rows of a [n_spheres, ATTR_COLS]
+// table, ascending (kernels A and B).
 template <int R>
 __device__ __forceinline__ void sweep_packed(const float* __restrict__ attrs,
                                              const uint8_t* __restrict__ active,
@@ -286,21 +348,12 @@ __device__ __forceinline__ void sweep_packed(const float* __restrict__ attrs,
                                              PackedTile& sh, bool on,
                                              const Rays<R>& ry, float min_t,
                                              float* best_t, int* best_i) {
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    best_t[r] = kNoHit;
-    best_i[r] = -1;
-  }
-  for (int base = 0; base < n_spheres; base += kBlock) {
-    bool uniform;
-    const int cnt = stage_packed(attrs, active, base,
-                                 min(kBlock, n_spheres - base), sh, uniform);
-    if (!on || cnt == 0) continue;
-    if (uniform)
-      sweep_packed_tile<R, true>(sh, cnt, ry, min_t, best_t, best_i);
-    else
-      sweep_packed_tile<R, false>(sh, cnt, ry, min_t, best_t, best_i);
-  }
+  sweep_packed_rows<R>(attrs, ATTR_COLS, n_spheres,
+                       [&](int k, int& row) {
+                         row = k;
+                         return active[k] != 0;
+                       },
+                       sh, on, ry, min_t, best_t, best_i);
 }
 
 // Ray k of a rows-layout batch ([3, n] origin and direction, [n] time)
@@ -411,22 +464,21 @@ __device__ __forceinline__ void stage_tris(const float* __restrict__ attrs,
   }
 }
 
-// The pair test of ops/hit_tri.py tri_pair_t: t of a valid hit, else kNoHit.
-__device__ __forceinline__ float tri_pair_t(const TriTile& sh, int j,
-                                            float ox, float oy, float oz,
-                                            float dx, float dy, float dz,
-                                            float min_t) {
-  const float e1x = sh.e1x[j], e1y = sh.e1y[j], e1z = sh.e1z[j];
-  const float e2x = sh.e2x[j], e2y = sh.e2y[j], e2z = sh.e2z[j];
+// The pair test of ops/hit_tri.py tri_pair_t against the triangle (v0, e1,
+// e2): t of a valid hit, else kNoHit.  Kernels C, D and H share it.
+__device__ __forceinline__ float tri_pair_geom(
+    float v0x, float v0y, float v0z, float e1x, float e1y, float e1z,
+    float e2x, float e2y, float e2z, float ox, float oy, float oz, float dx,
+    float dy, float dz, float min_t) {
   const float px = dy * e2z - dz * e2y;  // pvec = d x e2
   const float py = dz * e2x - dx * e2z;
   const float pz = dx * e2y - dy * e2x;
   const float det = e1x * px + e1y * py + e1z * pz;
   const bool ok = fabsf(det) >= kDetEps;
   const float inv_det = 1.0f / (ok ? det : 1.0f);
-  const float tx = ox - sh.v0x[j];       // tvec = o - v0
-  const float ty = oy - sh.v0y[j];
-  const float tz = oz - sh.v0z[j];
+  const float tx = ox - v0x;             // tvec = o - v0
+  const float ty = oy - v0y;
+  const float tz = oz - v0z;
   const float u = (tx * px + ty * py + tz * pz) * inv_det;
   const float qx = ty * e1z - tz * e1y;  // qvec = tvec x e1
   const float qy = tz * e1x - tx * e1z;
@@ -435,6 +487,16 @@ __device__ __forceinline__ float tri_pair_t(const TriTile& sh, int j,
   const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
   const bool valid = ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > min_t;
   return valid ? t : kNoHit;
+}
+
+// tri_pair_geom against staged triangle j of `sh`.
+__device__ __forceinline__ float tri_pair_t(const TriTile& sh, int j,
+                                            float ox, float oy, float oz,
+                                            float dx, float dy, float dz,
+                                            float min_t) {
+  return tri_pair_geom(sh.v0x[j], sh.v0y[j], sh.v0z[j], sh.e1x[j], sh.e1y[j],
+                       sh.e1z[j], sh.e2x[j], sh.e2y[j], sh.e2z[j], ox, oy, oz,
+                       dx, dy, dz, min_t);
 }
 
 // The winner's record (ops/hit_tri.py tri_record_rows_from_gather): row

@@ -1,49 +1,68 @@
-// Kernel I: pass B of the sphere grid and its merge with pass A, in the
-// rows layout (persistent scheduler) and the column layout.
+// Kernel I: the sphere grid, in the rows layout (persistent scheduler) and
+// the column layout, as two launches: the schedule kernel (pass A over the
+// globals, the footprint mask and the block schedule) and the sweep kernel
+// (pass B over the scheduled tiles and its merge into pass A's record).
 //
 // Replaces the TPU kernels win32_raytracer_tpu/kernels/hit_grid_rows.py:98
 // (_grid_kernel_rows, the rows instance; accel="grid" on a plain sphere
 // scene) and win32_raytracer_tpu/kernels/experimental/hit_grid.py:50
-// (_grid_kernel, the column instance).  Both compute one function: for each
-// lane, the nearest root with t > min_t and r != 0 among the rows of the
-// tiles its ray block's schedule lists, tiles in ascending id with strict <
-// across tiles and the lowest row within one.  The TPU kernels fetch the
-// winner with a one-hot MXU contraction whose ones column flags "this tile
-// won"; here the winner is carried as (t, row) and its 17-column row read
-// once at the end.  Pass A (the globals, kernel A or G) has already written
-// its record into out_f / out_i / out_hit; this kernel merges into it in
-// place on (t, original index), the reference's merge_best, writing a lane
-// only where pass B wins, with store_record<L> (the record of kernels A/G).
+// (_grid_kernel, the column instance), and the XLA prelude around them
+// (hit_grid_rows.py:166-203 and :215, experimental/hit_grid.py:119-148 and
+// :160: pass A, footprint_block_mask, the argsort schedule).  Both compute
+// one function: for each lane, the nearest root with t > min_t and r != 0
+// among the rows of the tiles its ray block's schedule lists, tiles in
+// ascending id with strict < across tiles and the lowest row within one,
+// merged with pass A on (t, original index), the reference's merge_best.
+// The TPU kernels fetch the winner with a one-hot MXU contraction; here the
+// winner is carried as (t, row) and its 17-column row read once at the end.
 //
-// What bounds it on an H100: the pair tests the schedule leaves (27 f32
-// operations each, csrc/common.cuh sphere_pair_t), a data-dependent count
-// that chip_smoke.py reads back through `stats`; the brute sweep would test
-// every sphere (488 for the final scene).  Design, after kernel D's: the
-// reference walks its blocks in order with the whole tile table in VMEM;
-// here a CTA of up to kThreads threads takes one slice of a ray block (no
-// state carries between CTAs), reads the block's count and tile ids, and
-// stages each scheduled tile's geometry through shared memory; every lane
-// of a CTA sweeps the same rows, so the only divergence is a root's branch.
-// The mask and schedule prelude stays torch ops (kernels/hit_grid.py), as
-// it was XLA around the reference's kernel.
+// The schedule kernel takes one ray block per CTA, looping over its lanes:
+// pass A by the packed sweep (the globals with r != 0 staged once, at
+// most kBlock of them, the arithmetic of kernel A), its record written
+// where kernel A writes it; each lane's footprint op for op as
+// accel._footprint_mask;
+// the block's min and max (exact in any order); then per tile the overlap,
+// and the scheduled ids written ascending by a ballot and prefix sum (the
+// unscheduled ones after them), the [NB, 1 + T] row block_schedule's
+// argsort gives.  Rays past n are the reference's filler rays, made here.
+//
+// The sweep kernel: a CTA of kBlock threads, two rays each, takes 512
+// lanes of a ray block and stages the rows of its scheduled tiles whose
+// r != 0 into a PackedTile, ascending by tile and then by row, kBlock
+// candidate rows (about ten of the headline's 24-row tiles) per stage, each
+// carrying its table row; the packed sweep's mask-then-root pass
+// (sweep_packed_tile) sweeps them.  The ascending staged order with
+// strict < keeps the plain sweep's winner.
+//
+// What bounds it on an H100: the pair tests, the schedule's (24 f32
+// operations each, csrc/common.cuh sweep_packed_tile; chip_smoke.py reads
+// them back through `stats`) and pass A's (lanes x active globals); the
+// brute sweep would test every sphere (488 for the final scene).
 #include "common.cuh"
 
 using namespace wrt;
 
-constexpr int kThreads = 256;                   // lanes per CTA (at most)
+constexpr int kThreads = kBlock;                // threads per CTA
 constexpr int kGridAttrCols = ATTR_COLS + 1;    // accel.GRID_ATTR_COLS
+constexpr float kBig = 1e8f;                    // accel._BIG
+constexpr float kEps = 1e-12f;                  // accel._EPS
 
 struct GridArgs {
   const float* origin;     // [3, n] (ROWS) or [n, 3] (COLS)
   const float* direction;  // as origin
   const float* time;       // [n]
+  const float* glob;       // [n_glob, ATTR_COLS]: the globals (pass A)
   const float* attrs;      // [n_tiles * st, kGridAttrCols], tile-major
-  const int32_t* sched;    // [n / ray_block, 1 + n_tiles]: count, tile ids
-  float* out_f;            // pass A's record in, the merged record out:
+  const float* boxes;      // [n_tiles, 4]: x_lo, x_hi, z_lo, z_hi
+  const float* y_slab;     // [2]: y_lo, y_hi of the gridded spheres
+  int32_t* sched;          // [nb, 1 + n_tiles]: count, tile ids
+  float* out_f;            // pass A's record, then the merged record:
   int32_t* out_i;          //   [12, n] / [2, n] (ROWS) or [n, 12] / [n, 2]
   uint8_t* out_hit;        // [n]
-  unsigned long long* stats;  // [2]: tiles staged, pair tests; or null
-  long long n;             // lanes, a multiple of ray_block
+  unsigned long long* stats;  // [2]: CTA tiles, pair tests; or null
+  long long n;             // lanes
+  long long nb;            // ray blocks, ceil(n / ray_block)
+  int n_glob;
   int n_tiles;
   int st;                  // rows per tile
   int ray_block;
@@ -51,75 +70,206 @@ struct GridArgs {
   void* stream;
 };
 
+// Lane i's ray into slot r of `ry`, or past n the filler ray
+// accel.pad_rays_rows (ROWS: o = (0, -1e9, 0), d = (0, 0, 1)) or
+// pad_rays_cols (COLS: d = 0) makes.
+template <Layout L, int R>
+__device__ __forceinline__ void load_lane(const GridArgs& a, long long i, int r,
+                                          Rays<R>& ry) {
+  if (i < a.n) {
+    load3<L>(a.origin, i, a.n, ry.ox[r], ry.oy[r], ry.oz[r]);
+    load3<L>(a.direction, i, a.n, ry.dx[r], ry.dy[r], ry.dz[r]);
+    ry.tm[r] = a.time[i];
+  } else {
+    ry.ox[r] = 0.0f;
+    ry.oy[r] = -1e9f;
+    ry.oz[r] = 0.0f;
+    ry.dx[r] = 0.0f;
+    ry.dy[r] = 0.0f;
+    ry.dz[r] = L == Layout::ROWS ? 1.0f : 0.0f;
+    ry.tm[r] = 0.0f;
+  }
+  ry.a[r] = ry.dx[r] * ry.dx[r] + ry.dy[r] * ry.dy[r] + ry.dz[r] * ry.dz[r];
+}
+
+constexpr int kRays = 2;  // rays per sweep-kernel thread
+
+template <Layout L>
+__global__ void __launch_bounds__(kThreads)
+    hit_grid_schedule_kernel(const GridArgs a) {
+  __shared__ PackedTile sh;
+  __shared__ float red[kThreads / 32][4];
+  const long long blk = blockIdx.x;
+  const float y_lo = a.y_slab[0], y_hi = a.y_slab[1];
+  auto glob_row = [&](int k, int& row) {
+    row = k;
+    return a.glob[(size_t)k * ATTR_COLS + A_RADIUS] != 0.0f;
+  };
+  // Pass A's globals (a few large spheres; at most kBlock rows, the
+  // wrapper refuses more) staged once for all the block's lanes, so the
+  // lane loop below runs with no barrier.
+  bool uniform = false;
+  const int cnt = stage_packed_rows(a.glob, ATTR_COLS, a.n_glob, glob_row, sh, uniform);
+  // The block's footprint box: x min, x max, z min, z max.
+  float fp[4] = {f32_inf(), -f32_inf(), f32_inf(), -f32_inf()};
+  for (int base = 0; base < a.ray_block; base += kThreads) {
+    const int off = base + threadIdx.x;
+    const bool on = off < a.ray_block;
+    const long long i = blk * a.ray_block + (on ? off : 0);
+    Rays<1> ry;
+    load_lane<L, 1>(a, i, 0, ry);
+    float best_t = kNoHit;
+    int best_i = -1;
+    if (!on) continue;
+    if (cnt > 0) {  // chunks of 8: the globals are few
+      if (uniform)
+        sweep_packed_tile<1, true, 8>(sh, cnt, ry, a.min_t, &best_t, &best_i);
+      else
+        sweep_packed_tile<1, false, 8>(sh, cnt, ry, a.min_t, &best_t, &best_i);
+    }
+    const float ox = ry.ox[0], oy = ry.oy[0], oz = ry.oz[0];
+    const float dx = ry.dx[0], dy = ry.dy[0], dz = ry.dz[0];
+    if (i < a.n) {
+      const HitRec h = winner_record(a.glob, best_t, best_i, ox, oy, oz, dx,
+                                     dy, dz, ry.tm[0]);
+      store_record<L>(h, i, a.n, a.out_f, a.out_i, a.out_hit);
+    }
+    // accel._footprint_mask, one lane.
+    const float dy_safe = fabsf(dy) < kEps ? (dy < 0.0f ? -kEps : kEps) : dy;
+    const float ta = (y_lo - oy) / dy_safe;
+    const float tb = (y_hi - oy) / dy_safe;
+    const float lo_t = tmax(tmin(ta, tb), a.min_t);
+    const float hi_t = tmin(tmax(ta, tb), tmin(best_t, kBig));
+    const bool empty = lo_t > hi_t;
+    const float xa = ox + lo_t * dx, xb = ox + hi_t * dx;
+    const float za = oz + lo_t * dz, zb = oz + hi_t * dz;
+    fp[0] = tmin(fp[0], empty ? kBig : tmin(xa, xb));
+    fp[1] = tmax(fp[1], empty ? -kBig : tmax(xa, xb));
+    fp[2] = tmin(fp[2], empty ? kBig : tmin(za, zb));
+    fp[3] = tmax(fp[3], empty ? -kBig : tmax(za, zb));
+  }
+  for (int s = 16; s > 0; s >>= 1) {
+    fp[0] = tmin(fp[0], __shfl_xor_sync(0xffffffffu, fp[0], s));
+    fp[1] = tmax(fp[1], __shfl_xor_sync(0xffffffffu, fp[1], s));
+    fp[2] = tmin(fp[2], __shfl_xor_sync(0xffffffffu, fp[2], s));
+    fp[3] = tmax(fp[3], __shfl_xor_sync(0xffffffffu, fp[3], s));
+  }
+  if ((threadIdx.x & 31) == 0)
+    for (int c = 0; c < 4; ++c) red[threadIdx.x >> 5][c] = fp[c];
+  __syncthreads();
+  for (int w = 0; w < kThreads / 32; ++w) {
+    fp[0] = tmin(fp[0], red[w][0]);
+    fp[1] = tmax(fp[1], red[w][1]);
+    fp[2] = tmin(fp[2], red[w][2]);
+    fp[3] = tmax(fp[3], red[w][3]);
+  }
+
+  // The schedule row: the count, the overlapping tiles ascending, then the
+  // others ascending (block_schedule's argsort of where(mask, id, T + id)).
+  auto overlap = [&](int t) {
+    const float* b = a.boxes + 4 * (size_t)t;
+    return fp[0] <= b[1] && fp[1] >= b[0] && fp[2] <= b[3] && fp[3] >= b[2];
+  };
+  int32_t* row = a.sched + blk * (a.n_tiles + 1);
+  int count = 0;
+  for (int t0 = 0; t0 < a.n_tiles; t0 += kThreads) {
+    const int t = t0 + threadIdx.x;
+    int total;
+    cta_prefix(t < a.n_tiles && overlap(t), sh.warp_cnt, total);
+    count += total;
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) row[0] = count;
+  int before = 0;  // overlapping tiles in earlier chunks
+  for (int t0 = 0; t0 < a.n_tiles; t0 += kThreads) {
+    const int t = t0 + threadIdx.x;
+    const bool ov = t < a.n_tiles && overlap(t);
+    int total;
+    const int pos = cta_prefix(ov, sh.warp_cnt, total);
+    if (t < a.n_tiles)
+      row[1 + (ov ? before + pos : count + (t0 - before) + (threadIdx.x - pos))] = t;
+    before += total;
+    __syncthreads();
+  }
+}
+
+// kRays rays per thread: a CTA takes kRays * kThreads lanes of one ray
+// block, so each staged row serves kRays pair tests per shared load.
 template <Layout L>
 __global__ void __launch_bounds__(kThreads) hit_grid_kernel(const GridArgs a) {
-  __shared__ SphereTile sh;
-  const int per_block = (a.ray_block + blockDim.x - 1) / blockDim.x;
+  constexpr int R = kRays;
+  __shared__ PackedTile sh;
+  const int per_block = (a.ray_block + R * kThreads - 1) / (R * kThreads);
   const long long blk = blockIdx.x / per_block;           // ray block
-  const int off = (blockIdx.x % per_block) * blockDim.x + threadIdx.x;
-  const bool on = off < a.ray_block;
-  const long long n = a.n;
-  const long long i = blk * a.ray_block + (on ? off : 0);
-  float ox, oy, oz, dx, dy, dz;
-  load3<L>(a.origin, i, n, ox, oy, oz);
-  load3<L>(a.direction, i, n, dx, dy, dz);
-  const float tm = a.time[i];
-  const float aa = dx * dx + dy * dy + dz * dz;
+  const int base = (blockIdx.x % per_block) * R * kThreads;
+  Rays<R> ry;
+  long long idx[R];
+  bool on[R], any = false;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int off = base + r * kThreads + threadIdx.x;
+    idx[r] = blk * a.ray_block + off;
+    on[r] = off < a.ray_block && idx[r] < a.n;
+    any = any || on[r];
+    load_lane<L, R>(a, on[r] ? idx[r] : 0, r, ry);
+  }
 
   const int32_t* sched = a.sched + blk * (a.n_tiles + 1);
   const int count = sched[0];
-  float best_t = kNoHit;
-  long long best_row = -1;
-  unsigned long long tiles = 0, pairs = 0;
-  for (int j = 0; j < count; ++j) {
-    const long long row0 = (long long)sched[1 + j] * a.st;
-    for (int r0 = 0; r0 < a.st; r0 += kTile) {
-      const int cnt = min(kTile, a.st - r0);
-      __syncthreads();  // the previous rows are consumed
-      stage_spheres(a.attrs, kGridAttrCols, row0 + r0, cnt, sh);
-      __syncthreads();
-      if (!on) continue;
-      for (int r = 0; r < cnt; ++r) {
-        if (sh.r[r] == 0.0f) continue;  // tile padding (accel._pad_rows)
-        ++pairs;
-        sphere_pair_t(sh, r, ox, oy, oz, dx, dy, dz, tm, aa, a.min_t,
-                      [&](float t) {
-                        if (t < best_t) {
-                          best_t = t;
-                          best_row = row0 + r0 + r;
-                        }
-                      });
-      }
-    }
-    tiles += 1;
-  }
+  const int st = a.st;
+  float best_t[R];
+  int best_row[R];
+  const int staged = sweep_packed_rows<R>(
+      a.attrs, kGridAttrCols, count * st,
+      [&](int k, int& row) {
+        row = sched[1 + k / st] * st + k % st;
+        return a.attrs[(size_t)row * kGridAttrCols + A_RADIUS] != 0.0f;
+      },
+      sh, any, ry, a.min_t, best_t, best_row);
 
   if (a.stats != nullptr) {
+    unsigned long long pairs = 0;
+#pragma unroll
+    for (int r = 0; r < R; ++r) pairs += on[r] ? (unsigned long long)staged : 0ull;
     for (int s = 16; s > 0; s >>= 1)
       pairs += __shfl_down_sync(0xffffffffu, pairs, s);
     if ((threadIdx.x & 31) == 0) atomicAdd(a.stats + 1, pairs);
-    if (threadIdx.x == 0) atomicAdd(a.stats, tiles);
+    if (threadIdx.x == 0) atomicAdd(a.stats, (unsigned long long)count);
   }
-  if (!on || best_row < 0) return;
-  // Pass A's (t, original index), then the lexicographic merge.
-  const float t_a = L == Layout::ROWS ? a.out_f[i] : a.out_f[12 * i];
-  const int idx_a = L == Layout::ROWS ? a.out_i[i] : a.out_i[2 * i];
-  const float* g = a.attrs + (size_t)best_row * kGridAttrCols;
-  if (!(best_t < t_a || (best_t == t_a && (int)g[A_IDX] < idx_a))) return;
-  const HitRec h = sphere_record(g, best_t, ox, oy, oz, dx, dy, dz, tm);
-  store_record<L>(h, i, n, a.out_f, a.out_i, a.out_hit);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (!on[r] || best_row[r] < 0) continue;
+    // Pass A's (t, original index), then the lexicographic merge.
+    const long long i = idx[r];
+    const float t_a = L == Layout::ROWS ? a.out_f[i] : a.out_f[12 * i];
+    const int idx_a = L == Layout::ROWS ? a.out_i[i] : a.out_i[2 * i];
+    const float* g = a.attrs + (size_t)best_row[r] * kGridAttrCols;
+    if (!(best_t[r] < t_a || (best_t[r] == t_a && (int)g[A_IDX] < idx_a))) continue;
+    const HitRec h = sphere_record(g, best_t[r], ry.ox[r], ry.oy[r], ry.oz[r],
+                                   ry.dx[r], ry.dy[r], ry.dz[r], ry.tm[r]);
+    store_record<L>(h, i, a.n, a.out_f, a.out_i, a.out_hit);
+  }
+}
+
+extern "C" int wrt_hit_grid_schedule(const GridArgs* a, int cols) {
+  if (a->n <= 0) return 0;
+  const unsigned grid = (unsigned)a->nb;
+  cudaStream_t s = (cudaStream_t)a->stream;
+  if (cols)
+    hit_grid_schedule_kernel<Layout::COLS><<<grid, kThreads, 0, s>>>(*a);
+  else
+    hit_grid_schedule_kernel<Layout::ROWS><<<grid, kThreads, 0, s>>>(*a);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int wrt_hit_grid(const GridArgs* a, int cols) {
   if (a->n <= 0) return 0;
-  const int threads = a->ray_block < kThreads ? ((a->ray_block + 31) / 32) * 32
-                                              : kThreads;
-  const long long per_block = (a->ray_block + threads - 1) / threads;
-  const unsigned grid = (unsigned)((a->n / a->ray_block) * per_block);
+  const long long per_block = (a->ray_block + kRays * kThreads - 1) / (kRays * kThreads);
+  const unsigned grid = (unsigned)(a->nb * per_block);
   cudaStream_t s = (cudaStream_t)a->stream;
   if (cols)
-    hit_grid_kernel<Layout::COLS><<<grid, threads, 0, s>>>(*a);
+    hit_grid_kernel<Layout::COLS><<<grid, kThreads, 0, s>>>(*a);
   else
-    hit_grid_kernel<Layout::ROWS><<<grid, threads, 0, s>>>(*a);
+    hit_grid_kernel<Layout::ROWS><<<grid, kThreads, 0, s>>>(*a);
   return (int)cudaGetLastError();
 }

@@ -1,57 +1,96 @@
 // Kernel D: nearest two-sided triangle hit through the Morton-tile grid,
-// rows layout.
+// rows layout, as two launches: the schedule kernel and the sweep kernel.
 //
 // Replaces the TPU kernels win32_raytracer_tpu/kernels/tri_grid_rows.py
-// (_tri_grid_kernel_mxu, the default, and _tri_grid_kernel, the exact
-// variant), the triangle pass of meshes of >= 512 triangles (BASELINE
-// config 4, mesh20k).  Both compute one function; this kernel computes it in
-// exact f32 (ops/hit_tri.py's pair test), so it is held to the exact
-// variant and the plain sweep, not to the MXU variant's split-bf16 flips.
+// (_tri_grid_kernel_mxu :252, the default, and _tri_grid_kernel :212, the
+// exact variant), the triangle pass of meshes of >= 512 triangles (BASELINE
+// config 4, mesh20k), and the XLA prelude around them (tri_accel's
+// tri_block_schedule_rows and _tri_grid_raw's argsort, :318-393).  Both
+// kernels compute one function; this one computes it in exact f32
+// (ops/hit_tri.py's pair test), so it is held to the exact variant and the
+// plain sweep, not to the MXU variant's split-bf16 flips.
 //
 // Semantics kept from the reference: each ray block of `ray_block` lanes
-// sweeps only the tiles its schedule row lists (tri_accel's conservative
-// block mask), front to back by the tile entry bound; the sweep stops early
-// once no lane's min(best t, segment end) reaches the next tile's bound
+// sweeps only the tiles its schedule row lists (the conservative block
+// mask), front to back by the tile entry bound; the sweep stops early once
+// no lane's min(best t, segment end) reaches the next tile's bound
 // (_sweep_scheduled); a tile no lane's capped segment touches is skipped
 // (the any-touch slab gate against the quantised, expanded tile box, with
 // the reference's slop: _any_touch); strict < across tiles and the lowest
 // row within a tile; the winner is carried as (t, row) and its attributes
 // are read once after the sweep.
 //
-// What bounds it on an H100: the pair tests the schedule leaves (46 f32
-// multiplies, adds and a division plus 6 compares each), a data-dependent
-// count that chip_smoke.py reads back through `stats`.
-// Design: the reference keeps the whole tile table in VMEM and walks the
-// blocks in order; here a CTA of up to kThreads threads takes one slice of
-// a block's lanes (no state carries between CTAs), stages each scheduled
-// tile through shared memory kTriTile rows at a time, decides the any-touch
-// skip for the CTA (__syncthreads_or: skip the staging) and again per warp
-// (__any_sync: skip the arithmetic), and takes the early exit per CTA.  A
-// per-CTA decision is stricter than the reference's per-block one and still
-// exact: a skipped tile cannot hold a hit nearer than a lane's
-// min(best t, segment end).  Schedules of any length and tiles of any
-// height run, so no shared-memory budget has to split the batch.
+// The schedule kernel takes one ray block per CTA: each lane's scene-box
+// clip and segment end (tri_accel.clip_segment_to_box, written out as
+// cap_eff), the block's segment, origin and |d| extremes (exact in any
+// order), then per tile the overlap and entry bound tlo op for op as
+// tri_block_schedule_rows (IEEE sqrtf, true division), the key clamped to
+// _TLO_CAP (_TLO_PAD where the tile is not scheduled), the stable order by
+// (key, tile id) by rank counting in shared memory (torch.argsort(stable=
+// True), NaN last), the count and the bounds floored onto the 1/1024 grid:
+// kernels/tri_grid.block_schedule's sched and bounds, in its layouts.
+//
+// What bounds the sweep on an H100: the pair tests the schedule leaves (46
+// f32 multiplies, adds and a division plus 6 compares each) and the
+// any-touch tests (27 f32 operations and compares per lane and walked
+// entry), data-dependent counts that chip_smoke.py reads back through
+// `stats`.  Few blocks hold most of that work, so the time went to the
+// serial chains of the CTAs that sweep many tiles (PERF.md, section 6).
+// Design: a CTA of up to kSweepThreads threads takes 32 lanes of one ray
+// block (no state carries between CTAs), kSub threads a lane, each sweeping
+// every kSub-th row of a tile; the lane's tile winner is folded over them
+// by shuffles (the nearest t, the lowest row on ties).  The CTA copies its
+// block's walk (tile ids, bounds, quantised boxes) into shared memory, so
+// the walk reads nothing from device memory but the tile rows.  The rows
+// come from a per-grid copy of the geometry packed as three float4s a row
+// (tri_accel.make_tri_grid's tile_geom), staged with 16-byte cp.async copies into
+// one of two buffers: the next tile's copy is issued while the current one
+// is swept, whenever some lane's segment (capped by its best t so far, which
+// only shrinks) touches it.  One CTA vote per walk entry carries the
+// entry's any-touch test, the early exit against its bound and the next
+// entry's prefetch test; a touched tile adds one barrier, for its rows.
+// A warp with no touching lane skips the arithmetic.  The per-CTA and
+// per-warp decisions are stricter than the reference's per-block ones and
+// still exact: a skipped tile cannot hold a hit nearer than a lane's
+// min(best t, segment end).
 #include "common.cuh"
 
 using namespace wrt;
 
-constexpr int kThreads = 256;                  // lanes per CTA (at most)
+constexpr int kThreads = 256;                  // schedule threads per CTA (at most)
+constexpr int kSweepThreads = 128;             // sweep threads per CTA (at most)
+constexpr int kSub = 4;                        // sweep threads per lane
+constexpr int kWalk = 256;                     // walk entries per smem window
 constexpr int kGridCols = TRI_ATTR_COLS + 1;   // tri_accel.TRI_GRID_COLS
-constexpr float kEpsDir = 1e-12f;              // tri_grid_rows._EPS_DIR
+constexpr int kGeomF4 = 3;                     // float4s per packed row
+constexpr float kBig = 1e8f;                   // tri_accel._BIG
+constexpr float kEpsDir = 1e-12f;              // tri_grid_rows._EPS_DIR, tri_accel._EPS
 constexpr float kSlopRel = 1e-4f;              // tri_grid_rows._SKIP_SLOP_REL
 constexpr float kSlopAbs = 1e-5f;              // tri_grid_rows._SKIP_SLOP_ABS
+constexpr float kTloScale = 1024.0f;           // kernels/tri_grid._TLO_SCALE
+constexpr float kTloInv = 1.0f / 1024.0f;      // _TLO_INV
+constexpr float kTloCap = 1.0e6f;              // _TLO_CAP
+constexpr float kTloPad = 1.5e6f;              // _TLO_PAD
 
 struct TriGridArgs {
-  const float* rays;      // [7, n]: origin, direction, segment end (cap)
+  const float* origin;    // [3, n]
+  const float* direction; // [3, n]
+  const float* t_cap;     // [n] or null
   const float* attrs;     // [n_tiles * st, kGridCols], tile-major
-  const int32_t* sched;   // [n / ray_block, 1 + n_tiles]: count, tile ids
-  const float* tlo;       // [n / ray_block, n_tiles + 1]: entry bounds
+  const float4* geom;     // [n_tiles * st, kGeomF4]: v0, e1, e2 packed
   const float* boxes;     // [n_tiles, 6]: x0, x1, y0, y1, z0, z1
+  const float* qboxes;    // [n_tiles, 6]: boxes on the 1/1024 grid, widened
+  const float* scene_box; // [6]
+  int32_t* sched;         // [nb, 1 + n_tiles]: count, tile ids
+  float* bounds;          // [nb, n_tiles + 1]: entry bounds, schedule order
+  float* cap_eff;         // [n]: segment ends (the schedule kernel's)
   float* out_f;           // [12, n]
   int32_t* out_i;         // [2, n]
   uint8_t* out_hit;       // [n]
-  unsigned long long* stats;  // [2]: tiles staged, pair tests; or null
-  long long n;            // lanes, a multiple of ray_block
+  unsigned long long* stats;  // [4]: CTA tiles staged, pair tests,
+                              // any-touch tests, walk entries; or null
+  long long n;            // lanes
+  long long nb;           // ray blocks, ceil(n / ray_block)
   int n_tiles;
   int st;                 // rows per tile
   int ray_block;
@@ -59,17 +98,19 @@ struct TriGridArgs {
   void* stream;
 };
 
-// 1/d with +-eps for near-zero components (tri_grid_rows._safe_inv).
-__device__ __forceinline__ float safe_inv(float d) {
-  const float dn = fabsf(d) < kEpsDir ? (d < 0.0f ? -kEpsDir : kEpsDir) : d;
-  return 1.0f / dn;
+// d with +-eps for near-zero components (tri_accel._slab's d_safe).
+__device__ __forceinline__ float safe_dir(float d) {
+  return fabsf(d) < kEpsDir ? (d < 0.0f ? -kEpsDir : kEpsDir) : d;
 }
+
+// 1/d with +-eps for near-zero components (tri_grid_rows._safe_inv).
+__device__ __forceinline__ float safe_inv(float d) { return 1.0f / safe_dir(d); }
 
 // Does the segment [t_lo, t_hi] slab-intersect the box
 // (tri_grid_rows._any_touch, one lane)?
-__device__ __forceinline__ bool any_touch(const float* __restrict__ box,
-                                          const float o[3], const float inv[3],
-                                          float t_lo, float t_hi) {
+__device__ __forceinline__ bool any_touch(const float* box, const float o[3],
+                                          const float inv[3], float t_lo,
+                                          float t_hi) {
 #pragma unroll
   for (int ax = 0; ax < 3; ++ax) {
     const float ta = (box[2 * ax] - o[ax]) * inv[ax];
@@ -80,88 +121,344 @@ __device__ __forceinline__ bool any_touch(const float* __restrict__ box,
   return t_lo <= t_hi * (1.0f + kSlopRel) + kSlopAbs;
 }
 
-template <bool EARLY_EXIT, bool ANY_SKIP>
-__global__ void __launch_bounds__(kThreads) tri_grid_kernel(const TriGridArgs a) {
-  __shared__ TriTile sh;
-  const int per_block = (a.ray_block + blockDim.x - 1) / blockDim.x;
-  const long long blk = blockIdx.x / per_block;           // ray block
-  const int off = (blockIdx.x % per_block) * blockDim.x + threadIdx.x;
-  const bool on = off < a.ray_block;
+// Lane i's ray, or past n the filler ray tri_accel.pad_rays makes
+// (o = (0, -1e9, 0), d = (0, 0, 1), t_cap 0).
+__device__ __forceinline__ void load_ray(const TriGridArgs& a, long long i,
+                                         float o[3], float d[3], float& cap) {
   const long long n = a.n;
-  const long long i = blk * a.ray_block + (on ? off : 0);
-  const float o[3] = {a.rays[i], a.rays[n + i], a.rays[2 * n + i]};
-  const float d[3] = {a.rays[3 * n + i], a.rays[4 * n + i], a.rays[5 * n + i]};
-  const float cap = a.rays[6 * n + i];
+  if (i < n) {
+    for (int c = 0; c < 3; ++c) {
+      o[c] = a.origin[c * n + i];
+      d[c] = a.direction[c * n + i];
+    }
+    cap = a.t_cap != nullptr ? a.t_cap[i] : 0.0f;
+  } else {
+    o[0] = 0.0f, o[1] = -1e9f, o[2] = 0.0f;
+    d[0] = 0.0f, d[1] = 0.0f, d[2] = 1.0f;
+    cap = 0.0f;
+  }
+}
+
+// torch's sort order: NaN above everything, NaNs equal.
+__device__ __forceinline__ bool key_less(float a, float b) {
+  return a < b || (a == a && b != b);
+}
+__device__ __forceinline__ bool key_equal(float a, float b) {
+  return a == b || (a != a && b != b);
+}
+
+// A bound key on the 1/1024 grid (block_schedule's floor, int32, f32).
+__device__ __forceinline__ float quantize_bound(float key) {
+  return (float)(int)floorf(key * kTloScale) * kTloInv;
+}
+
+constexpr int kRed = 13;  // segment lo[3], hi[3], origin lo[3], hi[3], |d|^2 max
+
+__global__ void __launch_bounds__(kThreads)
+    tri_grid_schedule_kernel(const TriGridArgs a) {
+  extern __shared__ float keys[];  // [n_tiles]
+  __shared__ float red[kThreads / 32][kRed];
+  const long long blk = blockIdx.x;
+  const float* sb = a.scene_box;
+  float acc[kRed];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    acc[c] = f32_inf();
+    acc[3 + c] = -f32_inf();
+    acc[6 + c] = f32_inf();
+    acc[9 + c] = -f32_inf();
+  }
+  acc[12] = -f32_inf();
+  for (int off = threadIdx.x; off < a.ray_block; off += blockDim.x) {
+    const long long i = blk * a.ray_block + off;
+    float o[3], d[3], cap;
+    load_ray(a, i, o, d, cap);
+    // tri_accel.clip_segment_to_box.
+    float lo_t = a.min_t, hi_t = kBig;
+    if (a.t_cap != nullptr) hi_t = tmin(hi_t, cap);
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+      const float ds = safe_dir(d[ax]);
+      const float ta = (sb[2 * ax] - o[ax]) / ds;
+      const float tb = (sb[2 * ax + 1] - o[ax]) / ds;
+      lo_t = tmax(lo_t, tmin(ta, tb));
+      hi_t = tmin(hi_t, tmax(ta, tb));
+    }
+    const bool empty = lo_t > hi_t;
+    if (i < a.n) a.cap_eff[i] = empty ? 0.0f : hi_t;
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+      const float pa = o[ax] + lo_t * d[ax], pb = o[ax] + hi_t * d[ax];
+      acc[ax] = tmin(acc[ax], empty ? kBig : tmin(pa, pb));
+      acc[3 + ax] = tmax(acc[3 + ax], empty ? -kBig : tmax(pa, pb));
+      acc[6 + ax] = tmin(acc[6 + ax], empty ? kBig : o[ax]);
+      acc[9 + ax] = tmax(acc[9 + ax], empty ? -kBig : o[ax]);
+    }
+    const float d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
+    acc[12] = tmax(acc[12], empty ? 0.0f : d2);
+  }
+  // The block's extremes: min for lo rows, max for hi rows and |d|^2.
+  auto fold = [](int c, float x, float y) {
+    return (c < 3 || (c >= 6 && c < 9)) ? tmin(x, y) : tmax(x, y);
+  };
+#pragma unroll
+  for (int c = 0; c < kRed; ++c)
+    for (int s = 16; s > 0; s >>= 1)
+      acc[c] = fold(c, acc[c], __shfl_xor_sync(0xffffffffu, acc[c], s));
+  const int warps = blockDim.x / 32;
+  if ((threadIdx.x & 31) == 0)
+    for (int c = 0; c < kRed; ++c) red[threadIdx.x >> 5][c] = acc[c];
+  __syncthreads();
+  for (int w = 0; w < warps; ++w)
+#pragma unroll
+    for (int c = 0; c < kRed; ++c) acc[c] = fold(c, acc[c], red[w][c]);
+  const float dmax = sqrtf(acc[12]);
+
+  // Per tile: overlap, entry bound and key (tri_block_schedule_rows, then
+  // block_schedule's key); the count of scheduled tiles.
+  int count = 0;
+  for (int t0 = 0; t0 < a.n_tiles; t0 += blockDim.x) {
+    const int t = t0 + threadIdx.x;
+    bool ov = false;
+    if (t < a.n_tiles) {
+      const float* bx = a.boxes + 6 * (size_t)t;
+      ov = true;
+      float dist2 = 0.0f;
+#pragma unroll
+      for (int ax = 0; ax < 3; ++ax) {
+        ov = ov && acc[ax] <= bx[2 * ax + 1] && acc[3 + ax] >= bx[2 * ax];
+        const float gap = tmax(tmax(bx[2 * ax] - acc[9 + ax],
+                                    acc[6 + ax] - bx[2 * ax + 1]), 0.0f);
+        dist2 = dist2 + gap * gap;
+      }
+      const float tlo = tmax(sqrtf(dist2) / tmax(dmax, kEpsDir), a.min_t);
+      keys[t] = ov ? tmin(tlo, kTloCap) : kTloPad;
+    }
+    count += __syncthreads_count(ov);
+  }
+
+  // Rank counting: tile t's place in the stable order by (key, id).
+  int32_t* srow = a.sched + blk * (a.n_tiles + 1);
+  float* brow = a.bounds + blk * (a.n_tiles + 1);
+  for (int t0 = 0; t0 < a.n_tiles; t0 += blockDim.x) {
+    const int t = t0 + threadIdx.x;
+    if (t >= a.n_tiles) continue;
+    const float k = keys[t];
+    int rank = 0;
+    for (int u = 0; u < a.n_tiles; ++u) {
+      const float ku = keys[u];
+      rank += (key_less(ku, k) || (u < t && key_equal(ku, k))) ? 1 : 0;
+    }
+    srow[1 + rank] = t;
+    brow[rank] = quantize_bound(k);
+  }
+  if (threadIdx.x == 0) {
+    srow[0] = count;
+    brow[a.n_tiles] = quantize_bound(kTloPad);
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The OR over the CTA of each lane's `bits` (one barrier); `slots` holds
+// blockDim.x / 32 words and alternates between two consecutive votes.
+__device__ __forceinline__ unsigned cta_or(unsigned bits, unsigned* slots) {
+  const unsigned w = __reduce_or_sync(0xffffffffu, bits);
+  if ((threadIdx.x & 31) == 0) slots[threadIdx.x >> 5] = w;
+  __syncthreads();
+  unsigned all = 0;
+  for (int k = 0; k < (int)(blockDim.x >> 5); ++k) all |= slots[k];
+  return all;
+}
+
+enum Vote : unsigned { V_TOUCH = 1, V_REACH = 2, V_NEXT = 4 };
+
+template <bool EARLY_EXIT, bool ANY_SKIP>
+__global__ void __launch_bounds__(kSweepThreads) tri_grid_kernel(const TriGridArgs a) {
+  extern __shared__ float4 geo[];          // two buffers of st * kGeomF4
+  __shared__ int w_tile[kWalk];
+  __shared__ float w_bound[kWalk];
+  __shared__ float w_box[kWalk * 6];
+  __shared__ unsigned votes[2][kSweepThreads / 32];
+  // kSub neighbouring threads share a lane: each sweeps every kSub-th row
+  // of a tile, and the lane's tile winner is folded over them.
+  const int sub = threadIdx.x % kSub;
+  const int lanes = blockDim.x / kSub;
+  const int per_block = (a.ray_block + lanes - 1) / lanes;
+  const long long blk = blockIdx.x / per_block;           // ray block
+  const int off = (blockIdx.x % per_block) * lanes + threadIdx.x / kSub;
+  const long long i = blk * a.ray_block + off;
+  const bool on = off < a.ray_block && i < a.n;
+  float o[3], d[3], cap;
+  load_ray(a, on ? i : 0, o, d, cap);
+  cap = on ? a.cap_eff[i] : 0.0f;
   const float inv[3] = {safe_inv(d[0]), safe_inv(d[1]), safe_inv(d[2])};
 
   const int32_t* sched = a.sched + blk * (a.n_tiles + 1);
-  const float* tlo = a.tlo + blk * (a.n_tiles + 1);
+  const float* bounds = a.bounds + blk * (a.n_tiles + 1);
   const int count = sched[0];
+  const int st = a.st;
+  const int tile_f4 = st * kGeomF4;
   float best_t = kNoHit;
   long long best_row = -1;
-  unsigned long long tiles = 0, pairs = 0;
+  unsigned tiles = 0, pairs = 0, touches = 0, walked = 0;
 
-  for (int j = 0; j < count; ++j) {
-    const int tile = sched[1 + j];
-    bool touch = on;
-    if (ANY_SKIP)
-      touch = on && any_touch(a.boxes + 6 * tile, o, inv, a.min_t,
-                              fminf(cap, best_t));
-    // Uniform over the CTA: every thread reaches each barrier below.
-    if (!ANY_SKIP || __syncthreads_or(touch)) {
-      const bool warp_on = __any_sync(0xffffffffu, touch);
-      const long long row0 = (long long)tile * a.st;
-      for (int r0 = 0; r0 < a.st; r0 += kTriTile) {
-        const int cnt = min(kTriTile, a.st - r0);
-        __syncthreads();  // the previous rows are consumed
-        stage_tris(a.attrs, kGridCols, row0 + r0, cnt, sh);
-        __syncthreads();
-        if (!(warp_on && on)) continue;
-        for (int r = 0; r < cnt; ++r) {
-          const float t = tri_pair_t(sh, r, o[0], o[1], o[2], d[0], d[1],
-                                     d[2], a.min_t);
-          if (t < best_t) {
-            best_t = t;
-            best_row = row0 + r0 + r;
-          }
+  auto prefetch = [&](int tile, int buf) {
+    const float4* src = a.geom + (size_t)tile * tile_f4;
+    float4* dst = geo + buf * tile_f4;
+    for (int q = threadIdx.x; q < tile_f4; q += blockDim.x) cp_async16(dst + q, src + q);
+    cp_async_commit();
+  };
+  if (count > 0) prefetch(sched[1], 0);
+
+  int j = 0;
+  bool stop = false;
+  for (int w0 = 0; w0 < count && !stop; w0 += kWalk) {
+    const int m = min(kWalk, count - w0);
+    __syncthreads();  // the previous window is consumed
+    for (int k = threadIdx.x; k < m; k += blockDim.x) {
+      const int tile = sched[1 + w0 + k];
+      w_tile[k] = tile;
+      w_bound[k] = bounds[w0 + k];
+      for (int c = 0; c < 6; ++c) w_box[6 * k + c] = a.qboxes[6 * tile + c];
+    }
+    __syncthreads();
+    for (int jj = 0; jj < m; ++jj, ++j) {
+      // One vote: this entry's any-touch test, the early exit against its
+      // bound (best t after the previous entry) and the next entry's
+      // prefetch test (a superset of its any-touch test after this entry:
+      // best t only shrinks).
+      const float t_hi = fminf(cap, best_t);
+      const bool has_next = j + 1 < count;
+      const int next = !has_next ? -1 : jj + 1 < m ? w_tile[jj + 1] : sched[2 + j];
+      unsigned bits = ANY_SKIP ? 0u : V_NEXT;
+      bool touch = on;
+      if (ANY_SKIP) {
+        touch = on && any_touch(&w_box[6 * jj], o, inv, a.min_t, t_hi);
+        if (on && has_next) {
+          const float* nb = jj + 1 < m ? &w_box[6 * (jj + 1)] : a.qboxes + 6 * next;
+          bits |= any_touch(nb, o, inv, a.min_t, t_hi) ? V_NEXT : 0u;
         }
       }
+      if (EARLY_EXIT && on && fminf(best_t, cap) >= w_bound[jj]) bits |= V_REACH;
+      if (touch) bits |= V_TOUCH;
+      unsigned all = V_TOUCH | V_REACH | V_NEXT;
+      if (ANY_SKIP || EARLY_EXIT)
+        all = cta_or(bits, votes[j & 1]);
+      else
+        __syncthreads();  // the buffer the next copy fills is consumed
+      if (EARLY_EXIT && j > 0 && !(all & V_REACH)) {
+        stop = true;
+        break;
+      }
+      walked += 1;
+      if (ANY_SKIP && on && sub == 0) touches += 1;
+      cp_async_wait_all();  // this entry's rows (and any unused copy) landed
+      if (has_next && (all & V_NEXT)) prefetch(next, (j + 1) & 1);
+      if (!(all & V_TOUCH)) continue;
+      __syncthreads();  // every thread's part of this entry's rows is visible
+      const bool warp_on = __any_sync(0xffffffffu, touch);
       tiles += 1;
-      if (warp_on && on) pairs += a.st;
-    }
-    if (EARLY_EXIT) {
-      const bool reach = on && fminf(best_t, cap) >= tlo[j + 1];
-      if (!__syncthreads_or(reach)) break;
+      if (!warp_on) continue;  // warp-uniform: every thread below shuffles
+      const float4* g = geo + (j & 1) * tile_f4;
+      float tile_t = kNoHit;
+      int tile_r = -1;
+      for (int r = sub; r < st; r += kSub) {
+        const float4 p = g[kGeomF4 * r], q = g[kGeomF4 * r + 1], s = g[kGeomF4 * r + 2];
+        const float t = tri_pair_geom(p.x, p.y, p.z, p.w, q.x, q.y, q.z, q.w, s.x,
+                                      o[0], o[1], o[2], d[0], d[1], d[2], a.min_t);
+        if (t < tile_t) {
+          tile_t = t;
+          tile_r = r;
+        }
+      }
+      // The tile's winner over the lane's threads: the nearest t, the
+      // lowest row on ties, as one thread sweeping the rows in order keeps.
+#pragma unroll
+      for (int m = 1; m < kSub; m <<= 1) {
+        const float ot = __shfl_xor_sync(0xffffffffu, tile_t, m);
+        const int orow = __shfl_xor_sync(0xffffffffu, tile_r, m);
+        if (ot < tile_t || (ot == tile_t && orow < tile_r)) {
+          tile_t = ot;
+          tile_r = orow;
+        }
+      }
+      if (tile_t < best_t) {
+        best_t = tile_t;
+        best_row = (long long)w_tile[jj] * st + tile_r;
+      }
+      if (on && sub == 0) pairs += st;
     }
   }
+  cp_async_wait_all();
 
   if (a.stats != nullptr) {
-    for (int s = 16; s > 0; s >>= 1)
+    for (int s = 16; s > 0; s >>= 1) {
       pairs += __shfl_down_sync(0xffffffffu, pairs, s);
-    if ((threadIdx.x & 31) == 0) atomicAdd(a.stats + 1, pairs);
-    if (threadIdx.x == 0) atomicAdd(a.stats, tiles);
+      touches += __shfl_down_sync(0xffffffffu, touches, s);
+    }
+    if ((threadIdx.x & 31) == 0) {
+      atomicAdd(a.stats + 1, (unsigned long long)pairs);
+      atomicAdd(a.stats + 2, (unsigned long long)touches);
+    }
+    if (threadIdx.x == 0) {
+      atomicAdd(a.stats, (unsigned long long)tiles);
+      atomicAdd(a.stats + 3, (unsigned long long)walked);
+    }
   }
-  if (!on) return;
+  if (!on || sub != 0) return;
   const HitRec h = tri_winner_record(a.attrs, kGridCols, best_t, best_row,
                                      o[0], o[1], o[2], d[0], d[1], d[2]);
-  write_record(h, i, n, a.out_f, a.out_i, a.out_hit);
+  write_record(h, i, a.n, a.out_f, a.out_i, a.out_hit);
+}
+
+// Dynamic shared memory above the default 48 KB needs the kernel's opt-in.
+template <typename K>
+static int allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)bytes);
+}
+
+extern "C" int wrt_tri_grid_schedule(const TriGridArgs* a) {
+  if (a->n <= 0) return 0;
+  const size_t smem = (size_t)a->n_tiles * sizeof(float);
+  if (int rc = allow_smem(tri_grid_schedule_kernel, smem)) return rc;
+  const int threads = a->ray_block < kThreads ? ((a->ray_block + 31) / 32) * 32
+                                              : kThreads;
+  tri_grid_schedule_kernel<<<(unsigned)a->nb, threads, smem,
+                             (cudaStream_t)a->stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+template <bool E, bool S>
+static int launch_sweep(const TriGridArgs* a) {
+  const int threads = a->ray_block * kSub < kSweepThreads
+                          ? ((a->ray_block * kSub + 31) / 32) * 32
+                          : kSweepThreads;
+  const int lanes = threads / kSub;
+  const long long per_block = (a->ray_block + lanes - 1) / lanes;
+  const size_t smem = (size_t)2 * a->st * kGeomF4 * sizeof(float4);
+  if (int rc = allow_smem(tri_grid_kernel<E, S>, smem)) return rc;
+  tri_grid_kernel<E, S><<<(unsigned)(a->nb * per_block), threads, smem,
+                          (cudaStream_t)a->stream>>>(*a);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int wrt_hit_tri_grid(const TriGridArgs* a, int early_exit,
                                 int any_skip) {
   if (a->n <= 0) return 0;
-  const int threads = a->ray_block < kThreads ? ((a->ray_block + 31) / 32) * 32
-                                              : kThreads;
-  const long long per_block = (a->ray_block + threads - 1) / threads;
-  const unsigned grid = (unsigned)((a->n / a->ray_block) * per_block);
-  cudaStream_t s = (cudaStream_t)a->stream;
-  if (early_exit && any_skip)
-    tri_grid_kernel<true, true><<<grid, threads, 0, s>>>(*a);
-  else if (early_exit)
-    tri_grid_kernel<true, false><<<grid, threads, 0, s>>>(*a);
-  else if (any_skip)
-    tri_grid_kernel<false, true><<<grid, threads, 0, s>>>(*a);
-  else
-    tri_grid_kernel<false, false><<<grid, threads, 0, s>>>(*a);
-  return (int)cudaGetLastError();
+  if (early_exit && any_skip) return launch_sweep<true, true>(a);
+  if (early_exit) return launch_sweep<true, false>(a);
+  if (any_skip) return launch_sweep<false, true>(a);
+  return launch_sweep<false, false>(a);
 }

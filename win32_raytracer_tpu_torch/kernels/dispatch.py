@@ -15,10 +15,11 @@ Pallas backend:
 * a plain sphere scene: kernel A (``kernels/hit.py``) under every
   ``hit_kernel`` (:func:`validate_hit_kernel`); under ``accel="grid"``,
   when ``accel.build_grid_accel`` qualifies it (built for the camera's
-  shutter window), the sphere grid, kernel A over the globals then kernel I
-  (``kernels/hit_grid.py``); "auto" never picks the sphere grid, as in the
-  reference.  Under "jnp" the grid runs its plain sweep (kernel I's plain
-  version); the reference raises there instead;
+  shutter window), the sphere grid, kernel I's schedule kernel (pass A over
+  the globals) then its sweep (``kernels/hit_grid.py``); "auto" never picks
+  the sphere grid, as in the reference.  Under "jnp" the grid runs its
+  plain sweep (kernel I's plain version); the reference raises there
+  instead;
 * a triangle mesh with at least ``tri_accel.build_tri_grid``'s
   ``min_tris`` (512) active triangles, under ``accel`` "auto" or "grid":
   the Morton-tile grid, kernel D (``kernels/tri_grid.py``);

@@ -2,9 +2,9 @@
 
 Replaces ``win32_raytracer_tpu/kernels/experimental/hit_grid.py``
 (``_grid_kernel`` :50, through ``hit_spheres_grid_pallas`` :160), the first
-sphere grid: pass A over the globals (the reference's v3 kernel; kernel G
-here), the footprint mask, pass B over the scheduled tiles and the
-(t, index) merge, on column rays.  ``kernels/hit_grid.hit_spheres_grid_cols``
+sphere grid: pass A over the globals (the reference's v3 kernel; here
+kernel I's schedule kernel), the footprint mask, pass B over the scheduled
+tiles and the (t, index) merge, on column rays.  ``kernels/hit_grid.hit_spheres_grid_cols``
 computes it (kernel I, ``csrc/hit_grid.cu``); ``ray_block`` sets the
 schedule's blocks, as in the reference.
 """

@@ -1,4 +1,4 @@
-"""Kernel I: the sphere grid's pass B and merge (``csrc/hit_grid.cu``).
+"""Kernel I: the sphere grid, two launches (``csrc/hit_grid.cu``).
 
 Replaces ``win32_raytracer_tpu/kernels/hit_grid_rows.py`` (``_grid_kernel_rows``
 :98, through ``hit_spheres_grid_rows`` :215), the persistent scheduler's hit
@@ -6,22 +6,21 @@ under ``accel="grid"`` on a plain sphere scene, with its rows instance
 (:func:`hit_spheres_grid_rows`); and
 ``win32_raytracer_tpu/kernels/experimental/hit_grid.py`` (``_grid_kernel``
 :50, through ``hit_spheres_grid_pallas`` :160) with its column instance
-(:func:`hit_spheres_grid_cols`).  Bound by the pair tests the block
-schedule leaves (27 f32 operations each); a CTA takes a slice of one ray
-block and stages each scheduled tile through shared memory (the source
-note in csrc/hit_grid.cu has the detail).
+(:func:`hit_spheres_grid_cols`).
 
-The prelude stays torch ops, as it was XLA around the reference's kernel:
-the rays padded to ``ray_block`` as the reference pads them, pass A over
-the globals (kernel A in rows, kernel G in columns; their records are
-written into the buffers kernel I then merges into), the footprint mask
-and the block schedule (accel.py).  The plain versions
-(accel.hit_spheres_grid_rows_plain, accel.hit_spheres_grid_plain) read the
-same mask, so kernel and plain agree exactly on a card.
+Each call is two launches.  The schedule kernel takes what was XLA around
+the reference's kernel: the rays padded to ``ray_block`` (the filler rays
+made in the kernel), pass A over the globals (kernel A's packed sweep, its
+record written into the buffers the sweep then merges into), the footprint
+mask and the block schedule.  The sweep kernel runs pass B over the
+scheduled tiles and merges.  Bound by the pair tests (24 f32 operations
+each): pass A's and those the schedule leaves.  The plain versions
+(accel.hit_spheres_grid_rows_plain, accel.hit_spheres_grid_plain) compute
+the same function; :func:`schedule_plain` is the schedule kernel's plain
+version (accel.py's mask and schedule on pass A's t).
 
-Both wrappers launch the kernel for CUDA tensors and run the plain version
-for tensors on the CPU; they raise for anything else.  Each kernel I launch
-comes with one launch of kernel A (or G) for pass A.
+Both wrappers launch the kernels for CUDA tensors and run the plain version
+for tensors on the CPU; they raise for anything else.
 """
 
 from __future__ import annotations
@@ -38,30 +37,40 @@ from ..accel import (
     pad_rays_cols, pad_rays_rows,
 )
 from ..config import MIN_HIT_T
-from ..ops.hit import HitRecord
+from ..ops.hit import ATTR_COLS, HitRecord, _sweep
 from ..ops.rows import HitRecordRows
 from . import _build
+from .hit import record_buffers, record_rows
+from .hit_cols import record_buffers_cols, record_cols
 
-LAUNCHES = 0  # kernel I launches by hit_spheres_grid_rows / _cols
+LAUNCHES = 0        # sweep kernel launches by hit_spheres_grid_rows / _cols
+SCHED_LAUNCHES = 0  # schedule kernel launches by the same
+# Lanes per CTA of the sweep kernel (csrc/hit_grid.cu kRays * kThreads).
+SWEEP_LANES_PER_CTA = 512
+# Rows of the globals table the schedule kernel stages at once (kBlock):
+# it stages them once per CTA and refuses more.
+MAX_GLOBALS = 256
 
 
 class GridArgs(ctypes.Structure):  # csrc/hit_grid.cu GridArgs
     _fields_ = [
         ("origin", ctypes.c_void_p), ("direction", ctypes.c_void_p),
-        ("time", ctypes.c_void_p), ("attrs", ctypes.c_void_p),
-        ("sched", ctypes.c_void_p), ("out_f", ctypes.c_void_p),
-        ("out_i", ctypes.c_void_p), ("out_hit", ctypes.c_void_p),
-        ("stats", ctypes.c_void_p), ("n", ctypes.c_longlong),
-        ("n_tiles", ctypes.c_int), ("st", ctypes.c_int),
-        ("ray_block", ctypes.c_int), ("min_t", ctypes.c_float),
-        ("stream", ctypes.c_void_p),
+        ("time", ctypes.c_void_p), ("glob", ctypes.c_void_p),
+        ("attrs", ctypes.c_void_p), ("boxes", ctypes.c_void_p),
+        ("y_slab", ctypes.c_void_p), ("sched", ctypes.c_void_p),
+        ("out_f", ctypes.c_void_p), ("out_i", ctypes.c_void_p),
+        ("out_hit", ctypes.c_void_p), ("stats", ctypes.c_void_p),
+        ("n", ctypes.c_longlong), ("nb", ctypes.c_longlong),
+        ("n_glob", ctypes.c_int), ("n_tiles", ctypes.c_int),
+        ("st", ctypes.c_int), ("ray_block", ctypes.c_int),
+        ("min_t", ctypes.c_float), ("stream", ctypes.c_void_p),
     ]
 
 
 class Prepared(NamedTuple):
-    """Kernel I's arguments and the tensors they point into (kept alive
-    with them): the padded rays, the schedule, and pass A's record, which
-    the kernel turns into the merged record of ``n`` lanes."""
+    """Both kernels' arguments and the tensors they point into (kept alive
+    with them): the schedule and the record of ``n`` lanes, pass A's after
+    :func:`schedule`, the merged one after :func:`launch`."""
     args: GridArgs
     cols: bool
     n: int
@@ -76,8 +85,13 @@ def _check(gscene: GridScene, origin, direction, time, stats, cols: bool):
     checks = [(origin, "origin", torch.float32, vec),
               (direction, "direction", torch.float32, vec),
               (time, "time", torch.float32, scal),
+              (gscene.glob_attrs, "glob_attrs", torch.float32,
+               (gscene.glob_attrs.shape[0], ATTR_COLS)),
               (gscene.tile_attrs, "tile_attrs", torch.float32,
-               (gscene.n_tiles * gscene.tile_rows, GRID_ATTR_COLS))]
+               (gscene.n_tiles * gscene.tile_rows, GRID_ATTR_COLS)),
+              (gscene.tile_boxes, "tile_boxes", torch.float32,
+               (gscene.n_tiles, 4)),
+              (gscene.y_slab, "y_slab", torch.float32, (2,))]
     if stats is not None:
         checks.append((stats, "stats", torch.int64, (2,)))
     for t, name, dt, shape in checks:
@@ -86,44 +100,78 @@ def _check(gscene: GridScene, origin, direction, time, stats, cols: bool):
 
 def prepare(gscene: GridScene, origin, direction, time, min_t: float,
             ray_block: int, cols: bool, stats=None) -> Prepared:
-    """The wrapper's prelude (padding, pass A, mask, schedule) for rays
-    already checked; :func:`launch` then runs kernel I on it (chip_smoke.py
-    times the two apart)."""
-    from . import hit as K
-    from . import hit_cols as G
-
-    glob = glob_table(gscene)
-    if cols:
-        o, d, tm = pad_rays_cols(origin, direction, time, ray_block)
-        rec = G.hit_spheres_cols(glob, o, d, tm, min_t=min_t)
-        mask = footprint_block_mask(gscene, o, d, rec.t, min_t, ray_block)
-        np_ = o.shape[0]
-    else:
-        o, d, tm = pad_rays_rows(origin, direction, time, ray_block)
-        check_schedule_size(o.shape[1] // ray_block, gscene.n_tiles)
-        rec = K.hit_spheres_rows(glob, o, d, tm, min_t=min_t)
-        mask = footprint_block_mask_rows(gscene, o, d, rec.t, min_t,
-                                         ray_block)
-        np_ = o.shape[1]
-    sched = block_schedule(mask)
-    # The record's t and idx views start its float and int buffers
-    # (kernels/hit.record_rows, kernels/hit_cols.record_cols).
+    """Output buffers and both kernels' arguments for rays already
+    checked: :func:`schedule` then :func:`launch` run the two kernels on
+    them (chip_smoke.py times the two apart)."""
+    n = origin.shape[0] if cols else origin.shape[1]
+    nb = -(-n // ray_block)
+    if not cols:
+        check_schedule_size(nb, gscene.n_tiles)
+    if gscene.glob_attrs.shape[0] > MAX_GLOBALS:
+        raise ValueError(f"hit_spheres_grid: {gscene.glob_attrs.shape[0]} "
+                         f"global rows > {MAX_GLOBALS} (raise "
+                         "global_radius_factor)")
+    dev = origin.device
+    sched = torch.empty((nb, 1 + gscene.n_tiles), dtype=torch.int32, device=dev)
+    bufs = record_buffers_cols(n, dev) if cols else record_buffers(n, dev)
+    rec = record_cols(*bufs) if cols else record_rows(*bufs)
+    out_f, out_i, hit = bufs
     args = GridArgs(
-        o.data_ptr(), d.data_ptr(), tm.data_ptr(),
-        gscene.tile_attrs.data_ptr(), sched.data_ptr(), rec.t.data_ptr(),
-        rec.idx.data_ptr(), rec.hit.data_ptr(),
-        None if stats is None else stats.data_ptr(), np_, gscene.n_tiles,
-        gscene.tile_rows, ray_block, float(min_t),
-        _build.stream_handle(o.device))
-    return Prepared(args, cols, np_, (o, d, tm), sched, rec)
+        origin.data_ptr(), direction.data_ptr(), time.data_ptr(),
+        gscene.glob_attrs.data_ptr(), gscene.tile_attrs.data_ptr(),
+        gscene.tile_boxes.data_ptr(), gscene.y_slab.data_ptr(),
+        sched.data_ptr(), out_f.data_ptr(), out_i.data_ptr(), hit.data_ptr(),
+        None if stats is None else stats.data_ptr(), n, nb,
+        gscene.glob_attrs.shape[0], gscene.n_tiles, gscene.tile_rows,
+        ray_block, float(min_t), _build.stream_handle(dev))
+    return Prepared(args, cols, n, (origin, direction, time), sched, rec)
+
+
+def schedule(p: Prepared) -> None:
+    """One launch of the schedule kernel: pass A's record and the block
+    schedule (not counted here: the wrappers count the launches of the
+    render path)."""
+    lib = _build.load()
+    _build.check(lib.wrt_hit_grid_schedule(ctypes.addressof(p.args),
+                                           int(p.cols)),
+                 "hit_spheres_grid schedule")
 
 
 def launch(p: Prepared) -> None:
-    """One launch of kernel I on prepared arguments (not counted here: the
-    wrappers count the launches of the render path)."""
+    """One launch of the sweep kernel on a scheduled :class:`Prepared`
+    (not counted here)."""
     lib = _build.load()
     _build.check(lib.wrt_hit_grid(ctypes.addressof(p.args), int(p.cols)),
                  "hit_spheres_grid")
+
+
+def schedule_plain(gscene: GridScene, origin, direction, time, min_t: float,
+                   ray_block: int, cols: bool):
+    """The schedule kernel's plain version: (pass A's t and original index
+    per padded lane, the [NB, 1 + T] schedule), by accel.py's padding,
+    sweep, mask and schedule."""
+    glob = glob_table(gscene)
+    if cols:
+        o, d, tm = pad_rays_cols(origin, direction, time, ray_block)
+        t_a, i_a = _sweep(glob, o, d, tm, min_t, glob.attrs.shape[0])
+        mask = footprint_block_mask(gscene, o, d, t_a, min_t, ray_block)
+    else:
+        o, d, tm = pad_rays_rows(origin, direction, time, ray_block)
+        check_schedule_size(o.shape[1] // ray_block, gscene.n_tiles)
+        t_a, i_a = _sweep(glob, o.T, d.T, tm[0], min_t, glob.attrs.shape[0])
+        mask = footprint_block_mask_rows(gscene, o, d, t_a[None], min_t,
+                                         ray_block)
+    return t_a, i_a, block_schedule(mask)
+
+
+def _run(p: Prepared) -> None:
+    """Both launches of one wrapper call, counted."""
+    global LAUNCHES, SCHED_LAUNCHES
+    if p.n:
+        schedule(p)
+        SCHED_LAUNCHES += 1
+        launch(p)
+        LAUNCHES += 1
 
 
 def hit_spheres_grid_rows(gscene: GridScene, origin: torch.Tensor,
@@ -133,9 +181,9 @@ def hit_spheres_grid_rows(gscene: GridScene, origin: torch.Tensor,
                           stats: Optional[torch.Tensor] = None
                           ) -> HitRecordRows:
     """Nearest front-face hit of rays o/d [3, N], time [1, N] through the
-    sphere grid.  ``stats``, an int64 [2] tensor on the card, gains the CTA
-    tiles staged and the pair tests computed."""
-    global LAUNCHES
+    sphere grid.  ``stats``, an int64 [2] tensor on the card, gains the
+    sweep's CTA tiles (scheduled tiles summed over its CTAs) and its pair
+    tests."""
     dev = origin.device
     if dev.type == "cpu":
         return hit_spheres_grid_rows_plain(gscene, origin, direction, time,
@@ -143,13 +191,10 @@ def hit_spheres_grid_rows(gscene: GridScene, origin: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"hit_spheres_grid_rows: unsupported device {dev}")
     _check(gscene, origin, direction, time, stats, cols=False)
-    n = origin.shape[1]
     p = prepare(gscene, origin, direction, time, min_t, ray_block, False,
                 stats)
-    if p.n:
-        launch(p)
-        LAUNCHES += 1
-    return p.rec if p.n == n else HitRecordRows(*(x[:, :n] for x in p.rec))
+    _run(p)
+    return p.rec
 
 
 def hit_spheres_grid_cols(gscene: GridScene, origin: torch.Tensor,
@@ -158,8 +203,7 @@ def hit_spheres_grid_cols(gscene: GridScene, origin: torch.Tensor,
                           ray_block: int = DEFAULT_RAY_BLOCK_GRID,
                           stats: Optional[torch.Tensor] = None) -> HitRecord:
     """:func:`hit_spheres_grid_rows` for rays o/d [N, 3], time [N] (the
-    column layout; pass A on kernel G)."""
-    global LAUNCHES
+    column layout)."""
     dev = origin.device
     if dev.type == "cpu":
         return hit_spheres_grid_plain(gscene, origin, direction, time,
@@ -167,10 +211,7 @@ def hit_spheres_grid_cols(gscene: GridScene, origin: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"hit_spheres_grid_cols: unsupported device {dev}")
     _check(gscene, origin, direction, time, stats, cols=True)
-    n = origin.shape[0]
     p = prepare(gscene, origin, direction, time, min_t, ray_block, True,
                 stats)
-    if p.n:
-        launch(p)
-        LAUNCHES += 1
-    return p.rec if p.n == n else HitRecord(*(x[:n] for x in p.rec))
+    _run(p)
+    return p.rec

@@ -48,15 +48,26 @@ _EPS = np.float32(1e-12)
 DEFAULT_TILE_ROWS = 128
 DEFAULT_TRI_GRID_RAY_BLOCK = 2048
 
+# Kernel D's tile boxes on a 1/1024 grid (tri_grid_rows' _TLO_SCALE,
+# _TLO_INV and _BX_CLIP): widening a box by a step only passes an extra
+# tile, never skips a reachable one.
+_TLO_SCALE = np.float32(1024.0)
+_TLO_INV = np.float32(1.0 / 1024.0)
+_BX_CLIP = np.float32(1.0e6)
+
 
 class TriGridScene(NamedTuple):
     """A TriangleScene plus its Morton-tiled acceleration arrays.  ``base``
-    is untouched, so the brute sweep keeps working on it."""
+    is untouched, so the brute sweep keeps working on it.  The last two
+    fields are kernel D's per-grid tables, derived from the others by
+    :func:`make_tri_grid` (build grids with it)."""
 
     base: TriangleScene
     tile_attrs: torch.Tensor  # [T * St, TRI_GRID_COLS], tile-major
     tile_boxes: torch.Tensor  # [T, 6] f32: x0, x1, y0, y1, z0, z1
     scene_box: torch.Tensor   # [6] f32 union of tile boxes
+    tile_geom: torch.Tensor   # [T * St, 12] f32: v0, e1, e2, three zeros
+    tile_qboxes: torch.Tensor  # [T, 6] f32: tile_boxes on the 1/1024 grid
 
     @property
     def padded_size(self) -> int:
@@ -79,15 +90,41 @@ class TriGridScene(NamedTuple):
                             *(x.to(device) for x in self[1:]))
 
 
+def quantized_boxes(tile_boxes: torch.Tensor) -> torch.Tensor:
+    """[T, 6] tile boxes widened onto the 1/1024 grid (floor - 1 step on
+    the low sides, ceil + 1 on the high ones), as kernel D reads them."""
+    b = torch.clamp(tile_boxes, -float(_BX_CLIP), float(_BX_CLIP)) * float(_TLO_SCALE)
+    q = torch.empty(b.shape, dtype=torch.int32, device=b.device)
+    q[:, 0::2] = torch.floor(b[:, 0::2]).to(torch.int32) - 1
+    q[:, 1::2] = torch.ceil(b[:, 1::2]).to(torch.int32) + 1
+    return (q.to(torch.float32) * float(_TLO_INV)).contiguous()
+
+
+def packed_geometry(tile_attrs: torch.Tensor) -> torch.Tensor:
+    """[T * St, 12] f32: each tile row's v0, e1, e2 and three zeros, the
+    three float4s kernel D stages per triangle."""
+    g = tile_attrs[:, _T_V0X:_T_V0X + 9]
+    return torch.cat([g, g.new_zeros((g.shape[0], 3))], dim=1).contiguous()
+
+
+def make_tri_grid(base: TriangleScene, tile_attrs: torch.Tensor,
+                  tile_boxes: torch.Tensor,
+                  scene_box: torch.Tensor) -> TriGridScene:
+    """A :class:`TriGridScene` with kernel D's tables made from its
+    arrays, once per grid."""
+    return TriGridScene(base, tile_attrs, tile_boxes, scene_box,
+                        packed_geometry(tile_attrs), quantized_boxes(tile_boxes))
+
+
 def tri_grid_from_numpy(src, device="cpu") -> TriGridScene:
     """Port grid from any object carrying the reference ``TriGridScene``'s
     fields as arrays (its ``tile_coeffs`` are not read)."""
     def f32(x):
         return torch.as_tensor(np.array(x), dtype=torch.float32,
                                device=device)
-    return TriGridScene(triangles_from_numpy(src.base, device),
-                        f32(src.tile_attrs), f32(src.tile_boxes),
-                        f32(src.scene_box))
+    return make_tri_grid(triangles_from_numpy(src.base, device),
+                         f32(src.tile_attrs), f32(src.tile_boxes),
+                         f32(src.scene_box))
 
 
 def _morton3(x: np.ndarray, y: np.ndarray, z: np.ndarray) -> np.ndarray:
@@ -199,7 +236,7 @@ def build_tri_grid(scene: TriangleScene, tile_rows: int = DEFAULT_TILE_ROWS,
                      boxes[:, 4].min(), boxes[:, 5].max()], np.float32)
 
     dev = scene.device
-    grid = TriGridScene(
+    grid = make_tri_grid(
         base=scene,
         tile_attrs=torch.from_numpy(attrs.reshape(n_t * st, TRI_GRID_COLS)).to(dev),
         tile_boxes=torch.from_numpy(boxes).to(dev),
