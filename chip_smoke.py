@@ -15,12 +15,14 @@ checks that each kernel of a path ran in it:
 * phase 6: kernel C (brute triangle sweep) against its plain version;
 * phase 7: kernel D (Morton-tile grid sweep: its schedule kernel, then the
   sweep) against its plain version and against kernel C, at BASELINE
-  config 4's chunk, the schedule kernel against the torch prelude;
+  config 4's chunk, the schedule kernel against the torch prelude; then on
+  a grid of 61,440 tiles (491,520 triangles in tiles of 8 rows);
 * phase 8: mesh and mesh20k renders, kernels against plain, then
   ``render("mesh")`` (kernels A and C) and config 4, ``render("mesh20k")``
   at 800x450, 50 spp (kernels A and D);
-* phase 9: kernels E (hit + sky) and F (scatter + respawn) against their
-  plain versions, and E then F against kernel B on the headline's chunk;
+* phase 9: kernels E (hit + sky; one and two lanes a thread) and F
+  (scatter + respawn) against their plain versions, and E then F against
+  kernel B on the headline's chunk;
 * phase 10: kernel B's k-bounce variant against four launches of kernel B
   and its plain version;
 * phase 11: the headline once per opt-in route (``fuse_bounce="off"``,
@@ -28,8 +30,9 @@ checks that each kernel of a path ran in it:
   ``multi_backend="fused"``), and config 4 with the pallas scatter;
 * phase 12: BASELINE config 5, an 8-frame flythrough of the final scene at
   640x480, 32 spp, through ``render_animation`` (kernel B on 8 cameras);
-* phase 13: kernels G (column sphere hit) and H (column triangle hit)
-  against their plain versions, on random rays and on the wavefront's own
+* phase 13: kernels G (column sphere hit; one and two rays a thread) and H
+  (column triangle hit) against their plain versions, on random rays and
+  on the wavefront's own
   first and second bounce rays of ``final`` (1200x800, 4 spp) and ``mesh``
   (800x450, 4 spp);
 * phase 14: the wavefront scheduler: small renders, kernels against plain;
@@ -41,17 +44,19 @@ checks that each kernel of a path ran in it:
   block schedule, then the sweep, pass B and the merge) against its plain
   grid sweep in rows and in columns, on random rays, a scene with inactive
   spheres and the headline's own bounce rays under ``accel="grid"``, and
-  against kernel A (brute); the experimental adapters (v1, v2 on kernel G,
-  v5 on kernel A) against their plain versions;
+  against kernel A (brute); grids of 257 and 1,000 globals (pass A over
+  several stages) and a small grid render of each against its plain
+  render; the experimental adapters (v1, v2 on kernel G, v5 on kernel A)
+  against their plain versions;
 * phase 16: the sphere grid through the entry points: small grid renders
   equal to their plain renders, the headline with ``accel="grid"``
   (kernel I's two launches on every bounce), and an explicit ``hit_fn`` on
   the persistent scheduler;
-* phase 17: kernels A and B timed alone at the headline's shapes, and the
-  grid wrappers (D at config 4's chunk, I at the grid headline's second
-  bounce), with the public entry points only, so that ``--root`` can
-  point it at another checkout of the package (an earlier commit, for a
-  side-by-side timing).
+* phase 17: kernels A, B and E timed alone at the headline's shapes, G at
+  the wavefront's, and the grid wrappers (D at config 4's chunk, I at the
+  grid headline's second bounce), with the public entry points only, so
+  that ``--root`` can point it at another checkout of the package (an
+  earlier commit, for a side-by-side timing).
 
 Phase 1 prints each sweep kernel's registers, spills and shared memory
 and, from ``cuobjdump -sass`` of the built library, the instruction mix
@@ -68,7 +73,7 @@ device.
     python3 chip_smoke.py --phases 0,1,13,14   # the wavefront slice
     python3 chip_smoke.py --phases 0,1,15,16   # the sphere grid slice
     python3 chip_smoke.py --phases 0,1,2,3,5,9,10,13,15   # the packed sweep
-    python3 chip_smoke.py --phases 0,1,17 --root out/parent  # A, B, D, I of a checkout
+    python3 chip_smoke.py --phases 0,1,17 --root out/parent  # A, B, D, E, G, I of a checkout
 
 Needs a CUDA card and nvcc.
 """
@@ -89,6 +94,8 @@ import torch
 
 HEADLINE = dict(width=1200, height=800, samples=100)
 RANDOM_RAYS = 1 << 18   # rays (lanes) of phases 2 and 3's random inputs
+MANY_TILE_RAYS = 1 << 16    # phase 7's rays on the grid of 61,440 tiles
+MANY_GLOBAL_RAYS = 1 << 18  # phase 15's rays on the grids of many globals
 HEADLINE_MEAN = 170.1   # the JAX renderer's u8 image mean for this scene and size
 HEADLINE_MEAN_TOL = 1.5
 CONFIG4 = dict(width=800, height=450, samples=50)   # BASELINE.json config 4
@@ -402,7 +409,8 @@ def demangle(name: str) -> str:
                              timeout=30).stdout.strip()
     except (OSError, subprocess.TimeoutExpired):
         out = ""
-    return out.split("(")[0] if out else name
+    # Drop the parameter list only: template arguments may hold "(".
+    return out[:out.rfind("(")] if "(" in out else (out or name)
 
 
 def sass_text(lib_path: str) -> str:
@@ -544,6 +552,35 @@ def fmt_cmp(c: dict) -> str:
     return (f"{c['lanes']} lanes, hits {c['hits']:.3f}, disagreements "
             f"{c['disagree']} (edge band), exact-t ties {c['ties']}, max "
             f"|err| t/point/normal {c['err']:.3e}")
+
+
+def many_globals_scene(n_big: int, dev, seed: int = 0):
+    """A scene whose sphere grid has ``n_big`` globals: the r=1000 ground
+    and n_big - 1 spheres of radius 0.7-1.2 over a 60 x 60 floor, among at
+    least 600 and twice as many small spheres of radius 0.2 on a jittered
+    lattice (the median radius, so every large sphere is above 3x it);
+    metal, glass and diffuse spheres (tests/test_torch_grid_sched.py's)."""
+    from win32_raytracer_tpu_torch.scene.spheres import SceneBuilder
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder()
+    b.add_lambertian((0.0, -1000.0, 0.0), 1000.0, (0.5, 0.5, 0.5))
+    for k in range(n_big - 1):
+        r = float(rng.uniform(0.7, 1.2))
+        c = (float(rng.uniform(-30, 30)), r, float(rng.uniform(-30, 30)))
+        if k % 3 == 0:
+            b.add_metal(c, r, (0.7, 0.6, 0.5), 0.1)
+        elif k % 3 == 1:
+            b.add_dielectric(c, r, 1.5)
+        else:
+            b.add_lambertian(c, r, tuple(rng.uniform(0.1, 0.9, 3)))
+    side = int(np.ceil(np.sqrt(max(600, 2 * n_big))))
+    step = 60.0 / side
+    for a in range(side):
+        for c in range(side):
+            b.add_lambertian((-30 + step * (a + rng.uniform(0.1, 0.9)), 0.2,
+                              -30 + step * (c + rng.uniform(0.1, 0.9))), 0.2,
+                             tuple(rng.uniform(0.1, 0.9, 3)))
+    return b.build(device=dev)
 
 
 class Smoke:
@@ -858,16 +895,18 @@ class Smoke:
 
     # ---- phase 17 ---------------------------------------------------------
     def ab_times(self):
-        """Kernels A and B alone at the headline's shapes, and the grid
-        wrappers at theirs, through the public wrappers with their default
-        launch forms only, so that the same code times an earlier checkout
-        of the package (--root): kernel B on the headline chunk's first
-        bounce, kernel A on 524,288, 262,144, 65,536, 32,768 and 8,192 of
-        its rays, each event-timed and from a CUDA graph; kernels D and I
-        (grid_times).  One JSON line."""
+        """Kernels A, B, E and G alone at their main paths' shapes, and the
+        grid wrappers at theirs, through the public wrappers with their
+        default launch forms only, so that the same code times an earlier
+        checkout of the package (--root): kernels B and E on the headline
+        chunk's first bounce, kernel A on 524,288, 262,144, 65,536, 32,768
+        and 8,192 of its rays, each event-timed and from a CUDA graph
+        (B and A); kernel G and its v1 adapter (wavefront_times); kernels D
+        and I (grid_times).  One JSON line."""
         from win32_raytracer_tpu_torch.config import RenderConfig
         from win32_raytracer_tpu_torch.kernels import bounce as B
         from win32_raytracer_tpu_torch.kernels import hit as K
+        from win32_raytracer_tpu_torch.kernels import hit_sky as E
         from win32_raytracer_tpu_torch.ops.hit import sphere_table
         from win32_raytracer_tpu_torch.scene.builders import get_scene
 
@@ -879,7 +918,8 @@ class Smoke:
 
         def bounce():
             return B.bounce(table, cam_rows, st, 12345, 1, dims, cfg=cfg, lean=True)
-        out = {"bounce_ms": cuda_ms(bounce, 20), "bounce_graph_ms": graph_ms(bounce, 10)}
+        out = {"bounce_ms": cuda_ms(bounce, 20), "bounce_graph_ms": graph_ms(bounce, 10),
+               "hit_sky_ms": cuda_ms(lambda: E.hit_sky(table, st, cfg=cfg), 20)}
         for size in (1 << 19, 1 << 18, 1 << 16, 1 << 15, 1 << 13):
             pick = torch.linspace(0, n_real - 1, size, device=self.dev).long()
             o, d, t = (x[:, pick].contiguous() for x in (st.origin, st.direction, st.time))
@@ -889,10 +929,35 @@ class Smoke:
             out[f"hit_ms_{size}"] = cuda_ms(hit, max(20, (1 << 22) // size))
             out[f"hit_graph_ms_{size}"] = graph_ms(hit, 20)
         del st
+        out.update(self.wavefront_times(table))
         out.update(self.grid_times())
         import win32_raytracer_tpu_torch as pkg
         print(json.dumps({"ab_times": out, "package": os.path.dirname(pkg.__file__),
                           "card": self.card}), flush=True)
+
+    def wavefront_times(self, table) -> dict:
+        """Kernel G (hit_spheres_cols, and the v1 adapter onto it) at the
+        wavefront's shape, ``final`` 1200x800@4's first-bounce rays
+        (3,840,000), and the adapter at 262,144 of them (phase 17)."""
+        from win32_raytracer_tpu_torch.config import RenderConfig
+        from win32_raytracer_tpu_torch.core.rng import fold_in, prng_key
+        from win32_raytracer_tpu_torch.kernels import hit_cols as G
+        from win32_raytracer_tpu_torch.kernels.experimental.hit_pallas_v1 import (
+            hit_spheres_pallas)
+        from win32_raytracer_tpu_torch.render import make_primary_rays
+        from win32_raytracer_tpu_torch.scene.camera import default_camera
+
+        cfg = RenderConfig(**WAVEFRONT)
+        w, h, spp = cfg.width, cfg.height, cfg.samples
+        st = make_primary_rays(default_camera(w, h, device=self.dev), 0,
+                               fold_in(fold_in(prng_key(0), 0), 1), cfg=cfg,
+                               width=w, height=h, spp=spp, rows=h)
+        o, d, t = st.origin, st.direction, st.time
+        pick = torch.linspace(0, o.shape[0] - 1, 1 << 18, device=self.dev).long()
+        o_s, d_s, t_s = (x[pick].contiguous() for x in (o, d, t))
+        return {"hit_cols_ms": cuda_ms(lambda: G.hit_spheres_cols(table, o, d, t), 20),
+                "hit_v1_ms_262144": cuda_ms(
+                    lambda: hit_spheres_pallas(table, o_s, d_s, t_s), 20)}
 
     def grid_times(self) -> dict:
         """The grid wrappers at their main-path shapes, event-timed through
@@ -941,6 +1006,10 @@ class Smoke:
         oc, dc, tc = o.T.contiguous(), d.T.contiguous(), t[0].contiguous()
         out["hit_grid_cols_ms"] = cuda_ms(
             lambda: hit_spheres_grid_pallas(gscene, oc, dc, tc), 20)
+        for key, args in (("hit_grid_sched_ms", (o, d, t, False)),
+                          ("hit_grid_cols_sched_ms", (oc, dc, tc, True))):
+            p = KI.prepare(gscene, *args[:3], cfg.min_hit_t, 2048, args[3])
+            out[key] = cuda_ms(lambda: KI.schedule(p), 20)
         return out
 
     # ---- phase 6 ----------------------------------------------------------
@@ -1012,7 +1081,8 @@ class Smoke:
         binned first bounce without t_cap; the binned second bounce with
         the sphere pass's t_cap; the second again with the early exit and
         the any-touch skip off; median tiles of 200 rows and ray blocks of
-        1,000 lanes, with the knobs on and off.  Every comparison must be exact (no disagreement, no
+        1,000 lanes, with the knobs on and off; then a grid of 61,440 tiles
+        (kernel_d_many_tiles).  Every comparison must be exact (no disagreement, no
         differing tie, max |err| 0), and the schedule kernel's sched,
         bounds and segment ends integer-equal to the torch prelude's.
         Times: both launches, each alone, and the prelude; bounds from the
@@ -1145,6 +1215,87 @@ class Smoke:
         self.schedule_d(odd, o2, d2, cap2, cfg.min_hit_t, 1000,
                         f"bounce 2, t_cap, median tiles of {odd.tile_rows} "
                         "rows, ray blocks of 1000")
+        del o1, d1, o2, d2, t2, cap2, zeros
+        self.kernel_d_many_tiles()
+
+    def kernel_d_many_tiles(self):
+        """Kernel D on a grid of more tiles than a CTA can rank in shared
+        memory: three icospheres (491,520 triangles) in Morton tiles of 8
+        rows, 61,440 tiles; 65,536 rays (MANY_TILE_RAYS) in blocks of 2,048, half camera
+        rays at the meshes, half bounce-like rays leaving their surfaces in
+        every direction (blocks that schedule most tiles, which the
+        schedule kernel orders by its radix sort).  The schedule kernel
+        integer-equal to the torch prelude, the sweep exact against the
+        plain sweep (0 lanes, 0 ties, max |err| 0), the schedule kernel
+        timed."""
+        from win32_raytracer_tpu_torch.kernels import tri_grid as KD
+        from win32_raytracer_tpu_torch.scene.triangles import (
+            build_triangle_scene, icosphere_mesh)
+        from win32_raytracer_tpu_torch.tri_accel import (
+            build_tri_grid, hit_triangles_grid_rows_plain)
+
+        dev = self.dev
+        parts = [icosphere_mesh((0.0, 1.5, 0.0), 1.5, subdivisions=7),
+                 icosphere_mesh((3.2, 0.8, 0.5), 0.8, subdivisions=6),
+                 icosphere_mesh((-3.0, 0.8, -0.5), 0.8, subdivisions=6)]
+        offs = np.cumsum([0] + [len(v) for v, _ in parts[:-1]])
+        scene = build_triangle_scene(np.concatenate([v for v, _ in parts]),
+                                     np.concatenate([f + k for (_, f), k in zip(parts, offs)]),
+                                     device=dev)
+        grid = build_tri_grid(scene, tile_rows=8)
+        tris = tri_arrays(scene)
+        check(grid.n_tiles > 60000, f"many-tile grid: {grid.n_tiles} tiles")
+        rng = np.random.default_rng(71)
+        n, rb = MANY_TILE_RAYS, 2048
+        h = n // 2
+        o = np.empty((3, n), np.float32)
+        d = np.empty((3, n), np.float32)
+        o[:, :h] = (np.array([[9.0], [3.0], [7.0]])
+                    + rng.normal(0, 0.05, (3, h)))
+        d[:, :h] = (rng.uniform([-4.0, 0.0, -1.5], [4.0, 3.0, 1.5], (h, 3)).T
+                    - o[:, :h])
+        # Bounce-like: points on the big sphere's surface, pushed out a
+        # little, in blocks of 2,048 around a few spots, any direction.
+        spots = rng.normal(0, 1, (n // rb // 2, 3))
+        spots /= np.linalg.norm(spots, axis=1, keepdims=True)
+        pts = np.repeat(spots, rb, axis=0) + rng.normal(0, 0.3, (n - h, 3))
+        pts /= np.linalg.norm(pts, axis=1, keepdims=True)
+        o[:, h:] = (np.array([0.0, 1.5, 0.0]) + 1.502 * pts).T
+        d[:, h:] = rng.normal(0, 1, (3, n - h))
+        o_t, d_t = (torch.as_tensor(x, device=dev).contiguous() for x in (o, d))
+        zeros = torch.zeros((1, n), device=dev)
+        min_t = 1e-3
+        stats = torch.zeros(4, dtype=torch.int64, device=dev)
+        rk = KD.hit_triangles_grid_rows(grid, o_t, d_t, zeros, stats=stats)
+        t0 = time.perf_counter()
+        rp = hit_triangles_grid_rows_plain(grid, o_t, d_t, zeros)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        c = compare_tri(rk, rp, o_t, d_t, tris, "kernel D, many tiles")
+        tiles, pairs, touches, walked = (int(x) for x in stats.cpu())
+        p = KD.prepare(grid, o_t, d_t, None, min_t, rb)
+        sched_ms = cuda_ms(lambda: KD.schedule(p), 10)
+        pre_ms = cuda_ms(lambda: KD.schedule_plain(grid, o_t, d_t, None, min_t, rb), 3)
+        full_ms = cuda_ms(lambda: KD.hit_triangles_grid_rows(grid, o_t, d_t, zeros), 5)
+        sched = KD.schedule_plain(grid, o_t, d_t, None, min_t, rb)[0]
+        counts = sched[:, 0]
+        self.say("7 many tiles", f"{scene.padded_size} triangles in {grid.n_tiles} "
+                 f"tiles of {grid.tile_rows} rows, {n} rays in {counts.numel()} "
+                 f"blocks of {rb} (scheduled tiles per block: min {int(counts.min())}, "
+                 f"max {int(counts.max())}, {int((counts > 256).sum())} blocks "
+                 f"ranked by the radix sort): kernel D vs plain: {fmt_cmp(c)}; "
+                 f"swept {tiles} CTA tiles, {pairs} pair tests, {touches} "
+                 f"any-touch tests, {walked} walk entries")
+        check(c["disagree"] == 0 and c["ties"] == 0 and c["err"] == 0.0,
+              f"kernel D many tiles: not exact against plain ({fmt_cmp(c)})")
+        check(int((counts > 256).sum()) > 0 and c["hits"] > 0.3,
+              "kernel D many tiles: no block took the radix sort")
+        self.schedule_d(grid, o_t, d_t, None, min_t, rb,
+                        f"many tiles ({grid.n_tiles})")
+        self.say("7 times", f"many tiles ({grid.n_tiles}) at {n} lanes: kernel D "
+                 f"{full_ms:.3f} ms, schedule kernel {sched_ms:.4f} ms, its torch "
+                 f"prelude {pre_ms:.3f} ms; the plain sweep {plain_s:.1f} s of "
+                 f"wall [{self.card}]")
 
     def schedule_d(self, grid, o, d, cap, min_t, rb, label):
         """Kernel D's schedule kernel integer-equal to its torch prelude:
@@ -1226,10 +1377,12 @@ class Smoke:
     def split_kernels(self):
         """Kernels E (hit + sky) and F (scatter + respawn) against their
         plain versions on random states (a fifth of the lanes dead, every
-        material hit; lean and not; F, and kernel B beside it, on one
-        camera and on three), then E followed by F against kernel B on the
-        headline's chunk of 3,932,160 lanes, where all three are timed.
-        Every comparison must be exact: 0 lanes differ, max |err| 0."""
+        material hit; E in each launch form, on the final table and its
+        tie, hole and shutter variants; lean and not; F, and kernel B
+        beside it, on one camera and on three), then E (each form) and E
+        followed by F against kernel B on the headline's chunk of 3,932,160
+        lanes, where all three are timed, E in each launch form.  Every
+        comparison must be exact: 0 lanes differ, max |err| 0."""
         from win32_raytracer_tpu_torch.animation import orbit_path
         from win32_raytracer_tpu_torch.config import RenderConfig
         from win32_raytracer_tpu_torch.kernels import bounce as B
@@ -1244,18 +1397,36 @@ class Smoke:
         n = 1 << 18
         st = random_state(dev, n, spp // kpp, seed=21)
         cfg = RenderConfig(width=w, height=h, samples=spp, lanes_per_pixel=kpp)
+        errs = {"hit_sky": 0.0, "scatter": 0.0}
+        # Kernel E in each launch form on the final table and on the
+        # variants the packed sweep must get exactly right (a quarter of
+        # the rays aimed at the tied rows), dead lanes swept too.
+        for kind, tab in variant_tables(table).items():
+            stk = st
+            if kind != "final":
+                d_k = st.direction.clone()
+                aim_at_ties(st.origin, d_k, tab, seed=22)
+                stk = st._replace(direction=d_k)
+            rp, sp = E.hit_sky_plain(tab, stk, cfg=cfg)
+            res = {}
+            for label, kw in HIT_FORMS:
+                rk, sk = E.hit_sky(tab, stk, cfg=cfg, **kw)
+                res[label] = exact_cmp(tuple(rk) + tuple(sk), tuple(rp) + tuple(sp))
+                errs["hit_sky"] = max(errs["hit_sky"], res[label][1])
+            live_hit = (rp.hit & stk.path_alive)[0]
+            dead_hit = int((rp.hit & ~stk.path_alive)[0].sum())
+            mats = torch.bincount(rp.mat_id[0][live_hit].long(), minlength=3).tolist()
+            self.say("9 kernel E", f"{n} random lanes vs the {kind} table "
+                     f"({int(stk.path_alive.sum())} live; live hits by material "
+                     f"lambertian/metal/dielectric {mats}, dead lanes that hit "
+                     f"{dead_hit}): record, radiance and alive vs plain: " + "; ".join(
+                         f"{k} {v[0]} lanes differ, max |err| {v[1]:.1e}"
+                         for k, v in res.items()))
+            for label, (d_e, err_e) in res.items():
+                check(d_e == 0 and err_e == 0.0,
+                      f"kernel E {label} on {kind}: {d_e} lanes, {err_e}")
+            check(min(mats) > 0 and dead_hit > 0, f"a material was not hit: {mats}")
         rk, sk = E.hit_sky(table, st, cfg=cfg)
-        rp, sp = E.hit_sky_plain(table, st, cfg=cfg)
-        d_e, err_e = exact_cmp(tuple(rk) + tuple(sk), tuple(rp) + tuple(sp))
-        live_hit = (rp.hit & st.path_alive)[0]
-        mats = torch.bincount(rp.mat_id[0][live_hit].long(), minlength=3).tolist()
-        self.say("9 kernel E", f"{n} random lanes ({int(st.path_alive.sum())} "
-                 f"live; live hits by material lambertian/metal/dielectric "
-                 f"{mats}): record, radiance and alive vs plain: {d_e} lanes "
-                 f"differ, max |err| {err_e:.3e}")
-        check(d_e == 0 and err_e == 0.0, f"kernel E vs plain: {d_e} lanes, {err_e}")
-        check(min(mats) > 0, f"a material was not hit: {mats}")
-        errs = {"hit_sky": err_e, "scatter": 0.0}
 
         cams = {"1 camera": B.pack_camera(default_camera(w, h, device=dev)),
                 "3 cameras": B.pack_cameras(orbit_path(n_frames=3, aspect_ratio=w / h,
@@ -1292,8 +1463,13 @@ class Smoke:
         n = st.pixel.shape[1]
         state = st
         for step in (1, 2):
-            rk, sk = E.hit_sky(table, state, cfg=cfg)
             rp, sp = E.hit_sky_plain(table, state, cfg=cfg)
+            for label, kw in HIT_FORMS[1:]:
+                rk, sk = E.hit_sky(table, state, cfg=cfg, **kw)
+                d_e, err_e = exact_cmp(tuple(rk) + tuple(sk), tuple(rp) + tuple(sp))
+                check(d_e == 0 and err_e == 0.0,
+                      f"kernel E {label} (headline bounce {step}): {d_e} lanes, {err_e}")
+            rk, sk = E.hit_sky(table, state, cfg=cfg)
             fk = F.scatter_respawn(cam_rows, sk, rk, 12345, step, dims, cfg=cfg,
                                    lean=True)
             fp = F.scatter_respawn_plain(cam_rows, sk, rk, 12345, step, dims,
@@ -1327,6 +1503,8 @@ class Smoke:
         }
         b_ms = cuda_ms(lambda: B.bounce(table, cam_rows, st, 12345, 1, dims,
                                         cfg=cfg, lean=True), 10)
+        forms = {label: cuda_ms(lambda: E.hit_sky(table, st, cfg=cfg, **kw), 10)
+                 for label, kw in HIT_FORMS[1:]}
         # Bounds on these inputs: E sweeps every active sphere for every
         # lane (53 bytes in, the record, radiance and alive out: 70); F
         # reads 61 bytes of state per lane and the 48-byte record of the
@@ -1349,7 +1527,9 @@ class Smoke:
                  f"(plain {times['scatter'][1]:.3f}, bound "
                  f"{bounds['scatter'][0]:.4f} {bounds['scatter'][1]}); E + F "
                  f"{times['hit_sky'][0] + times['scatter'][0]:.3f} ms vs kernel B "
-                 f"{b_ms:.3f} ms on the same bounce [{self.card}]")
+                 f"{b_ms:.3f} ms on the same bounce; kernel E by launch form: "
+                 + ", ".join(f"{k} {v:.3f} ms" for k, v in forms.items())
+                 + f" [{self.card}]")
 
     # ---- phase 10 ---------------------------------------------------------
     def kernel_b_multi(self):
@@ -1591,12 +1771,14 @@ class Smoke:
     # ---- phase 13 ---------------------------------------------------------
     def wavefront_kernels(self):
         """Kernels G and H against their plain versions (ops/hit.hit_spheres,
-        ops/hit_tri.hit_triangles) on 262,144 random rays, then on the
+        ops/hit_tri.hit_triangles) on 262,144 random rays (G on the final
+        table and its tie, hole and shutter variants), then on the
         wavefront's own first and second bounce rays: ``final`` at
         1200x800, 4 spp (one chunk of 3,840,000 lanes; kernel G) and
         ``mesh`` at 800x450, 4 spp (1,440,000 lanes; G on its spheres, H
-        on its triangles).  Every comparison must be exact: 0 lanes differ,
-        max |err| 0.  Each kernel is timed on its first-bounce rays."""
+        on its triangles).  Kernel G in each launch form.  Every comparison
+        must be exact: 0 lanes differ, max |err| 0.  Each kernel is timed
+        on its first-bounce rays, G in each launch form."""
         from win32_raytracer_tpu_torch.config import RenderConfig
         from win32_raytracer_tpu_torch.core.rng import fold_in, prng_key
         from win32_raytracer_tpu_torch.kernels import hit_cols as G
@@ -1614,16 +1796,22 @@ class Smoke:
         errs = {"hit_cols": 0.0, "tri_cols": 0.0}
 
         def hold(name, tab, o, d, t, what):
+            """The kernel against its plain version; kernel G in each
+            launch form."""
             kfn, pfn, letter = kernel[name]
-            rk, rp = kfn(tab, o, d, t), pfn(tab, o, d, t)
+            rp = pfn(tab, o, d, t)
+            forms = HIT_FORMS if name == "hit_cols" else HIT_FORMS[:1]
+            res = {label: exact_cmp(rows_of(kfn(tab, o, d, t, **kw)), rows_of(rp))
+                   for label, kw in forms}
             torch.cuda.synchronize()
-            lanes, err = exact_cmp(rows_of(rk), rows_of(rp))
             self.say(f"13 kernel {letter}", f"{what}: {o.shape[0]} rays, hits "
-                     f"{float(rp.hit.float().mean()):.3f}: {lanes} lanes differ "
-                     f"from plain, max |err| {err:.3e}")
-            check(lanes == 0 and err == 0.0,
-                  f"kernel {letter} {what}: {lanes} lanes differ, max |err| {err}")
-            errs[name] = max(errs[name], err)
+                     f"{float(rp.hit.float().mean()):.3f}: vs plain " + "; ".join(
+                         f"{k} {v[0]} lanes differ, max |err| {v[1]:.3e}"
+                         for k, v in res.items()))
+            for label, (lanes, err) in res.items():
+                check(lanes == 0 and err == 0.0, f"kernel {letter} {label} "
+                      f"{what}: {lanes} lanes differ, max |err| {err}")
+                errs[name] = max(errs[name], err)
 
         def cuda_t(x):
             return torch.as_tensor(np.asarray(x), dtype=torch.float32,
@@ -1635,8 +1823,12 @@ class Smoke:
         n = 1 << 18
         o = rng.uniform([-12, 0.01, -12], [12, 4, 12], (n, 3))
         o[: n // 3] = [15.0, 2.0, 4.0] + rng.normal(0, 0.3, (n // 3, 3))
-        hold("hit_cols", final, cuda_t(o), cuda_t(rng.normal(0, 1, (n, 3))),
-             cuda_t(rng.uniform(0, 0.05, n)), "random rays vs final")
+        o, d, t = cuda_t(o), cuda_t(rng.normal(0, 1, (n, 3))), cuda_t(rng.uniform(0, 0.05, n))
+        for kind, tab in variant_tables(final).items():
+            d_k = d.T.contiguous()
+            if kind != "final":
+                aim_at_ties(o.T, d_k, tab, seed=42)
+            hold("hit_cols", tab, o, d_k.T.contiguous(), t, f"random rays vs {kind}")
         o = rng.uniform([-3.0, 0.0, -2.0], [3.0, 3.0, 4.0], (n, 3))
         tgt = np.where(rng.uniform(size=(n, 1)) < 0.8,
                        [0.0, 1.0, 0.0] + rng.normal(0, 0.7, (n, 3)),
@@ -1666,6 +1858,9 @@ class Smoke:
                     args = (sub, st.origin, st.direction, st.time)
                     times[name] = (cuda_ms(lambda: kfn(*args), 10),
                                    cuda_ms(lambda: pfn(*args), 2))
+                    if name == "hit_cols":
+                        g_forms = {k: cuda_ms(lambda: kfn(*args, **kw), 10)
+                                   for k, kw in HIT_FORMS[1:]}
                     rays = st.origin.shape[0]
                     st = bounce_step(tab, st, fold_in(key, 2), 0, cfg=cfg,
                                      hit_fn=plain_fn)
@@ -1678,10 +1873,13 @@ class Smoke:
                                 else (active * OPS_TRI_PAIR, 24))
             bounds[name] = bound(rays * ray_ops,
                                  rays * (per_ray + RECORD_BYTES) + table_bytes)
+            forms = ("; by launch form: " + ", ".join(
+                f"{k} {v:.3f} ms" for k, v in g_forms.items())
+                if name == "hit_cols" else "")
             self.say("13 times", f"kernel {kernel[name][2]} at {rays} rays x "
                      f"{active} {'spheres' if name == 'hit_cols' else 'triangles'}"
                      f": {times[name][0]:.3f} ms, plain {times[name][1]:.3f} ms, "
-                     f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}) "
+                     f"bound {bounds[name][0]:.4f} ms ({bounds[name][1]}){forms} "
                      f"[{self.card}]")
             del st
         for name in times:
@@ -1841,8 +2039,8 @@ class Smoke:
         kernel I against kernel A (the brute sweep), winner disagreements
         counted apart from exact-t ties; the schedule kernel's schedule and
         pass A equal to their plain version on every input, in both
-        layouts; the three experimental adapters against their plain
-        versions; times of both launches, each alone and the schedule's
+        layouts; grids of 257 and 1,000 globals (many_globals); the three
+        experimental adapters against their plain versions; times of both launches, each alone and the schedule's
         plain version, and bounds from the pair tests the sweep's stats
         count and pass A's."""
         from win32_raytracer_tpu_torch.accel import (
@@ -1989,10 +2187,14 @@ class Smoke:
                       for x in rays[2])
         full_c = cuda_ms(lambda: hit_spheres_grid_pallas(gscene, oc, dc, tc), 10)
         plain_c = cuda_ms(lambda: hit_spheres_grid_plain(gscene, oc, dc, tc), 1)
+        pc = KI.prepare(gscene, oc, dc, tc, cfg.min_hit_t, rb, True)
+        sched_c = cuda_ms(lambda: KI.schedule(pc), 20)
         self.say("15 times", f"column instance (hit_spheres_grid_pallas) on "
-                 f"headline bounce 2: {full_c:.3f} ms, both launches, plain "
-                 f"{plain_c:.3f} ms, bound {b[0]:.4f} ms "
-                 f"({b[1]}) [{self.card}]")
+                 f"headline bounce 2: {full_c:.3f} ms, both launches (schedule "
+                 f"kernel {sched_c:.4f} ms), plain {plain_c:.3f} ms, bound "
+                 f"{b[0]:.4f} ms ({b[1]}) [{self.card}]")
+
+        self.many_globals(hold)
 
         # The experimental adapters on one random batch each.
         m = 1 << 18
@@ -2027,6 +2229,56 @@ class Smoke:
                  "spheres: " + "; ".join(
             f"{k} {ms:.3f} ms (plain {pl:.3f})" for k, (ms, pl) in t_ad.items())
             + f"; bound {b[0]:.4f} ms ({b[1]}) [{self.card}]")
+
+    def many_globals(self, hold):
+        """Kernel I on grids of 257 and 1,000 globals (spheres above 3x the
+        median radius: pass A over two and four stages of 256 rows): rows
+        and columns exact against the plain grid sweep on 262,144 rays
+        over the scene (MANY_GLOBAL_RAYS), pass A and the schedule equal to their plain
+        version (``hold``); then a small accel="grid" render through the
+        entry point equal to its plain render, through both launches."""
+        from win32_raytracer_tpu_torch.accel import build_grid_accel
+        from win32_raytracer_tpu_torch.api import render
+        from win32_raytracer_tpu_torch.config import RenderConfig
+        from win32_raytracer_tpu_torch.kernels import hit_grid as KI
+        from win32_raytracer_tpu_torch.ops.hit import sphere_table
+
+        dev = self.dev
+        for n_big in (257, 1000):
+            scene = many_globals_scene(n_big, dev)
+            g = build_grid_accel(scene, time_hi=0.05)
+            n_glob = int((g.glob_attrs[:, 8] != 0).sum())
+            check(n_glob == n_big and g.glob_attrs.shape[0] > 256,
+                  f"many globals: {n_glob} globals in {g.glob_attrs.shape[0]} rows")
+            rng = np.random.default_rng(n_big)
+            n = MANY_GLOBAL_RAYS
+            h = n // 2
+            o = np.concatenate([
+                np.tile([40.0, 6.0, 40.0], (h, 1)) + rng.normal(0, 0.05, (h, 3)),
+                rng.uniform([-30, 0.05, -30], [30, 1.0, 30], (n - h, 3))])
+            d = np.concatenate([
+                rng.uniform([-30, 0, -30], [30, 1.5, 30], (h, 3)) - o[:h],
+                rng.normal(0, 0.55, (n - h, 3)) + [0.0, 0.6, 0.0]])
+            o_t, d_t = (torch.as_tensor(x.T, dtype=torch.float32, device=dev).contiguous()
+                        for x in (o, d))
+            t_t = torch.as_tensor(rng.uniform(0, 0.05, (1, n)), dtype=torch.float32,
+                                  device=dev)
+            label = f"{n_glob} globals ({g.glob_attrs.shape[0]} rows, {g.n_tiles} tiles)"
+            hold(g, sphere_table(scene), o_t, d_t, t_t, label)
+            ms = cuda_ms(lambda: KI.hit_spheres_grid_rows(g, o_t, d_t, t_t), 10)
+            self.say("15 times", f"{label} at {n} rays: kernel I {ms:.3f} ms, "
+                     f"both launches [{self.card}]")
+            cfg = RenderConfig(**ROUTE_SMALL, accel="grid")
+            reset_launches()
+            rk = render(scene, cfg=cfg, device=dev)
+            got = launches()
+            rp = render(scene, cfg=cfg.replace(backend="jnp"), device=dev)
+            diff = float(np.abs(rk.image.astype(float) - rp.image.astype(float)).mean())
+            self.say("15 many globals", f"{label}: render {cfg.width}x{cfg.height}@"
+                     f"{cfg.samples} accel=grid vs plain mean |diff| {diff:.4f} "
+                     f"(must be 0), mean {rk.image.mean():.3f}, launches {got}")
+            check(diff == 0.0, f"{label}: grid render differs from plain")
+            check_route(got, GRID_ROUTE, (), f"grid render, {label}")
 
     def schedule_i(self, g, o, d, t, min_t, rb, cols, what):
         """Kernel I's schedule kernel integer-equal to its plain version:
@@ -2196,7 +2448,7 @@ HIT_FORMS = (("default", {}),
              ("R=2", dict(_rays=2)))
 
 # The kernels whose registers and sweep loops phase 1 prints: the packed
-# sweep's (A, B, B-multi), the old sweep's (E, G) and the grids' (D, I).
+# sweep's (A, B, B-multi, E, G) and the grids' (D, I).
 SWEEP_KERNELS = ("hit_kernel", "bounce_kernel", "bounce_multi_kernel",
                  "hit_sky_kernel", "hit_cols_kernel", "tri_grid_kernel",
                  "hit_grid_kernel", "tri_grid_schedule_kernel",
@@ -2239,8 +2491,8 @@ def main() -> int:
                     help="comma-separated phases to run (0 always runs)")
     ap.add_argument("--root", default=None,
                     help="import win32_raytracer_tpu_torch from this checkout "
-                         "(phase 17 times another commit's kernels A, B, D "
-                         "and I)")
+                         "(phase 17 times another commit's kernels A, B, D, "
+                         "E, G and I)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
     if args.root:

@@ -64,26 +64,59 @@ def test_package_imports_without_jax():
                    env=env, timeout=120)
 
 
+def _jax_imports(path):
+    """(path, module) for each import of jax or the JAX package in a
+    source file, nested imports included."""
+    found = []
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        mods = []
+        if isinstance(node, ast.Import):
+            mods = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods = [node.module or ""]
+        for m in mods:
+            top = m.split(".")[0]
+            if top in ("jax", "jaxlib", "win32_raytracer_tpu"):
+                found.append((path, m))
+    return found
+
+
 def test_no_jax_import_in_package_sources():
     found = []
     for root, _, files in os.walk(PKG):
         for name in files:
-            if not name.endswith(".py"):
-                continue
-            path = os.path.join(root, name)
-            with open(path) as f:
-                tree = ast.parse(f.read(), path)
-            for node in ast.walk(tree):
-                mods = []
-                if isinstance(node, ast.Import):
-                    mods = [a.name for a in node.names]
-                elif isinstance(node, ast.ImportFrom) and node.level == 0:
-                    mods = [node.module or ""]
-                for m in mods:
-                    top = m.split(".")[0]
-                    if top in ("jax", "jaxlib", "win32_raytracer_tpu"):
-                        found.append((path, m))
+            if name.endswith(".py"):
+                found += _jax_imports(os.path.join(root, name))
     assert not found
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "profile_render.py"])
+def test_no_jax_import_in_card_scripts(script):
+    """The scripts that run the port on the card import neither jax nor
+    the JAX package, not even inside a function."""
+    assert not _jax_imports(os.path.join(REPO, script))
+
+
+def test_every_package_module_imports_without_jax():
+    """Every module of the package, imported in a fresh process, leaves no
+    jax and no module of the JAX package loaded."""
+    mods = []
+    for root, _, files in os.walk(PKG):
+        for name in sorted(files):
+            if name.endswith(".py"):
+                rel = os.path.relpath(os.path.join(root, name), REPO)[:-3]
+                mods.append(rel.replace(os.sep, ".").removesuffix(".__init__"))
+    assert len(mods) > 40
+    code = ("import importlib, sys\n"
+            f"for m in {sorted(mods)!r}: importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
+            "('jax.', 'win32_raytracer_tpu.')) or m == 'win32_raytracer_tpu']\n"
+            "assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO,
+                   env=env, timeout=120)
 
 
 @pytest.mark.parametrize("knob", [

@@ -8,13 +8,19 @@ and holds them against the unchanged plain code, exactly:
 * kernel D's schedule kernel (csrc/tri_grid.cu tri_grid_schedule_kernel):
   filler rays made in the kernel, the block extremes folded per thread,
   per warp and across warps with torch.minimum / torch.maximum semantics,
-  the stable order by (key, tile id) by rank counting, the count and the
-  bounds floored onto the 1/1024 grid, against kernels/tri_grid
-  .schedule_plain (tri_block_schedule_rows, block_schedule);
+  the stable order by (key, tile id): the scheduled tiles with a key
+  ranked among themselves (by counting up to a CTA's worth, else by a
+  stable LSD radix sort, 8 bits a pass, in chunks of a CTA and warps of
+  32), the unscheduled and the NaN-key tiles placed by prefix counts; the
+  count and the bounds floored onto the 1/1024 grid, against
+  kernels/tri_grid.schedule_plain (tri_block_schedule_rows,
+  block_schedule), and the ranking alone against block_schedule on up to
+  60,000 tiles;
 * kernel I's schedule kernel (csrc/hit_grid.cu hit_grid_schedule_kernel):
-  the footprint folded in the same order and the tile ids written by a
-  ballot and prefix sum, against accel.footprint_block_mask and
-  accel.block_schedule;
+  pass A over the globals 256 rows a stage, (t, row) carried between
+  stages, the footprint folded in the same order and the tile ids written
+  by a ballot and prefix sum, against ops/hit._sweep,
+  accel.footprint_block_mask and accel.block_schedule;
 * kernel I's sweep: the scheduled tiles' rows with r != 0 staged
   ascending, 256 candidate rows a stage, each stage swept as
   csrc/common.cuh sweep_packed_tile sweeps it (the mask of disc >= 0 per
@@ -35,6 +41,7 @@ from win32_raytracer_tpu_torch.kernels import hit_grid as KI
 from win32_raytracer_tpu_torch.kernels import tri_grid as KD
 from win32_raytracer_tpu_torch.ops.hit import F32_MAX, SphereTable, _sweep
 from win32_raytracer_tpu_torch.scene import builders as tb
+from win32_raytracer_tpu_torch.scene.spheres import SceneBuilder
 from win32_raytracer_tpu_torch.scene import triangles as ttri
 
 torch.set_num_threads(1)
@@ -181,24 +188,92 @@ def tri_schedule_model(grid, origin, direction, t_cap, min_t, rb):
     tlo = tmax(sqrt_rn(dist2) / tmax(dmax, EPS)[:, None], float(np.float32(min_t)))
     key = torch.where(ov, tmin(tlo, float(KD._TLO_CAP)), float(KD._TLO_PAD))
 
-    # Rank counting: (key, id) in torch's sort order, NaN last.
-    t = grid.n_tiles
-    ids = torch.arange(t)
-    ku, kt = key[:, None, :], key[:, :, None]
-    less = (ku < kt) | ((ku == ku) & (kt != kt))
-    equal = (ku == kt) | ((ku != ku) & (kt != kt))
-    rank = (less | (equal & (ids[None, None, :] < ids[None, :, None]))).sum(2)
+    sched, bounds = schedule_order_model(key)
+    return sched, bounds, cap_eff
+
+
+PAD = float(KD._TLO_PAD)
+DIGIT_BITS = 8
+
+
+def quant(k):
+    """block_schedule's bound: the key floored onto the 1/1024 grid."""
+    return (torch.floor(k * float(KD._TLO_SCALE)).to(torch.int32).to(torch.float32)
+            * float(KD._TLO_INV))
+
+
+def ordered_bits(k: torch.Tensor) -> torch.Tensor:
+    """csrc/tri_grid.cu ordered_bits: f32 bits (-0 as +0) in unsigned
+    order, as int64."""
+    u = (k + 0.0).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(u >> 31 == 1, u ^ 0xFFFFFFFF, u ^ 0x80000000)
+
+
+def radix_pass(k: torch.Tensor, ids: torch.Tensor, shift: int,
+               threads: int = THREADS):
+    """One pass of the kernel's stable LSD radix sort: each pair's place is
+    its digit's base (the exclusive scan of the digit counts), plus the
+    pairs of its digit in earlier chunks of ``threads``, in earlier warps
+    of its chunk and at lower lanes of its warp."""
+    m = len(k)
+    dig = (ordered_bits(k) >> shift) & 255
+    base = torch.cumsum(torch.bincount(dig, minlength=256), 0)
+    base = base - torch.bincount(dig, minlength=256)
+    c = -(-m // threads)
+    dpad = torch.full((c * threads,), 256, dtype=torch.int64)
+    dpad[:m] = dig
+    oh = (dpad[:, None] == torch.arange(256)).to(torch.int32).reshape(
+        c, threads // 32, 32, 256)
+    below = torch.cumsum(oh, 2) - oh                      # lower lanes
+    wtot = oh.sum(2)
+    warps_before = torch.cumsum(wtot, 1) - wtot           # earlier warps
+    ctot = wtot.sum(1)
+    chunks_before = torch.cumsum(ctot, 0) - ctot          # earlier chunks
+    e = torch.arange(m)
+    ci, wi, li = e // threads, e % threads // 32, e % 32
+    place = (base[dig] + chunks_before[ci, dig] + warps_before[ci, wi, dig]
+             + below[ci, wi, li, dig])
+    out_k, out_i = torch.empty_like(k), torch.empty_like(ids)
+    out_k[place], out_i[place] = k, ids
+    assert sorted(place.tolist()) == list(range(m))
+    return out_k, out_i
+
+
+def schedule_order_model(key: torch.Tensor, threads: int = THREADS):
+    """csrc/tri_grid.cu's order of each row of block keys [NB, T]: the
+    scheduled tiles with a key that is not NaN first, by (key, id) (rank
+    counting up to ``threads`` of them, else four radix passes), then the
+    unscheduled ones (_TLO_PAD) by id, then the NaN keys by id (their
+    places by prefix counts in id order) -> (sched [NB, 1+T], bounds
+    [NB, T+1]), block_schedule's layouts."""
+    nb, t = key.shape
     sched = torch.empty((nb, t + 1), dtype=torch.int32)
     bounds = torch.empty((nb, t + 1), dtype=torch.float32)
-    sched[:, 0] = ov.sum(1, dtype=torch.int32)
-    rows = torch.arange(nb)[:, None].expand(nb, t)
-    sched[rows, 1 + rank] = ids.to(torch.int32).expand(nb, t)
-
-    def quant(k):
-        return torch.floor(k * float(KD._TLO_SCALE)).to(torch.int32).to(f32) * float(KD._TLO_INV)
-    bounds[rows, rank] = quant(key)
-    bounds[:, t] = quant(torch.tensor(float(KD._TLO_PAD)))
-    return sched, bounds, cap_eff
+    for b in range(nb):
+        k = key[b]
+        pad = k == PAD
+        cls_s, cls_n = (k == k) & ~pad, k != k
+        ids_s = torch.nonzero(cls_s)[:, 0]
+        ks = k[ids_s]
+        n_s, n_pad = len(ids_s), int(pad.sum())
+        rest = torch.cat([torch.nonzero(pad)[:, 0], torch.nonzero(cls_n)[:, 0]])
+        sched[b, 1 + n_s:] = rest.to(torch.int32)
+        bounds[b, n_s:t] = quant(k[rest])
+        if n_s <= threads:
+            e = torch.arange(n_s)
+            rank = ((ks[None, :] < ks[:, None])
+                    | ((ks[None, :] == ks[:, None]) & (e[None, :] < e[:, None]))).sum(1)
+            sched[b, 1 + rank] = ids_s.to(torch.int32)
+            bounds[b, rank] = quant(ks)
+        else:
+            for p in range(32 // DIGIT_BITS):
+                ks, ids_s = radix_pass(ks, ids_s, DIGIT_BITS * p, threads)
+            sched[b, 1:1 + n_s] = ids_s.to(torch.int32)
+            bounds[b, :n_s] = quant(ks)
+        sched[b, 0] = n_s + int(cls_n.sum())
+        bounds[b, t] = quant(torch.tensor(PAD))
+        assert n_pad + int(cls_n.sum()) + n_s == t
+    return sched, bounds
 
 
 D_CASES = {
@@ -270,6 +345,62 @@ def test_tri_schedule_kernel_order_equals_block_schedule(case):
         assert ((p[:, 0] < p[:, 1]) & (p[:, 1] < p[:, 2])).all()
 
 
+def _order_keys(t: int, seed: int):
+    """(mask [6, T], tlo [6, T]) for block_schedule: a sparse row whose keys
+    take few values (ties); a row with NaN keys among its scheduled tiles;
+    a row with nothing scheduled (all _TLO_PAD); a row with every tile
+    scheduled and keys on the 1/1024 grid (many ties); the same with NaNs,
+    -0.0 and +0.0 keys and keys above _TLO_CAP; a row of distinct keys,
+    every tile scheduled."""
+    rng = np.random.default_rng(seed)
+    mask = np.zeros((6, t), np.int32)
+    tlo = np.zeros((6, t), np.float32)
+    mask[0] = rng.uniform(size=t) < 0.3
+    tlo[0] = rng.integers(0, 7, t) * 0.5
+    mask[1] = rng.uniform(size=t) < 0.6
+    tlo[1] = rng.uniform(0.001, 40.0, t)
+    tlo[1, rng.uniform(size=t) < 0.1] = np.nan
+    tlo[2] = rng.uniform(0.001, 40.0, t)
+    mask[3:] = 1
+    tlo[3] = np.floor(rng.uniform(0.0, 64.0, t) * 1024) / 1024
+    tlo[4] = rng.choice(np.array([0.0, -0.0, 3.25, 2e6, np.nan, 1e-3], np.float32), t)
+    tlo[5] = rng.permutation(t).astype(np.float32) * 0.37 + 0.001
+    return torch.as_tensor(mask), torch.as_tensor(tlo)
+
+
+@pytest.mark.parametrize("t", [1, 161, 4096, 60000])
+def test_tri_schedule_order_equals_block_schedule(t):
+    """Kernel D's ranking, few scheduled tiles by counting and many by the
+    radix sort, gives block_schedule's sched and bounds on up to 60,000
+    tiles: ties keep tile-id order, NaN keys come after the unscheduled
+    tiles, all-pad and all-scheduled rows included."""
+    mask, tlo = _order_keys(t, seed=t)
+    key = torch.where(mask > 0, torch.clamp_max(tlo, float(KD._TLO_CAP)), PAD)
+    got = schedule_order_model(key)
+    want = KD.block_schedule(mask, tlo)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(_bits(got[1]), _bits(want[1]))
+    assert (want[0][2, 0] == 0) and (want[0][3:, 0] == t).all()
+    if t > THREADS:
+        # The rows with every tile scheduled took the radix sort.
+        assert (want[0][3:, 0] > THREADS).all()
+
+
+@pytest.mark.parametrize("threads", [32, 96, 256])
+def test_radix_sort_is_stable_in_every_chunking(threads):
+    """The radix sort's places do not depend on the CTA's width (a
+    schedule kernel for ray blocks under 256 lanes runs fewer threads):
+    four passes give the stable (key, id) order at 32, 96 and 256."""
+    _, tlo = _order_keys(3000, seed=5)
+    k = torch.clamp_max(tlo[3], float(KD._TLO_CAP))
+    ids = torch.arange(3000)
+    ks, out = k, ids
+    for p in range(4):
+        ks, out = radix_pass(ks, out, 8 * p, threads)
+    assert torch.equal(out, torch.argsort(k, stable=True))
+    assert torch.equal(_bits(ks), _bits(k[out]))
+
+
 # ------------------------------------------------------------- kernel I --
 
 def _sphere_grid(kind):
@@ -317,8 +448,8 @@ def sphere_schedule_model(g, o, d, tm, min_t, rb, cols):
     ft = torch.zeros(np_)
     fo[:n], fd[:n], ft[:n] = o, d, tm
     glob = A.glob_table(g)
-    t_a, i_a = sweep_packed_model(glob.attrs, [torch.nonzero(glob.active)[:, 0]],
-                                  fo, fd, ft, min_t)
+    t_a, i_a = sweep_packed_model(glob.attrs, glob_stages(glob), fo, fd, ft,
+                                  min_t, chunk=GLOB_CHUNK)
     y_lo, y_hi = g.y_slab[0], g.y_slab[1]
     ox, oy, oz = fo.unbind(1)
     dx, dy, dz = fd.unbind(1)
@@ -373,10 +504,11 @@ def _disc(g, j, lj, ox, oy, oz, dx, dy, dz, a):
     return b, b * b - a * c
 
 
-def sweep_packed_model(attrs, stages, o, d, t, min_t):
+def sweep_packed_model(attrs, stages, o, d, t, min_t, chunk=CHUNK):
     """sweep_packed_rows over staged rows: ``stages`` lists, per stage,
     the table rows staged in order (the active candidates); each stage
-    swept by sweep_packed_tile -> (best t, table row, -1 where none)."""
+    swept by sweep_packed_tile in chunks of ``chunk`` rows, (t, row)
+    carried from stage to stage -> (best t, table row, -1 where none)."""
     ox, oy, oz = o.unbind(1)
     dx, dy, dz = d.unbind(1)
     a = dx * dx + dy * dy + dz * dz
@@ -393,10 +525,10 @@ def sweep_packed_model(attrs, stages, o, d, t, min_t):
         def lerp(j):
             return ((t - tv[0, 0]) * tv[0, 1] if uniform
                     else (t - tv[j, 0]) * tv[j, 1])
-        for j0 in range(0, len(rows), CHUNK):
-            chunk = range(j0, min(j0 + CHUNK, len(rows)))
-            bits = torch.stack([_disc(g, j, lerp(j), *ray)[1] >= 0.0 for j in chunk])
-            for k, j in enumerate(chunk):
+        for j0 in range(0, len(rows), chunk):
+            part = range(j0, min(j0 + chunk, len(rows)))
+            bits = torch.stack([_disc(g, j, lerp(j), *ray)[1] >= 0.0 for j in part])
+            for k, j in enumerate(part):
                 b, disc = _disc(g, j, lerp(j), *ray)
                 root = (-b - sqrt_rn(torch.clamp_min(disc, 0.0))) / a
                 win = bits[k] & (root > min_t) & (root < best_t)
@@ -405,23 +537,151 @@ def sweep_packed_model(attrs, stages, o, d, t, min_t):
     return best_t, best_i
 
 
-@pytest.mark.parametrize("n_glob", [264, 1024])
-def test_sphere_schedule_kernel_refuses_more_globals_than_one_stage(n_glob):
-    """The schedule kernel stages the globals once per CTA, one stage of
-    256 rows: the launch is refused above that, before any buffer is
-    made (the CPU path, the plain version, still serves such a grid)."""
-    _, g = _sphere_grid("final")
-    rows = g.glob_attrs.new_zeros((n_glob, g.glob_attrs.shape[1]))
-    rows[:g.glob_attrs.shape[0]] = g.glob_attrs
-    big = g._replace(glob_attrs=rows)
-    o, d, tm = _sphere_rays(512, 256, seed=3)
-    o, d, tm = o.T.contiguous(), d.T.contiguous(), tm[None]
-    with pytest.raises(ValueError, match="global rows > 256"):
-        KI.prepare(big, o, d, tm, 0.001, 256, False)
-    want = KI.hit_spheres_grid_rows(g, o, d, tm)
-    got = KI.hit_spheres_grid_rows(big, o, d, tm)
-    assert torch.equal(got.t, want.t) and torch.equal(got.idx, want.idx)
-    assert KI.MAX_GLOBALS == 256
+GLOB_CHUNK = 8      # rows per mask pass over the globals (pass A)
+
+
+def glob_stages(glob: SphereTable):
+    """Pass A's stages: the globals' rows with r != 0 among each STAGE
+    rows, ascending (one stage for at most STAGE rows)."""
+    rows = glob.attrs.shape[0]
+    return [torch.nonzero(glob.active[s0:s0 + STAGE])[:, 0] + s0
+            for s0 in range(0, max(rows, 1), STAGE)]
+
+
+def many_globals_scene(n_big: int, seed: int = 0):
+    """A scene whose grid has ``n_big`` globals: the r=1000 ground and
+    n_big - 1 spheres of radius 0.7-1.2 over a 60 x 60 floor, among at
+    least 600 and twice as many small spheres of radius 0.2 on a jittered
+    lattice (the median radius, so every large sphere is above 3x it);
+    materials mixed."""
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder()
+    b.add_lambertian((0.0, -1000.0, 0.0), 1000.0, (0.5, 0.5, 0.5))
+    for k in range(n_big - 1):
+        r = float(rng.uniform(0.7, 1.2))
+        c = (float(rng.uniform(-30, 30)), r, float(rng.uniform(-30, 30)))
+        if k % 3 == 0:
+            b.add_metal(c, r, (0.7, 0.6, 0.5), 0.1)
+        elif k % 3 == 1:
+            b.add_dielectric(c, r, 1.5)
+        else:
+            b.add_lambertian(c, r, tuple(rng.uniform(0.1, 0.9, 3)))
+    side = int(np.ceil(np.sqrt(max(600, 2 * n_big))))
+    step = 60.0 / side
+    for a in range(side):
+        for c in range(side):
+            b.add_lambertian((-30 + step * (a + rng.uniform(0.1, 0.9)), 0.2,
+                              -30 + step * (c + rng.uniform(0.1, 0.9))), 0.2,
+                             tuple(rng.uniform(0.1, 0.9, 3)))
+    return b.build()
+
+
+def _many_grid(n_big: int):
+    scene = many_globals_scene(n_big)
+    g = A.build_grid_accel(scene, time_hi=0.05)
+    assert int((g.glob_attrs[:, 8] != 0).sum()) == n_big
+    return scene, g
+
+
+def _wide_rays(n, seed):
+    """Column rays over the 60 x 60 floor: half from a camera above it,
+    half bounce-like from points near the floor; times [N]."""
+    rng = np.random.default_rng(seed)
+    h = n // 2
+    o1 = np.tile([40.0, 6.0, 40.0], (h, 1)) + rng.normal(0, 0.05, (h, 3))
+    d1 = rng.uniform([-30, 0, -30], [30, 1.5, 30], (h, 3)) - o1
+    m = n - h
+    o2 = rng.uniform([-30, 0.05, -30], [30, 1.0, 30], (m, 3))
+    d2 = rng.normal(0, 0.55, (m, 3)) + [0.0, 0.6, 0.0]
+    o, d = np.concatenate([o1, o2]), np.concatenate([d1, d2])
+    t = rng.uniform(0, 0.05, n)
+    return tuple(torch.as_tensor(x, dtype=torch.float32) for x in (o, d, t))
+
+
+def _with_rows(g, n_rows: int):
+    """The grid with its globals table cut or padded (r = 0 rows) to
+    n_rows; rows 300-307, where present, copy rows 1-8's geometry (each
+    keeping its own index), so they tie with rows of the first stage."""
+    glob = g.glob_attrs
+    rows = glob.new_zeros((n_rows, glob.shape[1]))
+    k = min(n_rows, glob.shape[0])
+    rows[:k] = glob[:k]
+    if n_rows > 307:
+        rows[300:308, :9] = rows[1:9, :9]
+        rows[300:308, 15] = torch.arange(5000, 5008, dtype=torch.float32)
+    return g._replace(glob_attrs=rows.contiguous())
+
+
+@pytest.mark.parametrize("n_rows", [257, 1024])
+def test_sphere_schedule_kernel_prepares_any_number_of_globals(n_rows, monkeypatch):
+    """The schedule kernel takes any globals table: prepare accepts 257 and
+    1,024 global rows and gives the kernel a carry buffer per padded lane
+    for pass A's (t, row) between stages; one stage needs none."""
+    monkeypatch.setattr(KI._build, "stream_handle", lambda dev: 0)
+    _, g = _many_grid(300)
+    big = _with_rows(g, n_rows)
+    o, d, tm = _wide_rays(3000, seed=1)
+    o, d, tm = o.T.contiguous(), d.T.contiguous(), tm[None].contiguous()
+    p = KI.prepare(big, o, d, tm, 0.001, 1024, False)
+    assert p.args.n_glob == n_rows and p.args.nb == 3
+    assert [c.shape for c in p.carry] == [(3 * 1024,), (3 * 1024,)]
+    assert p.args.carry_t == p.carry[0].data_ptr() and p.args.carry_i
+    one = KI.prepare(_sphere_grid("final")[1], o, d, tm, 0.001, 1024, False)
+    assert one.carry is None and one.args.carry_t is None
+    assert not hasattr(KI, "MAX_GLOBALS")
+
+
+@pytest.mark.parametrize("n_rows", [257, 1024])
+@pytest.mark.parametrize("layout", ["rows", "cols"])
+def test_staged_pass_a_equals_sweep(n_rows, layout):
+    """Pass A over STAGE rows a stage, (t, row) carried, stages ascending
+    with strict <: the schedule kernel's t and original index, and the
+    footprint schedule on them, equal its plain version (ops/hit._sweep
+    over the whole table) bit for bit, on padded lanes; rows 300-307 tie
+    rows 1-8 exactly and lose every tie."""
+    _, g = _many_grid(300)
+    big = _with_rows(g, n_rows)
+    rb = 512
+    o, d, tm = _wide_rays(1800, seed=n_rows)
+    n_ties = 200
+    tgt = big.glob_attrs[torch.as_tensor(np.random.default_rng(2).integers(1, 9, n_ties)), :3]
+    d[:n_ties] = tgt - o[:n_ties]
+    cols = layout == "cols"
+    t_a, i_a, sched = sphere_schedule_model(big, o, d, tm, 0.001, rb, cols)
+    args = (o, d, tm) if cols else (o.T.contiguous(), d.T.contiguous(), tm[None])
+    want_t, want_i, want = KI.schedule_plain(big, *args, 0.001, rb, cols)
+    assert len(glob_stages(A.glob_table(big))) == -(-n_rows // STAGE) > 1
+    assert torch.equal(_bits(t_a), _bits(want_t)) and torch.equal(i_a, want_i)
+    assert torch.equal(sched, want)
+    assert ((want_i >= 1) & (want_i < 9)).sum() > n_ties // 4
+    assert not ((want_i >= 300) & (want_i < 308)).any()
+    assert (want_i >= STAGE).any()       # later stages win lanes too
+
+
+@pytest.mark.parametrize("n_big", [257, 1000])
+def test_grid_with_many_globals_renders_on_the_plain_path(n_big):
+    """A scene with 257 and 1,000 globals (spheres above 3x the median
+    radius): the plain grid hit (the wrapper's CPU path) equals the brute
+    sweep's t and winners, and a small accel="grid" render through the
+    entry point equals the brute render."""
+    from win32_raytracer_tpu_torch.api import render
+    from win32_raytracer_tpu_torch.config import RenderConfig
+    from win32_raytracer_tpu_torch.ops.hit import hit_spheres
+
+    scene, g = _many_grid(n_big)
+    assert g.glob_attrs.shape[0] > STAGE
+    o, d, tm = _wide_rays(2048, seed=n_big)
+    rec = KI.hit_spheres_grid_cols(g, o, d, tm)
+    brute = hit_spheres(scene, o, d, tm)
+    assert torch.equal(_bits(rec.t), _bits(brute.t))
+    assert torch.equal(rec.idx, brute.idx) and torch.equal(rec.hit, brute.hit)
+    assert 0.5 < float(brute.hit.float().mean()) < 0.99
+    assert (brute.idx[brute.hit] < n_big).sum() > 100      # globals hit
+    cfg = RenderConfig(width=32, height=20, samples=1, seed=3,
+                       scheduler="persistent")
+    grid_img = render(scene, cfg=cfg.replace(accel="grid"), device="cpu").image
+    brute_img = render(scene, cfg=cfg, device="cpu").image
+    assert np.array_equal(grid_img, brute_img)
 
 
 def packed_stages(g, sched_row):

@@ -37,7 +37,6 @@ enum Material : int { LAMBERTIAN = 0, METAL = 1, DIELECTRIC = 2 };
 constexpr float kNoHit = 1e30f;                       // ops/hit.py F32_MAX
 constexpr float kTwoPi = 6.28318530717958647692f;     // f32(2 pi)
 constexpr int kBlock = 256;                           // lanes per block
-constexpr int kTile = 256;                            // spheres per smem tile
 
 // torch.minimum / torch.maximum: NaN if either operand is NaN (fminf and
 // fmaxf would drop it).  Exact in any order, so block reductions by these
@@ -51,98 +50,11 @@ __device__ __forceinline__ float tmax(float a, float b) {
 __device__ __forceinline__ float f32_inf() { return __int_as_float(0x7f800000); }
 
 // ---------------------------------------------------------------------------
-// Sphere sweep (ops/hit.py _sweep): nearest front-face root with t > min_t
-// over every active sphere, strict < so the first index keeps ties.
-// ---------------------------------------------------------------------------
-
-struct SphereTile {
-  float c1x[kTile], c1y[kTile], c1z[kTile];
-  float dcx[kTile], dcy[kTile], dcz[kTile];
-  float t1[kTile], invdt[kTile], r[kTile];
-  int act[kTile];
-};
-
-// The pair test of ops/hit.py _sweep against staged sphere j: calls
-// on_root(t) with the near root t where disc >= 0 and t > min_t.  Kernels
-// E and G share it.  The square root and the division stay under
-// the disc >= 0 branch, which most pairs do not take: a form returning
-// kNoHit on both paths read 7-8% slower in kernels A, B, E and G
-// (PERF.md, the sphere grid's findings).
-template <typename OnRoot>
-__device__ __forceinline__ void sphere_pair_t(const SphereTile& sh, int j,
-                                              float ox, float oy, float oz,
-                                              float dx, float dy, float dz,
-                                              float tm, float a, float min_t,
-                                              OnRoot&& on_root) {
-  const float lerp = (tm - sh.t1[j]) * sh.invdt[j];
-  const float cx = sh.c1x[j] + sh.dcx[j] * lerp;
-  const float cy = sh.c1y[j] + sh.dcy[j] * lerp;
-  const float cz = sh.c1z[j] + sh.dcz[j] * lerp;
-  const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
-  const float b = dx * ocx + dy * ocy + dz * ocz;
-  const float r = sh.r[j];
-  const float c = ocx * ocx + ocy * ocy + ocz * ocz - r * r;
-  const float disc = b * b - a * c;
-  if (disc >= 0.0f) {
-    const float t = (-b - sqrtf(disc)) / a;
-    if (t > min_t) on_root(t);
-  }
-}
-
-// Stage the geometry columns of rows [row0, row0 + cnt) of a [*, cols]
-// sphere attribute table into `sh`; every thread of the block takes part.
-__device__ __forceinline__ void stage_spheres(const float* __restrict__ attrs,
-                                              int cols, long long row0,
-                                              int cnt, SphereTile& sh) {
-  for (int j = threadIdx.x; j < cnt; j += blockDim.x) {
-    const float* row = attrs + (size_t)(row0 + j) * cols;
-    sh.c1x[j] = row[A_C1X];
-    sh.c1y[j] = row[A_C1Y];
-    sh.c1z[j] = row[A_C1Z];
-    sh.dcx[j] = row[A_DCX];
-    sh.dcy[j] = row[A_DCY];
-    sh.dcz[j] = row[A_DCZ];
-    sh.t1[j] = row[A_T1];
-    sh.invdt[j] = row[A_INVDT];
-    sh.r[j] = row[A_RADIUS];
-  }
-}
-
-// Every thread of the block must call this: it stages the sphere table
-// through shared memory tile by tile behind __syncthreads.  Threads with
-// `on` false help load and skip the arithmetic.  best_i is -1 on a miss.
-__device__ __forceinline__ void sweep_spheres(
-    const float* __restrict__ attrs, const uint8_t* __restrict__ active,
-    int n_spheres, SphereTile& sh, bool on,
-    float ox, float oy, float oz, float dx, float dy, float dz, float tm,
-    float a, float min_t, float& best_t, int& best_i) {
-  best_t = kNoHit;
-  best_i = -1;
-  for (int base = 0; base < n_spheres; base += kTile) {
-    const int cnt = min(kTile, n_spheres - base);
-    __syncthreads();  // the previous tile is consumed
-    stage_spheres(attrs, ATTR_COLS, base, cnt, sh);
-    for (int j = threadIdx.x; j < cnt; j += blockDim.x)
-      sh.act[j] = active[base + j];
-    __syncthreads();
-    if (!on) continue;
-    for (int j = 0; j < cnt; ++j) {
-      if (!sh.act[j]) continue;
-      sphere_pair_t(sh, j, ox, oy, oz, dx, dy, dz, tm, a, min_t,
-                    [&](float t) {
-                      if (t < best_t) {
-                        best_t = t;
-                        best_i = base + j;
-                      }
-                    });
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The packed sweep (kernels A and B, B-multi through B's bounce_lane, and
-// both of kernel I's launches): sphere_pair_t's arithmetic, op for op,
-// with fewer instructions around it.
+// The sphere sweep (ops/hit.py _sweep): the nearest front-face root with
+// t > min_t over every active sphere, strict < so the lowest row keeps
+// ties.  Every sphere kernel sweeps this way (kernels A, B and B-multi
+// through B's bounce_lane, E, G, and both of kernel I's launches): _sweep's
+// pair test, op for op, with few instructions around it.
 //  * Only active rows are staged, in candidate order (ascending; kernel I's
 //    sweep: its scheduled tiles ascending, then their rows), each carrying
 //    its table row: no per-pair active load and branch, no padding rows,
@@ -157,12 +69,11 @@ __device__ __forceinline__ void sweep_spheres(
 //  * Each chunk of 32 staged spheres (8 for kernel I's few globals) is
 //    swept twice: for the bits disc >= 0, with no branch, then for the
 //    roots of the set bits.
-//  * R rays per thread (kernel A two on a batch that fills the card, else
-//    one; B one; kernel I's sweep two), so each staged sphere serves R pair
-//    tests per load.
+//  * R rays per thread (kernels A, E and G two on a batch that fills the
+//    card, else one: kernels/hit.rays_per_thread; B one; kernel I's sweep
+//    two), so each staged sphere serves R pair tests per load.
 // A pair test is 23 f32 multiplies, adds and subtractions and a compare
-// (25 and a compare where the tile's (t1, invdt) differ).  E and G keep
-// sweep_spheres, whose pair test does 26 and a compare.
+// (25 and a compare where the tile's (t1, invdt) differ).
 // tests/test_torch_sweep_packed.py and tests/test_torch_grid_sched.py hold
 // these visiting orders, written in torch, against ops/hit.py _sweep and
 // accel._sweep_tiles bit for bit.
@@ -236,7 +147,7 @@ __device__ __forceinline__ int stage_packed_rows(const float* __restrict__ attrs
 }
 
 // b and the discriminant of ray r of `ry` against staged sphere j, whose
-// lerp (tm - t1) * invdt is `l`: sphere_pair_t's arithmetic up to disc.
+// lerp (tm - t1) * invdt is `l`: _sweep's pair test up to disc.
 template <int R>
 __device__ __forceinline__ float2 packed_disc(const PackedTile& sh, int j,
                                               const Rays<R>& ry, int r,
@@ -260,7 +171,7 @@ __device__ __forceinline__ float2 packed_disc(const PackedTile& sh, int j,
 // ascending order and forms those roots, recomputing b and disc by the
 // same operations.  Most pairs miss, so the hot pass issues no root, no
 // branch and no reconvergence, and the strict < over ascending rows keeps
-// sphere_pair_t's winner.
+// _sweep's winner.
 template <int R, bool UNIFORM, int CH = 32>
 __device__ __forceinline__ void sweep_packed_tile(const PackedTile& sh,
                                                   int cnt, const Rays<R>& ry,
@@ -340,7 +251,7 @@ __device__ __forceinline__ int sweep_packed_rows(const float* __restrict__ attrs
 }
 
 // sweep_packed_rows over the active rows of a [n_spheres, ATTR_COLS]
-// table, ascending (kernels A and B).
+// table, ascending (kernels A, B, E and G).
 template <int R>
 __device__ __forceinline__ void sweep_packed(const float* __restrict__ attrs,
                                              const uint8_t* __restrict__ active,
@@ -356,20 +267,38 @@ __device__ __forceinline__ void sweep_packed(const float* __restrict__ attrs,
                        sh, on, ry, min_t, best_t, best_i);
 }
 
-// Ray k of a rows-layout batch ([3, n] origin and direction, [n] time)
-// into slot r of `ry`.
-template <int R>
-__device__ __forceinline__ void load_ray_rows(const float* __restrict__ o,
-                                              const float* __restrict__ d,
-                                              const float* __restrict__ tm,
-                                              long long k, long long n, int r,
-                                              Rays<R>& ry) {
-  ry.ox[r] = o[k];
-  ry.oy[r] = o[n + k];
-  ry.oz[r] = o[2 * n + k];
-  ry.dx[r] = d[k];
-  ry.dy[r] = d[n + k];
-  ry.dz[r] = d[2 * n + k];
+// The layout of a batch of rays and of the record a hit kernel writes: ROWS
+// for the persistent scheduler (rays [3, n], the record by write_record;
+// kernels A, C and E), COLS for the wavefront scheduler (rays [n, 3], ray k
+// at p[3k..3k+2]; the record as out_f [n, 12] and out_i [n, 2] with the
+// fields of write_record in the same order; kernels G and H).
+enum class Layout { ROWS, COLS };
+
+template <Layout L>
+__device__ __forceinline__ void load3(const float* __restrict__ p, long long k,
+                                      long long n, float& x, float& y,
+                                      float& z) {
+  if (L == Layout::COLS) {
+    x = p[3 * k];
+    y = p[3 * k + 1];
+    z = p[3 * k + 2];
+  } else {
+    x = p[k];
+    y = p[n + k];
+    z = p[2 * n + k];
+  }
+}
+
+// Ray k of a batch of n (origin and direction in layout L, [n] time) into
+// slot r of `ry`.
+template <Layout L, int R>
+__device__ __forceinline__ void load_ray(const float* __restrict__ o,
+                                         const float* __restrict__ d,
+                                         const float* __restrict__ tm,
+                                         long long k, long long n, int r,
+                                         Rays<R>& ry) {
+  load3<L>(o, k, n, ry.ox[r], ry.oy[r], ry.oz[r]);
+  load3<L>(d, k, n, ry.dx[r], ry.dy[r], ry.dz[r]);
   ry.tm[r] = tm[k];
   ry.a[r] = ry.dx[r] * ry.dx[r] + ry.dy[r] * ry.dy[r] + ry.dz[r] * ry.dz[r];
 }
@@ -550,30 +479,9 @@ __device__ __forceinline__ void write_record(const HitRec& h, long long i,
 
 // ---------------------------------------------------------------------------
 // The brute hit kernels' bodies, templated on the layout of the rays they
-// read and the record they write: ROWS for the persistent scheduler (rays
-// [3, n], the record by write_record; kernels A and C), COLS for the
-// wavefront scheduler (rays [n, 3], thread k reading o[3k..3k+2]; the
-// record as out_f [n, 12] and out_i [n, 2] with the fields of
-// write_record in the same order; kernels G and H).  The sweep is the same
-// code in both.
+// read and the record they write (kernels A and G, C and H).  The sweep is
+// the same code in both layouts.
 // ---------------------------------------------------------------------------
-
-enum class Layout { ROWS, COLS };
-
-template <Layout L>
-__device__ __forceinline__ void load3(const float* __restrict__ p, long long k,
-                                      long long n, float& x, float& y,
-                                      float& z) {
-  if (L == Layout::COLS) {
-    x = p[3 * k];
-    y = p[3 * k + 1];
-    z = p[3 * k + 2];
-  } else {
-    x = p[k];
-    y = p[n + k];
-    z = p[2 * n + k];
-  }
-}
 
 template <Layout L>
 __device__ __forceinline__ void store_record(const HitRec& h, long long i,
@@ -608,28 +516,47 @@ struct HitArgs {
   void* stream;
 };
 
-// One thread per ray; the block stages the sphere table through `sh`.
-template <Layout L>
-__device__ __forceinline__ void hit_spheres_body(const HitArgs& a,
-                                                 SphereTile& sh) {
+// R rays per thread, rays blockIdx.x * kBlock * R + r * kBlock + threadIdx.x
+// (r < R); the block stages the active spheres through `sh`
+// (sweep_packed), then each ray's winner is read by index once.
+template <Layout L, int R>
+__device__ __forceinline__ void sphere_hit_body(const HitArgs& a, PackedTile& sh) {
   const long long n = a.n;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool on = i < n;
-  const long long k = on ? i : 0;  // idle threads still help stage tiles
-  float ox, oy, oz, dx, dy, dz;
-  load3<L>(a.origin, k, n, ox, oy, oz);
-  load3<L>(a.direction, k, n, dx, dy, dz);
-  const float tm = a.time[k];
-  const float aa = dx * dx + dy * dy + dz * dz;
+  const long long i0 = (long long)blockIdx.x * (kBlock * R) + threadIdx.x;
+  Rays<R> ry;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const long long i = i0 + (long long)r * kBlock;
+    load_ray<L, R>(a.origin, a.direction, a.time, i < n ? i : 0, n, r, ry);
+  }
+  float best_t[R];
+  int best_i[R];
+  sweep_packed<R>(a.attrs, a.active, a.n_spheres, sh, i0 < n, ry, a.min_t,
+                  best_t, best_i);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const long long i = i0 + (long long)r * kBlock;
+    if (i >= n) break;
+    const HitRec h = winner_record(a.attrs, best_t[r], best_i[r], ry.ox[r],
+                                   ry.oy[r], ry.oz[r], ry.dx[r], ry.dy[r],
+                                   ry.dz[r], ry.tm[r]);
+    store_record<L>(h, i, n, a.out_f, a.out_i, a.out_hit);
+  }
+}
 
-  float best_t;
-  int best_i;
-  sweep_spheres(a.attrs, a.active, a.n_spheres, sh, on, ox, oy, oz, dx, dy,
-                dz, tm, aa, a.min_t, best_t, best_i);
-  if (!on) return;
-  const HitRec h = winner_record(a.attrs, best_t, best_i, ox, oy, oz, dx, dy,
-                                 dz, tm);
-  store_record<L>(h, i, n, a.out_f, a.out_i, a.out_hit);
+// Launch kernel<R> with R = rays (1 or 2) rays per thread over a->n rays.
+template <typename Args, typename K1, typename K2>
+__host__ int launch_rays(const Args* a, int rays, K1 k1, K2 k2) {
+  if (a->n <= 0) return 0;
+  if (rays != 1 && rays != 2) return (int)cudaErrorInvalidValue;
+  cudaStream_t stream = (cudaStream_t)a->stream;
+  const long long per_block = (long long)kBlock * rays;
+  const unsigned grid = (unsigned)((a->n + per_block - 1) / per_block);
+  if (rays == 2)
+    k2<<<grid, kBlock, 0, stream>>>(*a);
+  else
+    k1<<<grid, kBlock, 0, stream>>>(*a);
+  return (int)cudaGetLastError();
 }
 
 struct TriArgs {

@@ -18,7 +18,8 @@
 // 0.26 ms at 524,288 rays where the old one took 0.44 (PERF.md section 6
 // has the measured times).
 //
-// Design (csrc/common.cuh sweep_packed): each block stages the table's
+// Design (csrc/common.cuh sphere_hit_body, shared with kernel G, and
+// sweep_packed): each block stages the table's
 // active rows, ascending, packed for 16-byte shared loads and with their
 // original rows, so a pair test issues two LDS.128 and no active test; the
 // lerp is formed once per ray and tile where the tile's (t1, invdt) agree;
@@ -33,45 +34,15 @@
 
 using namespace wrt;
 
-// Rays blockIdx.x * kBlock * R + r * kBlock + threadIdx.x, r < R.
 template <int R>
 __global__ void __launch_bounds__(kBlock) hit_kernel(const HitArgs a) {
   __shared__ PackedTile sh;
-  const long long n = a.n;
-  const long long i0 = (long long)blockIdx.x * (kBlock * R) + threadIdx.x;
-  Rays<R> ry;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const long long i = i0 + (long long)r * kBlock;
-    load_ray_rows(a.origin, a.direction, a.time, i < n ? i : 0, n, r, ry);
-  }
-  float best_t[R];
-  int best_i[R];
-  sweep_packed<R>(a.attrs, a.active, a.n_spheres, sh, i0 < n, ry, a.min_t,
-                  best_t, best_i);
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const long long i = i0 + (long long)r * kBlock;
-    if (i >= n) break;
-    const HitRec h = winner_record(a.attrs, best_t[r], best_i[r], ry.ox[r],
-                                   ry.oy[r], ry.oz[r], ry.dx[r], ry.dy[r],
-                                   ry.dz[r], ry.tm[r]);
-    write_record(h, i, n, a.out_f, a.out_i, a.out_hit);
-  }
+  sphere_hit_body<Layout::ROWS, R>(a, sh);
 }
 
 // rays: 1 or 2 rays per thread (kernels/hit.py rays_per_thread).
 extern "C" int wrt_hit_spheres(const HitArgs* a, int rays) {
-  if (a->n <= 0) return 0;
-  if (rays != 1 && rays != 2) return (int)cudaErrorInvalidValue;
-  cudaStream_t stream = (cudaStream_t)a->stream;
-  const long long per_block = (long long)kBlock * rays;
-  const unsigned grid = (unsigned)((a->n + per_block - 1) / per_block);
-  if (rays == 2)
-    hit_kernel<2><<<grid, kBlock, 0, stream>>>(*a);
-  else
-    hit_kernel<1><<<grid, kBlock, 0, stream>>>(*a);
-  return (int)cudaGetLastError();
+  return launch_rays(a, rays, hit_kernel<1>, hit_kernel<2>);
 }
 
 extern "C" const char* wrt_error_string(int code) {

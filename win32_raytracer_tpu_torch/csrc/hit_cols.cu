@@ -10,26 +10,29 @@
 // miss, as the plain ops/hit.py hit_spheres does; it agrees with that
 // plain sweep bit for bit (--fmad=false, IEEE sqrtf and division).
 //
-// What bounds it on an H100: the S pair tests per ray (26 f32 multiplies,
+// What bounds it on an H100: the S pair tests per ray (23 f32 multiplies,
 // adds and subtractions and a compare each; 488 active spheres for the
-// final scene), not memory (28 bytes in and 57 out per ray).  Design: kernel
-// A's body (csrc/common.cuh hit_spheres_body) with the COLS ray load and
-// record store: one thread per ray, the sphere table staged through shared
-// memory in tiles of kTile spheres and broadcast to the block's threads,
-// the winner's attributes read by index once, the record written as one
-// row of 12 floats and one of 2 ints per ray.
+// final scene), not memory (28 bytes in and 57 out per ray): 0.671 ms at
+// the wavefront's 3,840,000 rays over 67 TFLOP/s, twice that under
+// --fmad=false.  Design: kernel A's body (csrc/common.cuh sphere_hit_body)
+// with the COLS ray load and record store: the block stages the active
+// spheres packed (sweep_packed: a branch-free disc >= 0 mask pass per 32
+// spheres, then the roots of the set bits), a thread sweeps two rays on a
+// batch that gives every SM a block of 512, else one
+// (kernels/hit.rays_per_thread); the winner's attributes are read by index
+// once and the record written as one row of 12 floats and one of 2 ints
+// per ray.
 #include "common.cuh"
 
 using namespace wrt;
 
+template <int R>
 __global__ void __launch_bounds__(kBlock) hit_cols_kernel(const HitArgs a) {
-  __shared__ SphereTile sh;
-  hit_spheres_body<Layout::COLS>(a, sh);
+  __shared__ PackedTile sh;
+  sphere_hit_body<Layout::COLS, R>(a, sh);
 }
 
-extern "C" int wrt_hit_spheres_cols(const HitArgs* a) {
-  if (a->n <= 0) return 0;
-  const unsigned grid = (unsigned)((a->n + kBlock - 1) / kBlock);
-  hit_cols_kernel<<<grid, kBlock, 0, (cudaStream_t)a->stream>>>(*a);
-  return (int)cudaGetLastError();
+// rays: 1 or 2 rays per thread (kernels/hit.py rays_per_thread).
+extern "C" int wrt_hit_spheres_cols(const HitArgs* a, int rays) {
+  return launch_rays(a, rays, hit_cols_kernel<1>, hit_cols_kernel<2>);
 }

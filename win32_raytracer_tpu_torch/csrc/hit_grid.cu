@@ -17,10 +17,9 @@
 // winner is carried as (t, row) and its 17-column row read once at the end.
 //
 // The schedule kernel takes one ray block per CTA, looping over its lanes:
-// pass A by the packed sweep (the globals with r != 0 staged once, at
-// most kBlock of them, the arithmetic of kernel A), its record written
-// where kernel A writes it; each lane's footprint op for op as
-// accel._footprint_mask;
+// pass A by the packed sweep (the globals with r != 0, kBlock rows a
+// stage, the arithmetic of kernel A), its record written where kernel A
+// writes it; each lane's footprint op for op as accel._footprint_mask;
 // the block's min and max (exact in any order); then per tile the overlap,
 // and the scheduled ids written ascending by a ballot and prefix sum (the
 // unscheduled ones after them), the [NB, 1 + T] row block_schedule's
@@ -60,6 +59,8 @@ struct GridArgs {
   int32_t* out_i;          //   [12, n] / [2, n] (ROWS) or [n, 12] / [n, 2]
   uint8_t* out_hit;        // [n]
   unsigned long long* stats;  // [2]: CTA tiles, pair tests; or null
+  float* carry_t;          // [nb * ray_block]: pass A's t between stages,
+  int32_t* carry_i;        //   and its glob row; null for one stage
   long long n;             // lanes
   long long nb;            // ray blocks, ceil(n / ray_block)
   int n_glob;
@@ -94,24 +95,16 @@ __device__ __forceinline__ void load_lane(const GridArgs& a, long long i, int r,
 
 constexpr int kRays = 2;  // rays per sweep-kernel thread
 
-template <Layout L>
-__global__ void __launch_bounds__(kThreads)
-    hit_grid_schedule_kernel(const GridArgs a) {
-  __shared__ PackedTile sh;
-  __shared__ float red[kThreads / 32][4];
-  const long long blk = blockIdx.x;
+// One pass of pass A over the block's lanes against the `cnt` globals
+// staged in `sh`.  CARRY_IN: each lane starts from the (t, row) of the
+// earlier stages, else from no hit; LAST: the lane's record is written and
+// its footprint folded into fp, else its (t, row) is carried on.  Without
+// a barrier, so warps run ahead into the next lanes' loads.
+template <Layout L, bool CARRY_IN, bool LAST>
+__device__ __forceinline__ void pass_a_lanes(const GridArgs& a, long long blk,
+                                             const PackedTile& sh, int cnt,
+                                             bool uniform, float fp[4]) {
   const float y_lo = a.y_slab[0], y_hi = a.y_slab[1];
-  auto glob_row = [&](int k, int& row) {
-    row = k;
-    return a.glob[(size_t)k * ATTR_COLS + A_RADIUS] != 0.0f;
-  };
-  // Pass A's globals (a few large spheres; at most kBlock rows, the
-  // wrapper refuses more) staged once for all the block's lanes, so the
-  // lane loop below runs with no barrier.
-  bool uniform = false;
-  const int cnt = stage_packed_rows(a.glob, ATTR_COLS, a.n_glob, glob_row, sh, uniform);
-  // The block's footprint box: x min, x max, z min, z max.
-  float fp[4] = {f32_inf(), -f32_inf(), f32_inf(), -f32_inf()};
   for (int base = 0; base < a.ray_block; base += kThreads) {
     const int off = base + threadIdx.x;
     const bool on = off < a.ray_block;
@@ -121,11 +114,20 @@ __global__ void __launch_bounds__(kThreads)
     float best_t = kNoHit;
     int best_i = -1;
     if (!on) continue;
+    if (CARRY_IN) {
+      best_t = a.carry_t[i];
+      best_i = a.carry_i[i];
+    }
     if (cnt > 0) {  // chunks of 8: the globals are few
       if (uniform)
         sweep_packed_tile<1, true, 8>(sh, cnt, ry, a.min_t, &best_t, &best_i);
       else
         sweep_packed_tile<1, false, 8>(sh, cnt, ry, a.min_t, &best_t, &best_i);
+    }
+    if (!LAST) {
+      a.carry_t[i] = best_t;
+      a.carry_i[i] = best_i;
+      continue;
     }
     const float ox = ry.ox[0], oy = ry.oy[0], oz = ry.oz[0];
     const float dx = ry.dx[0], dy = ry.dy[0], dz = ry.dz[0];
@@ -147,6 +149,55 @@ __global__ void __launch_bounds__(kThreads)
     fp[1] = tmax(fp[1], empty ? -kBig : tmax(xa, xb));
     fp[2] = tmin(fp[2], empty ? kBig : tmin(za, zb));
     fp[3] = tmax(fp[3], empty ? -kBig : tmax(za, zb));
+  }
+}
+
+// STAGED: more than kBlock global rows.  Its own kernel, so that the
+// registers its carried passes need do not lower the occupancy of the
+// one-stage kernel (every built-in scene), whose lane loop is
+// latency-bound on the column layout's strided loads.
+template <Layout L, bool STAGED>
+__global__ void __launch_bounds__(kThreads)
+    hit_grid_schedule_kernel(const GridArgs a) {
+  __shared__ PackedTile sh;
+  __shared__ float red[kThreads / 32][4];
+  const long long blk = blockIdx.x;
+  // The block's footprint box: x min, x max, z min, z max.
+  float fp[4] = {f32_inf(), -f32_inf(), f32_inf(), -f32_inf()};
+  // Pass A's globals, kBlock rows a stage.  A grid of at most kBlock
+  // global rows (every built-in scene: final has 8) is one stage, staged
+  // once for all the block's lanes.  More rows take one more pass over
+  // the block's lanes per further stage, each lane's (t, row) carried
+  // between passes in the carry buffers (filler lanes too, which have no
+  // record); the stages run ascending with strict <, so the lowest row
+  // keeps ties, as _sweep over the whole table does, and the last pass
+  // writes the record and the footprint from the final winner.
+  if constexpr (!STAGED) {
+    auto glob_row = [&](int k, int& row) {
+      row = k;
+      return a.glob[(size_t)k * ATTR_COLS + A_RADIUS] != 0.0f;
+    };
+    bool uniform = false;
+    const int cnt = stage_packed_rows(a.glob, ATTR_COLS, a.n_glob, glob_row, sh, uniform);
+    pass_a_lanes<L, false, true>(a, blk, sh, cnt, uniform, fp);
+  } else {
+    const int n_stages = (a.n_glob + kBlock - 1) / kBlock;
+    for (int stage = 0; stage < n_stages; ++stage) {
+      const int row0 = stage * kBlock;
+      auto glob_row = [&](int k, int& row) {
+        row = row0 + k;
+        return a.glob[(size_t)row * ATTR_COLS + A_RADIUS] != 0.0f;
+      };
+      bool uniform = false;
+      const int cnt = stage_packed_rows(a.glob, ATTR_COLS, min(kBlock, a.n_glob - row0),
+                                        glob_row, sh, uniform);
+      if (stage == 0)
+        pass_a_lanes<L, false, false>(a, blk, sh, cnt, uniform, fp);
+      else if (stage < n_stages - 1)
+        pass_a_lanes<L, true, false>(a, blk, sh, cnt, uniform, fp);
+      else
+        pass_a_lanes<L, true, true>(a, blk, sh, cnt, uniform, fp);
+    }
   }
   for (int s = 16; s > 0; s >>= 1) {
     fp[0] = tmin(fp[0], __shfl_xor_sync(0xffffffffu, fp[0], s));
@@ -251,14 +302,22 @@ __global__ void __launch_bounds__(kThreads) hit_grid_kernel(const GridArgs a) {
   }
 }
 
+template <Layout L>
+static void launch_schedule(const GridArgs* a, unsigned grid, cudaStream_t s) {
+  if (a->n_glob > kBlock)
+    hit_grid_schedule_kernel<L, true><<<grid, kThreads, 0, s>>>(*a);
+  else
+    hit_grid_schedule_kernel<L, false><<<grid, kThreads, 0, s>>>(*a);
+}
+
 extern "C" int wrt_hit_grid_schedule(const GridArgs* a, int cols) {
   if (a->n <= 0) return 0;
   const unsigned grid = (unsigned)a->nb;
   cudaStream_t s = (cudaStream_t)a->stream;
   if (cols)
-    hit_grid_schedule_kernel<Layout::COLS><<<grid, kThreads, 0, s>>>(*a);
+    launch_schedule<Layout::COLS>(a, grid, s);
   else
-    hit_grid_schedule_kernel<Layout::ROWS><<<grid, kThreads, 0, s>>>(*a);
+    launch_schedule<Layout::ROWS>(a, grid, s);
   return (int)cudaGetLastError();
 }
 

@@ -9,13 +9,19 @@
 // then persistent._hit_core's sky term.  Followed by kernel F (scatter.cu)
 // it gives, bit for bit, what kernel B (bounce.cu) gives on the same state.
 //
-// What bounds it on an H100: the S pair tests per lane (27 f32 operations
-// each, as in hit.cu), against 53 bytes read and 70 written per lane.
-// Design: hit.cu's sweep (one thread per lane, sphere tiles staged through
-// shared memory), then the record is written in the layout kernel A writes
-// (csrc/common.cuh write_record) and the sky term is added in registers.
-// Every lane is swept, dead ones too, so the record matches the plain
-// sweep's everywhere; a dead lane's radiance and alive flag pass unchanged.
+// What bounds it on an H100: the S pair tests per lane (23 f32 multiplies,
+// adds and subtractions and a compare each, as in hit.cu: 0.687 ms at the
+// headline's 3,932,160 lanes over 67 TFLOP/s, twice that under
+// --fmad=false), against 53 bytes read and 70 written per lane.
+// Design: kernel A's packed sweep (csrc/common.cuh sweep_packed: the block
+// stages the active spheres packed, a branch-free disc >= 0 mask pass per
+// 32 spheres, then the roots of the set bits), two lanes a thread on a
+// batch that gives every SM a block of 512, else one
+// (kernels/hit.rays_per_thread); then the record is written in the layout
+// kernel A writes (csrc/common.cuh write_record) and the sky term is added
+// in registers.  Every lane is swept, dead ones too, so the record matches
+// the plain sweep's everywhere; a dead lane's radiance and alive flag pass
+// unchanged.
 #include "common.cuh"
 
 using namespace wrt;
@@ -40,42 +46,46 @@ struct HitSkyArgs {
   void* stream;
 };
 
+// R lanes per thread, lanes blockIdx.x * kBlock * R + r * kBlock +
+// threadIdx.x (r < R).
+template <int R>
 __global__ void __launch_bounds__(kBlock) hit_sky_kernel(const HitSkyArgs a) {
-  __shared__ SphereTile sh;
+  __shared__ PackedTile sh;
   const long long n = a.n;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool on = i < n;
-  const long long k = on ? i : 0;  // idle threads still help stage tiles
-  const float ox = a.origin[k], oy = a.origin[n + k], oz = a.origin[2 * n + k];
-  const float dx = a.direction[k], dy = a.direction[n + k],
-              dz = a.direction[2 * n + k];
-  const float tm = a.time[k];
-  const float aa = dx * dx + dy * dy + dz * dz;
-
-  float best_t;
-  int best_i;
-  sweep_spheres(a.attrs, a.active, a.n_spheres, sh, on, ox, oy, oz, dx, dy,
-                dz, tm, aa, a.min_t, best_t, best_i);
-  if (!on) return;
-
-  const HitRec h = winner_record(a.attrs, best_t, best_i, ox, oy, oz, dx, dy,
-                                 dz, tm);
-  write_record(h, i, n, a.out_f, a.out_i, a.out_hit);
-
-  float thr[3], rad[3];
-  for (int c = 0; c < 3; ++c) {
-    thr[c] = a.throughput[c * n + i];
-    rad[c] = a.radiance[c * n + i];
+  const long long i0 = (long long)blockIdx.x * (kBlock * R) + threadIdx.x;
+  Rays<R> ry;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const long long i = i0 + (long long)r * kBlock;
+    load_ray<Layout::ROWS, R>(a.origin, a.direction, a.time, i < n ? i : 0, n,
+                              r, ry);
   }
-  bool alive = a.alive[i] != 0;
-  hit_sky(h.hit, dx, dy, dz, thr, rad, alive);
-  for (int c = 0; c < 3; ++c) a.out_rad[c * n + i] = rad[c];
-  a.out_alive[i] = alive ? 1 : 0;
+  float best_t[R];
+  int best_i[R];
+  sweep_packed<R>(a.attrs, a.active, a.n_spheres, sh, i0 < n, ry, a.min_t,
+                  best_t, best_i);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const long long i = i0 + (long long)r * kBlock;
+    if (i >= n) break;
+    const HitRec h = winner_record(a.attrs, best_t[r], best_i[r], ry.ox[r],
+                                   ry.oy[r], ry.oz[r], ry.dx[r], ry.dy[r],
+                                   ry.dz[r], ry.tm[r]);
+    write_record(h, i, n, a.out_f, a.out_i, a.out_hit);
+
+    float thr[3], rad[3];
+    for (int c = 0; c < 3; ++c) {
+      thr[c] = a.throughput[c * n + i];
+      rad[c] = a.radiance[c * n + i];
+    }
+    bool alive = a.alive[i] != 0;
+    hit_sky(h.hit, ry.dx[r], ry.dy[r], ry.dz[r], thr, rad, alive);
+    for (int c = 0; c < 3; ++c) a.out_rad[c * n + i] = rad[c];
+    a.out_alive[i] = alive ? 1 : 0;
+  }
 }
 
-extern "C" int wrt_hit_sky(const HitSkyArgs* a) {
-  if (a->n <= 0) return 0;
-  const unsigned grid = (unsigned)((a->n + kBlock - 1) / kBlock);
-  hit_sky_kernel<<<grid, kBlock, 0, (cudaStream_t)a->stream>>>(*a);
-  return (int)cudaGetLastError();
+// rays: 1 or 2 lanes per thread (kernels/hit.py rays_per_thread).
+extern "C" int wrt_hit_sky(const HitSkyArgs* a, int rays) {
+  return launch_rays(a, rays, hit_sky_kernel<1>, hit_sky_kernel<2>);
 }

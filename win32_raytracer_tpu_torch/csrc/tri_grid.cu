@@ -25,10 +25,18 @@
 // cap_eff), the block's segment, origin and |d| extremes (exact in any
 // order), then per tile the overlap and entry bound tlo op for op as
 // tri_block_schedule_rows (IEEE sqrtf, true division), the key clamped to
-// _TLO_CAP (_TLO_PAD where the tile is not scheduled), the stable order by
-// (key, tile id) by rank counting in shared memory (torch.argsort(stable=
-// True), NaN last), the count and the bounds floored onto the 1/1024 grid:
-// kernels/tri_grid.block_schedule's sched and bounds, in its layouts.
+// _TLO_CAP (_TLO_PAD where the tile is not scheduled), the order of
+// torch.argsort(stable=True) on the keys, the count and the bounds floored
+// onto the 1/1024 grid: kernels/tri_grid.block_schedule's sched and
+// bounds, in its layouts.  That order is the scheduled tiles with a key
+// other than NaN by (key, tile id), then the unscheduled tiles (_TLO_PAD,
+// above every scheduled key) by id, then the scheduled tiles whose key is
+// NaN by id.  The last two classes take their places by a prefix count in
+// id order.  The first is ranked among itself: up to a CTA's worth of
+// tiles in shared memory by counting (each thread ranks one tile against
+// the others), more by a stable LSD radix sort of the key bits, 8 bits a
+// pass, through the block's schedule row and a scratch row of the same
+// size, O(T) a pass whatever T is.
 //
 // What bounds the sweep on an H100: the pair tests the schedule leaves (46
 // f32 multiplies, adds and a division plus 6 compares each) and the
@@ -84,6 +92,8 @@ struct TriGridArgs {
   int32_t* sched;         // [nb, 1 + n_tiles]: count, tile ids
   float* bounds;          // [nb, n_tiles + 1]: entry bounds, schedule order
   float* cap_eff;         // [n]: segment ends (the schedule kernel's)
+  uint32_t* sort_keys;    // [nb, n_tiles]: scratch: the keys by tile id, then
+  int32_t* sort_ids;      //   the radix sort's second buffer (with these ids)
   float* out_f;           // [12, n]
   int32_t* out_i;         // [2, n]
   uint8_t* out_hit;       // [n]
@@ -139,25 +149,118 @@ __device__ __forceinline__ void load_ray(const TriGridArgs& a, long long i,
   }
 }
 
-// torch's sort order: NaN above everything, NaNs equal.
-__device__ __forceinline__ bool key_less(float a, float b) {
-  return a < b || (a == a && b != b);
-}
-__device__ __forceinline__ bool key_equal(float a, float b) {
-  return a == b || (a != a && b != b);
-}
-
 // A bound key on the 1/1024 grid (block_schedule's floor, int32, f32).
 __device__ __forceinline__ float quantize_bound(float key) {
   return (float)(int)floorf(key * kTloScale) * kTloInv;
 }
 
 constexpr int kRed = 13;  // segment lo[3], hi[3], origin lo[3], hi[3], |d|^2 max
+constexpr int kDigits = 256;  // radix of the sort: 8 bits a pass, 4 passes
+
+// f32 bits in an order that unsigned compares keep: -0 taken as +0 (the
+// two compare equal), negatives below positives.
+__device__ __forceinline__ uint32_t ordered_bits(float key) {
+  const uint32_t u = __float_as_uint(key + 0.0f);
+  return u ^ ((u >> 31) ? 0xffffffffu : 0x80000000u);
+}
+
+// Exclusive prefix counts of three exclusive predicates over the CTA's
+// threads in thread order, and their totals (one barrier; `cnt` holds
+// 3 x blockDim.x / 32 ints, not read by another call until a barrier).
+__device__ __forceinline__ void cta_prefix3(const bool pred[3], int (*cnt)[kThreads / 32],
+                                            int pos[3], int total[3]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned ballot[3];
+  for (int c = 0; c < 3; ++c) {
+    ballot[c] = __ballot_sync(0xffffffffu, pred[c]);
+    if (lane == 0) cnt[c][warp] = __popc(ballot[c]);
+  }
+  __syncthreads();
+  for (int c = 0; c < 3; ++c) {
+    pos[c] = __popc(ballot[c] & ((1u << lane) - 1u));
+    total[c] = 0;
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
+      pos[c] += w < warp ? cnt[c][w] : 0;
+      total[c] += cnt[c][w];
+    }
+  }
+}
+
+// One pass of the stable LSD radix sort of `m` (key bits, tile id) pairs
+// from (src_k, src_i) into (dst_k, dst_i) by digit (ordered_bits >> shift)
+// & 255; `base` holds the digit's first place (the exclusive scan of this
+// pass's digit counts) on entry.  The pairs go a CTA's worth at a time:
+// each pair's place is its digit's base, the pairs of its digit in earlier
+// warps of the chunk, and those in its own warp at lower lanes
+// (__match_any_sync).  FINAL writes the schedule row: ids at dst_i and the
+// bounds, floored onto the 1/1024 grid, at dst_b.
+template <bool FINAL>
+__device__ __forceinline__ void radix_pass(const uint32_t* src_k, const int32_t* src_i,
+                                           uint32_t* dst_k, int32_t* dst_i, float* dst_b,
+                                           int m, int shift, int* base,
+                                           int (*wcnt)[kDigits]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  for (int c0 = 0; c0 < m; c0 += blockDim.x) {
+    const int e = c0 + threadIdx.x;
+    const bool valid = e < m;
+    const uint32_t k = valid ? src_k[e] : 0u;
+    const int32_t id = valid ? src_i[e] : 0;
+    const uint32_t dig = valid ? (ordered_bits(__uint_as_float(k)) >> shift) & 255u
+                               : (uint32_t)kDigits;
+    const unsigned peers = __match_any_sync(0xffffffffu, dig);
+    const int below = __popc(peers & ((1u << lane) - 1u));
+    for (int d = threadIdx.x; d < kDigits; d += blockDim.x)
+      for (int w = 0; w < warps; ++w) wcnt[w][d] = 0;
+    __syncthreads();
+    if (valid && below == 0) wcnt[warp][dig] = __popc(peers);
+    __syncthreads();
+    if (valid) {
+      int off = base[dig] + below;
+      for (int w = 0; w < warp; ++w) off += wcnt[w][dig];
+      dst_i[off] = id;
+      if (FINAL)
+        dst_b[off] = quantize_bound(__uint_as_float(k));
+      else
+        dst_k[off] = k;
+    }
+    __syncthreads();
+    for (int d = threadIdx.x; d < kDigits; d += blockDim.x)
+      for (int w = 0; w < warps; ++w) base[d] += wcnt[w][d];
+  }
+}
+
+// base[d] = the count of digits below d in `hist` (warp 0 alone; the CTA
+// must be ordered before and after by barriers).
+__device__ __forceinline__ void digit_bases(const int* hist, int* base) {
+  if (threadIdx.x >= 32) return;
+  constexpr int per = kDigits / 32;
+  int v[per], sum = 0;
+  for (int j = 0; j < per; ++j) {
+    v[j] = hist[threadIdx.x * per + j];
+    sum += v[j];
+  }
+  int incl = sum;
+  for (int s = 1; s < 32; s <<= 1) {
+    const int o = __shfl_up_sync(0xffffffffu, incl, s);
+    if (threadIdx.x >= s) incl += o;
+  }
+  int run = incl - sum;
+  for (int j = 0; j < per; ++j) {
+    base[threadIdx.x * per + j] = run;
+    run += v[j];
+  }
+}
 
 __global__ void __launch_bounds__(kThreads)
     tri_grid_schedule_kernel(const TriGridArgs a) {
-  extern __shared__ float keys[];  // [n_tiles]
   __shared__ float red[kThreads / 32][kRed];
+  __shared__ int cls_cnt[3][kThreads / 32];
+  __shared__ float s_key[kThreads];          // few scheduled tiles: by count
+  __shared__ int s_id[kThreads];
+  __shared__ int hist[4][kDigits];           // many: the radix sort's digits
+  __shared__ int base[kDigits];
+  __shared__ int wcnt[kThreads / 32][kDigits];
   const long long blk = blockIdx.x;
   const float* sb = a.scene_box;
   float acc[kRed];
@@ -215,12 +318,19 @@ __global__ void __launch_bounds__(kThreads)
   const float dmax = sqrtf(acc[12]);
 
   // Per tile: overlap, entry bound and key (tri_block_schedule_rows, then
-  // block_schedule's key); the count of scheduled tiles.
-  int count = 0;
-  for (int t0 = 0; t0 < a.n_tiles; t0 += blockDim.x) {
+  // block_schedule's key), kept by tile id in the scratch row; the count
+  // of scheduled tiles whose key is not NaN (n_s) and of unscheduled ones.
+  const int T = a.n_tiles;
+  uint32_t* keys = a.sort_keys + blk * (size_t)T;
+  int32_t* ids = a.sort_ids + blk * (size_t)T;
+  int32_t* srow = a.sched + blk * (T + 1);
+  float* brow = a.bounds + blk * (T + 1);
+  int n_s = 0, n_pad = 0;
+  for (int t0 = 0; t0 < T; t0 += blockDim.x) {
     const int t = t0 + threadIdx.x;
     bool ov = false;
-    if (t < a.n_tiles) {
+    float key = 0.0f;
+    if (t < T) {
       const float* bx = a.boxes + 6 * (size_t)t;
       ov = true;
       float dist2 = 0.0f;
@@ -232,29 +342,82 @@ __global__ void __launch_bounds__(kThreads)
         dist2 = dist2 + gap * gap;
       }
       const float tlo = tmax(sqrtf(dist2) / tmax(dmax, kEpsDir), a.min_t);
-      keys[t] = ov ? tmin(tlo, kTloCap) : kTloPad;
+      key = ov ? tmin(tlo, kTloCap) : kTloPad;
+      keys[t] = __float_as_uint(key);
     }
-    count += __syncthreads_count(ov);
+    n_s += __syncthreads_count(ov && key == key);
+    n_pad += __syncthreads_count(t < T && !ov);
   }
+  const int n_nan = T - n_s - n_pad;
+  const bool few = n_s <= (int)blockDim.x;
 
-  // Rank counting: tile t's place in the stable order by (key, id).
-  int32_t* srow = a.sched + blk * (a.n_tiles + 1);
-  float* brow = a.bounds + blk * (a.n_tiles + 1);
-  for (int t0 = 0; t0 < a.n_tiles; t0 += blockDim.x) {
+  // Each tile to its class's place: the scheduled tiles with a key into
+  // s_key / s_id (few) or the first n_s places of the schedule row (many),
+  // in id order; the others straight to their places in the row.
+  for (int d = threadIdx.x; d < 4 * kDigits; d += blockDim.x) (&hist[0][0])[d] = 0;
+  __syncthreads();
+  int before[3] = {0, 0, 0};
+  for (int t0 = 0; t0 < T; t0 += blockDim.x) {
     const int t = t0 + threadIdx.x;
-    if (t >= a.n_tiles) continue;
-    const float k = keys[t];
-    int rank = 0;
-    for (int u = 0; u < a.n_tiles; ++u) {
-      const float ku = keys[u];
-      rank += (key_less(ku, k) || (u < t && key_equal(ku, k))) ? 1 : 0;
+    const float key = t < T ? __uint_as_float(keys[t]) : 0.0f;
+    const bool pad = t < T && key == kTloPad;
+    const bool cls[3] = {t < T && key == key && !pad, pad, t < T && key != key};
+    int pos[3], total[3];
+    cta_prefix3(cls, cls_cnt, pos, total);
+    if (cls[0]) {
+      const int e = before[0] + pos[0];
+      if (few) {
+        s_key[e] = key;
+        s_id[e] = t;
+      } else {
+        reinterpret_cast<uint32_t*>(brow)[e] = __float_as_uint(key);
+        srow[1 + e] = t;
+        const uint32_t u = ordered_bits(key);
+        for (int p = 0; p < 4; ++p) atomicAdd(&hist[p][(u >> (8 * p)) & 255u], 1);
+      }
+    } else if (cls[1] || cls[2]) {
+      const int r = cls[1] ? n_s + before[1] + pos[1] : n_s + n_pad + before[2] + pos[2];
+      srow[1 + r] = t;
+      brow[r] = quantize_bound(key);
     }
-    srow[1 + rank] = t;
-    brow[rank] = quantize_bound(k);
+    for (int c = 0; c < 3; ++c) before[c] += total[c];
+    __syncthreads();  // cls_cnt is read before the next chunk's counts
   }
   if (threadIdx.x == 0) {
-    srow[0] = count;
-    brow[a.n_tiles] = quantize_bound(kTloPad);
+    srow[0] = n_s + n_nan;
+    brow[T] = quantize_bound(kTloPad);
+  }
+
+  if (few) {
+    // Rank counting: tile e's place among the n_s by (key, id); s_* hold
+    // them in id order, so a lower place in s_* is a lower id.
+    const int e = threadIdx.x;
+    if (e < n_s) {
+      const float k = s_key[e];
+      int rank = 0;
+      for (int u = 0; u < n_s; ++u) {
+        const float ku = s_key[u];
+        rank += (ku < k || (ku == k && u < e)) ? 1 : 0;
+      }
+      srow[1 + rank] = s_id[e];
+      brow[rank] = quantize_bound(k);
+    }
+    return;
+  }
+  // Many: the stable LSD radix sort, row -> scratch -> row -> scratch ->
+  // row, stable in each pass, so pairs of equal keys keep id order.
+  uint32_t* row_k = reinterpret_cast<uint32_t*>(brow);
+  int32_t* row_i = srow + 1;
+  for (int p = 0; p < 4; ++p) {
+    __syncthreads();  // hist complete, base free, the previous pass written
+    digit_bases(hist[p], base);
+    __syncthreads();
+    if (p == 3)
+      radix_pass<true>(keys, ids, nullptr, row_i, brow, n_s, 8 * p, base, wcnt);
+    else if (p % 2 == 0)
+      radix_pass<false>(row_k, row_i, keys, ids, nullptr, n_s, 8 * p, base, wcnt);
+    else
+      radix_pass<false>(keys, ids, row_k, row_i, nullptr, n_s, 8 * p, base, wcnt);
   }
 }
 
@@ -431,11 +594,9 @@ static int allow_smem(K kernel, size_t bytes) {
 
 extern "C" int wrt_tri_grid_schedule(const TriGridArgs* a) {
   if (a->n <= 0) return 0;
-  const size_t smem = (size_t)a->n_tiles * sizeof(float);
-  if (int rc = allow_smem(tri_grid_schedule_kernel, smem)) return rc;
   const int threads = a->ray_block < kThreads ? ((a->ray_block + 31) / 32) * 32
                                               : kThreads;
-  tri_grid_schedule_kernel<<<(unsigned)a->nb, threads, smem,
+  tri_grid_schedule_kernel<<<(unsigned)a->nb, threads, 0,
                              (cudaStream_t)a->stream>>>(*a);
   return (int)cudaGetLastError();
 }

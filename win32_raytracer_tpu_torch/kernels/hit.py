@@ -73,6 +73,19 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def check_rays(who: str, rays: Optional[int]) -> None:
+    """A forced launch form of a packed-sweep kernel (A, E, G) is 1 or 2
+    rays per thread, on every device."""
+    if rays not in (None, 1, 2):
+        raise ValueError(f"{who}: _rays must be 1 or 2, not {rays}")
+
+
+def launch_rays(n: int, dev: torch.device, rays: Optional[int]) -> int:
+    """The launch form for ``n`` rays on card ``dev``: ``rays`` where
+    given, else :func:`rays_per_thread`."""
+    return rays or rays_per_thread(n, _sm_count(dev.index or 0))
+
+
 def hit_spheres_rows(scene: Union[SphereScene, SphereTable],
                      origin: torch.Tensor, direction: torch.Tensor,
                      time: torch.Tensor, min_t: float = MIN_HIT_T, *,
@@ -82,8 +95,7 @@ def hit_spheres_rows(scene: Union[SphereScene, SphereTable],
     ``_rays`` (1 or 2; default :func:`rays_per_thread`) forces the launch
     form on a card, for checks; the record is the same whatever it is."""
     global LAUNCHES
-    if _rays not in (None, 1, 2):
-        raise ValueError(f"hit_spheres_rows: _rays must be 1 or 2, not {_rays}")
+    check_rays("hit_spheres_rows", _rays)
     dev = origin.device
     if dev.type == "cpu":
         return hit_spheres_rows_plain(scene, origin, direction, time,
@@ -101,7 +113,7 @@ def hit_spheres_rows(scene: Union[SphereScene, SphereTable],
             (tab.active, "active", torch.bool, (s,))):
         _build.check_tensor(t, name, dt, shape, dev)
 
-    rays = _rays or rays_per_thread(n, _sm_count(dev.index or 0))
+    rays = launch_rays(n, dev, _rays)
 
     out_f, out_i, hit = record_buffers(n, dev)
     if n:

@@ -2,9 +2,10 @@
 
 Replaces ``win32_raytracer_tpu/kernels/hit_pallas_v3.py``
 (``_hit_kernel_v3``), the wavefront scheduler's sphere hit.  Kernel A's
-sweep with the [N, 3] ray load and a column record: bound by the S pair
-tests per ray; one thread per ray, sphere tiles staged through shared
-memory (the source note in csrc/hit_cols.cu has the detail).
+body with the [N, 3] ray load and a column record: bound by the S pair
+tests per ray; the packed sweep, two rays a thread on a batch that fills
+the card, else one (``kernels/hit.rays_per_thread``; the source note in
+csrc/hit_cols.cu has the detail).
 
 :func:`hit_spheres_cols` launches the kernel for CUDA tensors and runs the
 plain version, ``ops/hit.hit_spheres``, for tensors on the CPU; it raises
@@ -16,7 +17,7 @@ hit flags [N]; the record's fields are views of those buffers.
 from __future__ import annotations
 
 import ctypes
-from typing import Union
+from typing import Optional, Union
 
 import torch
 
@@ -24,7 +25,7 @@ from ..config import MIN_HIT_T
 from ..ops.hit import ATTR_COLS, HitRecord, SphereTable, hit_spheres, sphere_table
 from ..scene.spheres import SphereScene
 from . import _build
-from .hit import HitArgs
+from .hit import HitArgs, check_rays, launch_rays
 
 LAUNCHES = 0  # kernel launches by hit_spheres_cols
 
@@ -48,10 +49,15 @@ def record_buffers_cols(n: int, dev):
 
 def hit_spheres_cols(scene: Union[SphereScene, SphereTable],
                      origin: torch.Tensor, direction: torch.Tensor,
-                     time: torch.Tensor,
-                     min_t: float = MIN_HIT_T) -> HitRecord:
-    """Nearest front-face hit of rays o/d [N, 3], time [N] f32."""
+                     time: torch.Tensor, min_t: float = MIN_HIT_T, *,
+                     _rays: Optional[int] = None) -> HitRecord:
+    """Nearest front-face hit of rays o/d [N, 3], time [N] f32.
+
+    ``_rays`` (1 or 2; default :func:`~.hit.rays_per_thread`) forces the
+    launch form on a card, for checks; the record is the same whatever it
+    is."""
     global LAUNCHES
+    check_rays("hit_spheres_cols", _rays)
     dev = origin.device
     if dev.type == "cpu":
         return hit_spheres(scene, origin, direction, time, min_t=min_t)
@@ -76,7 +82,8 @@ def hit_spheres_cols(scene: Union[SphereScene, SphereTable],
             tab.attrs.data_ptr(), tab.active.data_ptr(), out_f.data_ptr(),
             out_i.data_ptr(), hit.data_ptr(), n, s, float(min_t),
             _build.stream_handle(dev))
-        _build.check(lib.wrt_hit_spheres_cols(ctypes.addressof(args)),
+        _build.check(lib.wrt_hit_spheres_cols(ctypes.addressof(args),
+                                              launch_rays(n, dev, _rays)),
                      "hit_spheres_cols")
         LAUNCHES += 1
     return record_cols(out_f, out_i, hit)

@@ -10,9 +10,9 @@ under ``accel="grid"`` on a plain sphere scene, with its rows instance
 
 Each call is two launches.  The schedule kernel takes what was XLA around
 the reference's kernel: the rays padded to ``ray_block`` (the filler rays
-made in the kernel), pass A over the globals (kernel A's packed sweep, its
-record written into the buffers the sweep then merges into), the footprint
-mask and the block schedule.  The sweep kernel runs pass B over the
+made in the kernel), pass A over the globals (kernel A's packed sweep, 256
+rows a stage, its record written into the buffers the sweep then merges
+into), the footprint mask and the block schedule.  The sweep kernel runs pass B over the
 scheduled tiles and merges.  Bound by the pair tests (24 f32 operations
 each): pass A's and those the schedule leaves.  The plain versions
 (accel.hit_spheres_grid_rows_plain, accel.hit_spheres_grid_plain) compute
@@ -48,8 +48,9 @@ SCHED_LAUNCHES = 0  # schedule kernel launches by the same
 # Lanes per CTA of the sweep kernel (csrc/hit_grid.cu kRays * kThreads).
 SWEEP_LANES_PER_CTA = 512
 # Rows of the globals table the schedule kernel stages at once (kBlock):
-# it stages them once per CTA and refuses more.
-MAX_GLOBALS = 256
+# more take one more pass over a block's lanes per further stage, with
+# pass A's (t, row) carried in a scratch buffer between passes.
+GLOB_STAGE = 256
 
 
 class GridArgs(ctypes.Structure):  # csrc/hit_grid.cu GridArgs
@@ -60,6 +61,7 @@ class GridArgs(ctypes.Structure):  # csrc/hit_grid.cu GridArgs
         ("y_slab", ctypes.c_void_p), ("sched", ctypes.c_void_p),
         ("out_f", ctypes.c_void_p), ("out_i", ctypes.c_void_p),
         ("out_hit", ctypes.c_void_p), ("stats", ctypes.c_void_p),
+        ("carry_t", ctypes.c_void_p), ("carry_i", ctypes.c_void_p),
         ("n", ctypes.c_longlong), ("nb", ctypes.c_longlong),
         ("n_glob", ctypes.c_int), ("n_tiles", ctypes.c_int),
         ("st", ctypes.c_int), ("ray_block", ctypes.c_int),
@@ -70,13 +72,15 @@ class GridArgs(ctypes.Structure):  # csrc/hit_grid.cu GridArgs
 class Prepared(NamedTuple):
     """Both kernels' arguments and the tensors they point into (kept alive
     with them): the schedule and the record of ``n`` lanes, pass A's after
-    :func:`schedule`, the merged one after :func:`launch`."""
+    :func:`schedule`, the merged one after :func:`launch`; pass A's carry
+    between stages of globals (None for one stage)."""
     args: GridArgs
     cols: bool
     n: int
     rays: tuple
     sched: torch.Tensor
     rec: object
+    carry: Optional[tuple]
 
 
 def _check(gscene: GridScene, origin, direction, time, stats, cols: bool):
@@ -107,11 +111,12 @@ def prepare(gscene: GridScene, origin, direction, time, min_t: float,
     nb = -(-n // ray_block)
     if not cols:
         check_schedule_size(nb, gscene.n_tiles)
-    if gscene.glob_attrs.shape[0] > MAX_GLOBALS:
-        raise ValueError(f"hit_spheres_grid: {gscene.glob_attrs.shape[0]} "
-                         f"global rows > {MAX_GLOBALS} (raise "
-                         "global_radius_factor)")
     dev = origin.device
+    carry, carry_ptrs = None, (None, None)
+    if gscene.glob_attrs.shape[0] > GLOB_STAGE:
+        carry = (torch.empty(nb * ray_block, dtype=torch.float32, device=dev),
+                 torch.empty(nb * ray_block, dtype=torch.int32, device=dev))
+        carry_ptrs = tuple(c.data_ptr() for c in carry)
     sched = torch.empty((nb, 1 + gscene.n_tiles), dtype=torch.int32, device=dev)
     bufs = record_buffers_cols(n, dev) if cols else record_buffers(n, dev)
     rec = record_cols(*bufs) if cols else record_rows(*bufs)
@@ -121,10 +126,10 @@ def prepare(gscene: GridScene, origin, direction, time, min_t: float,
         gscene.glob_attrs.data_ptr(), gscene.tile_attrs.data_ptr(),
         gscene.tile_boxes.data_ptr(), gscene.y_slab.data_ptr(),
         sched.data_ptr(), out_f.data_ptr(), out_i.data_ptr(), hit.data_ptr(),
-        None if stats is None else stats.data_ptr(), n, nb,
+        None if stats is None else stats.data_ptr(), *carry_ptrs, n, nb,
         gscene.glob_attrs.shape[0], gscene.n_tiles, gscene.tile_rows,
         ray_block, float(min_t), _build.stream_handle(dev))
-    return Prepared(args, cols, n, (origin, direction, time), sched, rec)
+    return Prepared(args, cols, n, (origin, direction, time), sched, rec, carry)
 
 
 def schedule(p: Prepared) -> None:

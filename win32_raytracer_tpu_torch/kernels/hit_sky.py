@@ -6,7 +6,9 @@ winner's record and the miss-to-sky radiance and alive update in one
 launch.  The persistent scheduler runs it above the compaction floor
 whenever it does not fuse the whole bounce (``fuse_bounce="off"``, an
 explicit ``scatter_backend``, pixel ids of 2^24 and up), followed by the
-scatter and respawn.  Bound by the sphere sweep, as kernel A.
+scatter and respawn.  Bound by the sphere sweep: kernel A's packed sweep,
+two lanes a thread on a batch that fills the card, else one
+(``kernels/hit.rays_per_thread``).
 
 :func:`hit_sky` launches the kernel for CUDA tensors and runs the plain
 version, :func:`hit_sky_plain` (``persistent.p_hit_step`` with the plain
@@ -18,6 +20,7 @@ updated.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -26,7 +29,8 @@ from ..ops.hit import ATTR_COLS, SphereTable
 from ..ops.rows import HitRecordRows
 from ..persistent import PathState, p_hit_step
 from . import _build
-from .hit import hit_spheres_rows_plain, record_buffers, record_rows
+from .hit import (check_rays, hit_spheres_rows_plain, launch_rays,
+                  record_buffers, record_rows)
 
 LAUNCHES = 0  # kernel launches by hit_sky
 
@@ -45,11 +49,16 @@ class HitSkyArgs(ctypes.Structure):  # csrc/hit_sky.cu HitSkyArgs
         ("min_t", ctypes.c_float), ("stream", ctypes.c_void_p)]
 
 
-def hit_sky(table: SphereTable, st: PathState, *, cfg: RenderConfig
-            ) -> tuple[HitRecordRows, PathState]:
+def hit_sky(table: SphereTable, st: PathState, *, cfg: RenderConfig,
+            _rays: Optional[int] = None) -> tuple[HitRecordRows, PathState]:
     """Nearest sphere hit of every lane's ray, then the sky for the live
-    lanes that miss (radiance += throughput * sky, alive &= hit)."""
+    lanes that miss (radiance += throughput * sky, alive &= hit).
+
+    ``_rays`` (1 or 2 lanes per thread; default
+    :func:`~.hit.rays_per_thread`) forces the launch form on a card, for
+    checks; the result is the same whatever it is."""
     global LAUNCHES
+    check_rays("hit_sky", _rays)
     dev = st.origin.device
     if dev.type == "cpu":
         return hit_sky_plain(table, st, cfg=cfg)
@@ -81,7 +90,8 @@ def hit_sky(table: SphereTable, st: PathState, *, cfg: RenderConfig
             table.active.data_ptr(), out_f.data_ptr(), out_i.data_ptr(),
             hit.data_ptr(), rad.data_ptr(), alive.data_ptr(), n, s,
             float(cfg.min_hit_t), _build.stream_handle(dev))
-        _build.check(lib.wrt_hit_sky(ctypes.addressof(args)), "hit_sky")
+        _build.check(lib.wrt_hit_sky(ctypes.addressof(args),
+                                     launch_rays(n, dev, _rays)), "hit_sky")
         LAUNCHES += 1
     return (record_rows(out_f, out_i, hit),
             st._replace(radiance_sum=rad, path_alive=alive))

@@ -12,7 +12,9 @@ Each call is two launches.  The schedule kernel builds on the card what was
 XLA around the reference's kernel (``_tri_grid_raw``): the block mask and
 entry bounds (tri_accel.tri_block_schedule_rows), then per block the
 scheduled tiles sorted front to back by their entry bound (a stable sort,
-so ties keep tile-id order), their count and the bounds in schedule order
+so ties keep tile-id order; a block's few scheduled tiles ranked by
+counting, many by a radix sort through a scratch row per block, so any
+number of tiles is served), their count and the bounds in schedule order
 floored onto the 1/1024 grid (:func:`block_schedule`, its plain version
 with :func:`schedule_plain`), and each lane's segment end.  The sweep kernel
 walks the schedule.  The tile boxes quantised outwards onto the same grid
@@ -51,9 +53,6 @@ SCHED_LAUNCHES = 0  # schedule kernel launches by the same
 # and ends every schedule row.
 _TLO_CAP = np.float32(1.0e6)
 _TLO_PAD = np.float32(1.5e6)
-# The schedule kernel ranks a block's tile keys in shared memory (4 bytes
-# a tile, at most 227 KB on an H100).
-MAX_TILES = 56 * 1024
 # Lanes per CTA of the sweep kernel (csrc/tri_grid.cu kSweepThreads / kSub).
 SWEEP_LANES_PER_CTA = 32
 
@@ -65,7 +64,8 @@ class TriGridArgs(ctypes.Structure):  # csrc/tri_grid.cu TriGridArgs
         ("geom", ctypes.c_void_p), ("boxes", ctypes.c_void_p),
         ("qboxes", ctypes.c_void_p), ("scene_box", ctypes.c_void_p),
         ("sched", ctypes.c_void_p), ("bounds", ctypes.c_void_p),
-        ("cap_eff", ctypes.c_void_p), ("out_f", ctypes.c_void_p),
+        ("cap_eff", ctypes.c_void_p), ("sort_keys", ctypes.c_void_p),
+        ("sort_ids", ctypes.c_void_p), ("out_f", ctypes.c_void_p),
         ("out_i", ctypes.c_void_p), ("out_hit", ctypes.c_void_p),
         ("stats", ctypes.c_void_p), ("n", ctypes.c_longlong),
         ("nb", ctypes.c_longlong), ("n_tiles", ctypes.c_int),
@@ -153,8 +153,9 @@ def hit_triangles_grid_rows(
 
 class Prepared(NamedTuple):
     """Both kernels' arguments and the tensors they point into (kept alive
-    with them): the schedule, the segment ends and the record buffers of
-    ``n`` lanes."""
+    with them): the schedule, the segment ends, the schedule kernel's
+    scratch ([NB, T] keys and ids) and the record buffers of ``n``
+    lanes."""
     args: TriGridArgs
     n: int
     rays: tuple
@@ -162,6 +163,7 @@ class Prepared(NamedTuple):
     sched: torch.Tensor
     bounds: torch.Tensor
     cap_eff: torch.Tensor
+    scratch: tuple
     out_f: torch.Tensor
     out_i: torch.Tensor
     hit: torch.Tensor
@@ -175,13 +177,12 @@ def prepare(grid: TriGridScene, origin, direction, t_cap, min_t: float,
     n = origin.shape[1]
     nb = -(-n // ray_block)
     dev = origin.device
-    if grid.n_tiles > MAX_TILES:
-        raise ValueError(f"hit_triangles_grid_rows: {grid.n_tiles} tiles > "
-                         f"{MAX_TILES} (raise tile_rows)")
     t = grid.n_tiles + 1
     sched = torch.empty((nb, t), dtype=torch.int32, device=dev)
     bounds = torch.empty((nb, t), dtype=torch.float32, device=dev)
     cap_eff = torch.empty((n,), dtype=torch.float32, device=dev)
+    scratch = (torch.empty((nb, grid.n_tiles), dtype=torch.int32, device=dev),
+               torch.empty((nb, grid.n_tiles), dtype=torch.int32, device=dev))
     out_f, out_i, hit = record_buffers(n, dev)
     args = TriGridArgs(
         origin.data_ptr(), direction.data_ptr(),
@@ -189,12 +190,13 @@ def prepare(grid: TriGridScene, origin, direction, t_cap, min_t: float,
         grid.tile_attrs.data_ptr(), grid.tile_geom.data_ptr(),
         grid.tile_boxes.data_ptr(), grid.tile_qboxes.data_ptr(),
         grid.scene_box.data_ptr(), sched.data_ptr(), bounds.data_ptr(),
-        cap_eff.data_ptr(), out_f.data_ptr(), out_i.data_ptr(),
+        cap_eff.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(),
+        out_f.data_ptr(), out_i.data_ptr(),
         hit.data_ptr(), None if stats is None else stats.data_ptr(), n, nb,
         grid.n_tiles, grid.tile_rows, ray_block, float(min_t),
         _build.stream_handle(dev))
     return Prepared(args, n, (origin, direction, t_cap), grid, sched, bounds,
-                    cap_eff, out_f, out_i, hit)
+                    cap_eff, scratch, out_f, out_i, hit)
 
 
 def schedule(p: Prepared) -> None:
