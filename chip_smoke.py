@@ -12,7 +12,10 @@ checks that each kernel of a path ran in it:
   random inputs, on tables with exact ties, inactive rows and mixed
   shutter intervals, and on the headline's own bounces; kernel A timed at
   the batch sizes the headline's tail launches;
-* phase 6: kernel C (brute triangle sweep) against its plain version;
+* phase 6: kernel C (brute triangle sweep) against its plain version,
+  bit for bit in each launch form, on the ``mesh`` table and its variants
+  (inactive, copied and NaN rows, six stages), on boundary pairs of the
+  exact pair test and on a ``mesh`` render's bounce rays;
 * phase 7: kernel D (Morton-tile grid sweep: its schedule kernel, then the
   sweep) against its plain version and against kernel C, at BASELINE
   config 4's chunk, the schedule kernel against the torch prelude; then on
@@ -30,9 +33,10 @@ checks that each kernel of a path ran in it:
   ``multi_backend="fused"``), and config 4 with the pallas scatter;
 * phase 12: BASELINE config 5, an 8-frame flythrough of the final scene at
   640x480, 32 spp, through ``render_animation`` (kernel B on 8 cameras);
-* phase 13: kernels G (column sphere hit; one and two rays a thread) and H
-  (column triangle hit) against their plain versions, on random rays and
-  on the wavefront's own
+* phase 13: kernels G (column sphere hit) and H (column triangle hit;
+  both at one and two rays a thread) against their plain versions, on
+  random rays, H also on phase 6's tables and boundary pairs and on
+  ``mesh20k``'s table, and on the wavefront's own
   first and second bounce rays of ``final`` (1200x800, 4 spp) and ``mesh``
   (800x450, 4 spp);
 * phase 14: the wavefront scheduler: small renders, kernels against plain;
@@ -53,14 +57,16 @@ checks that each kernel of a path ran in it:
   (kernel I's two launches on every bounce), and an explicit ``hit_fn`` on
   the persistent scheduler;
 * phase 17: kernels A, B and E timed alone at the headline's shapes, G at
-  the wavefront's, and the grid wrappers (D at config 4's chunk, I at the
-  grid headline's second bounce), with the public entry points only, so
+  the wavefront's, the grid wrappers (D at config 4's chunk, I at the
+  grid headline's second bounce), C at the ``mesh`` render's bounce-1
+  rays and H at the wavefront ``mesh``'s, with the public entry points only, so
   that ``--root`` can point it at another checkout of the package (an
   earlier commit, for a side-by-side timing).
 
 Phase 1 prints each sweep kernel's registers, spills and shared memory
 and, from ``cuobjdump -sass`` of the built library, the instruction mix
-of each kernel's innermost sweep loops.
+of each kernel's innermost sweep loops and a digest of every kernel's
+code (so that two checkouts' builds can be compared kernel by kernel).
 
 Each phase prints one line or more; any failure raises, so the exit code is
 non-zero.  Before the last line, a ``{"kernels": [...]}`` line (each
@@ -73,7 +79,8 @@ device.
     python3 chip_smoke.py --phases 0,1,13,14   # the wavefront slice
     python3 chip_smoke.py --phases 0,1,15,16   # the sphere grid slice
     python3 chip_smoke.py --phases 0,1,2,3,5,9,10,13,15   # the packed sweep
-    python3 chip_smoke.py --phases 0,1,17 --root out/parent  # A, B, D, E, G, I of a checkout
+    python3 chip_smoke.py --phases 0,1,6,7,8,13,14,17   # the triangle sweeps
+    python3 chip_smoke.py --phases 0,1,17 --root out/parent  # A-E, G, H, I of a checkout
 
 Needs a CUDA card and nvcc.
 """
@@ -93,7 +100,7 @@ import numpy as np
 import torch
 
 HEADLINE = dict(width=1200, height=800, samples=100)
-RANDOM_RAYS = 1 << 18   # rays (lanes) of phases 2 and 3's random inputs
+RANDOM_RAYS = 1 << 18   # rays (lanes) of phases 2, 3, 6 and 13's random inputs
 MANY_TILE_RAYS = 1 << 16    # phase 7's rays on the grid of 61,440 tiles
 MANY_GLOBAL_RAYS = 1 << 18  # phase 15's rays on the grids of many globals
 HEADLINE_MEAN = 170.1   # the JAX renderer's u8 image mean for this scene and size
@@ -232,10 +239,10 @@ def random_state(dev, n: int, quota: int, seed: int = 11):
     )
 
 
-def card_line() -> str:
+def card_line(query: str = "name,power.limit") -> str:
     try:
         out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
+            ["nvidia-smi", f"--query-gpu={query}",
              "--format=csv,noheader"],
             capture_output=True, text=True, timeout=60).stdout.strip()
     except (OSError, subprocess.TimeoutExpired) as e:
@@ -372,6 +379,178 @@ def variant_tables(table) -> dict:
     return out
 
 
+def bits_cmp(a, b) -> tuple:
+    """exact_cmp by bits: lanes where two tuples of [rows, N] tensors
+    differ in any bit of any field (NaN equal to NaN of the same bits, -0
+    unequal to +0), and the largest |a - b| over their float fields (0
+    where the bits agree)."""
+    n = a[0].shape[-1]
+    bad = torch.zeros(n, dtype=torch.bool, device=a[0].device)
+    err = 0.0
+    for x, y in zip(a, b):
+        if x.is_floating_point():
+            diff = (x.contiguous().view(torch.int32) != y.contiguous().view(torch.int32))
+            if diff.any():
+                err = max(err, float(torch.nan_to_num((x - y).abs()[diff], nan=np.inf).max()))
+        else:
+            diff = x != y
+        bad |= diff.reshape(-1, n).any(0)
+    return int(bad.sum()), err
+
+
+def tri_variant_tables(table, dev) -> dict:
+    """The ``mesh`` scene's triangle table (332 triangles padded to 384,
+    two stages of 256 candidate rows) and the variants kernels C and H must
+    get exactly right (tests/test_torch_tri_sweep_packed.py's): "holes",
+    every fifth triangle inactive besides the padding; "ties", rows 260-290
+    copying the geometry of rows 10-40 (the next stage) and rows 100-109
+    that of rows 50-59 (the same stage), each keeping its own index, so the
+    later row loses every exact tie; "nan_pad", the padding rows' geometry
+    NaN and inf; "many", two icospheres of 1,280 triangles (six stages),
+    every seventh inactive."""
+    from win32_raytracer_tpu_torch.ops.hit_tri import TriTable, tri_table
+    from win32_raytracer_tpu_torch.scene.triangles import (
+        build_triangle_scene, icosphere_mesh)
+
+    out = {"mesh": table}
+    for kind in ("holes", "ties", "nan_pad"):
+        attrs, active = table.attrs.clone(), table.active.clone()
+        if kind == "holes":
+            active[0:332:5] = False
+        if kind == "ties":
+            for dst, src in ((slice(260, 291), slice(10, 41)),
+                             (slice(100, 110), slice(50, 60))):
+                attrs[dst, :9] = attrs[src, :9]
+        if kind == "nan_pad":
+            attrs[332::2, :9] = float("nan")
+            attrs[333::2, :9] = float("inf")
+        out[kind] = TriTable(attrs.contiguous(), active.contiguous())
+    parts = [icosphere_mesh((0.0, 1.0, 0.0), 1.0, subdivisions=3),
+             icosphere_mesh((2.2, 0.6, 0.4), 0.6, subdivisions=3)]
+    offs = np.cumsum([0] + [len(v) for v, _ in parts[:-1]])
+    many = tri_table(build_triangle_scene(
+        np.concatenate([v for v, _ in parts]),
+        np.concatenate([f + k for (_, f), k in zip(parts, offs)]), device=dev))
+    active = many.active.clone()
+    active[3::7] = False
+    out["many"] = TriTable(many.attrs, active.contiguous())
+    return out
+
+
+def tri_rays(table, n: int, seed: int):
+    """Rays o/d [n, 3] (card tensors) at a triangle table: a quarter aimed
+    at random points of random active triangles (copied rows included), a
+    quarter at the midpoints of their edges (shared by two triangles of a
+    closed mesh), a quarter at their vertices, and a quarter split between
+    rays along a triangle's edge line (det 0) and random directions."""
+    rng = np.random.default_rng(seed)
+    g = table.attrs[:, :9].cpu().numpy().astype(np.float64)
+    act = np.flatnonzero(table.active.cpu().numpy())
+    v0, e1, e2 = g[:, 0:3], g[:, 3:6], g[:, 6:9]
+    q = n // 4
+    o = rng.uniform([-3.0, 0.0, -2.5], [3.0, 3.5, 4.0], (n, 3))
+    d = rng.normal(0, 1, (n, 3))
+    pick = rng.choice(act, n)
+    a = rng.uniform(0, 1, (n, 2))
+    a = np.where(a.sum(1, keepdims=True) > 1, 1 - a, a)
+    d[:q] = (v0[pick] + a[:, :1] * e1[pick] + a[:, 1:] * e2[pick])[:q] - o[:q]
+    mid = rng.integers(0, 3, n)[:, None]
+    em = v0[pick] + np.where(mid == 0, 0.5 * e1[pick], np.where(
+        mid == 1, 0.5 * e2[pick], 0.5 * (e1[pick] + e2[pick])))
+    d[q:2 * q] = em[q:2 * q] - o[q:2 * q]
+    vx = v0[pick] + np.where(mid == 0, 0.0, np.where(mid == 1, e1[pick], e2[pick]))
+    d[2 * q:3 * q] = vx[2 * q:3 * q] - o[2 * q:3 * q]
+    r = 3 * q + (n - 3 * q) // 2
+    o[3 * q:r] = v0[pick[3 * q:r]] - 0.5 * e1[pick[3 * q:r]]
+    d[3 * q:r] = e1[pick[3 * q:r]]
+    dev = table.attrs.device
+    return tuple(torch.as_tensor(x, dtype=torch.float32, device=dev).contiguous()
+                 for x in (o, d))
+
+
+def _ulps(x, k):
+    """x (f32) moved k ulps, elementwise (through 0 into the other sign)."""
+    x = np.array(x, np.float32)
+    k = np.broadcast_to(np.asarray(k), x.shape)
+    for step in range(int(np.abs(k).max(initial=0))):
+        x = np.where(k > step, np.nextafter(x, np.float32(np.inf)),
+                     np.where(-k > step, np.nextafter(x, np.float32(-np.inf)), x))
+    return x.astype(np.float32)
+
+
+def tri_boundary_pairs(min_t: float, seed: int = 0):
+    """Triangles and one ray each (numpy f32: g [N, 9], o/d [N, 3]) on the
+    exact pair test's boundaries, as tests/test_torch_tri_sweep_packed.py
+    builds them: axis-aligned pairs (v0 = 0, e1 = (a, 0, 0), e2 = (0, 1,
+    0), the ray from (x, y, h) along -z: det = a, un = x, vn = y a, tn =
+    h a) with |det| at 1e-9 +- ulps, anywhere up to 1e38 and with 1 / det
+    subnormal, u and v at +-0 and a few ulps, u + v at 1, t at min_t,
+    quotients that underflow, infinities, NaNs and products that overflow,
+    and (min_t > 0) dets whose subnormal reciprocal lifts t above min_t
+    from a tn just below det min_t; then random triangles with rays at
+    their edges and vertices from about min_t before the plane."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    n = 4000
+    mag = np.exp(rng.uniform(np.log(1e-9), np.log(1e38), n)).astype(f32)
+    mag[:400] = _ulps(np.full(400, f32(1e-9)), rng.integers(-4, 5, 400))
+    mag[400:1000] = np.exp(rng.uniform(np.log(2.0 ** 126), np.log(3.4e38), 600)).astype(f32)
+    a = np.where(rng.uniform(size=n) < 0.5, -mag, mag).astype(f32)
+    s = np.sign(a).astype(f32)
+    k = rng.integers(-3, 4, (n, 3))
+    kind = rng.integers(0, 6, n)
+    u_t = rng.uniform(0, 1, n).astype(f32)
+    v_t = (rng.uniform(0, 1, n) * (1 - u_t)).astype(f32)
+    zero = np.zeros(n, f32)
+    tiny = f32(2.0) ** rng.integers(-149, -100, n).astype(f32)
+    x = np.select([kind == 0, kind == 1, kind == 2],
+                  [_ulps(zero, k[:, 0]) * s,
+                   _ulps(-(np.abs(a) * f32(2.0 ** -24)).astype(f32), k[:, 0]) * s,
+                   -tiny * s], (u_t * a).astype(f32)).astype(f32)
+    y = np.select([kind == 4, kind == 5], [_ulps(f32(1) - u_t, k[:, 1]),
+                                           _ulps(zero, k[:, 1])], v_t).astype(f32)
+    y = np.where(kind == 2, f32(0.25), y).astype(f32)
+    h = np.where(rng.uniform(size=n) < 0.5, _ulps(np.full(n, f32(min_t)), k[:, 2]),
+                 rng.uniform(min_t, 10, n)).astype(f32)
+    for col, vals in ((a, (np.inf, -np.inf, np.nan, 3e38)),
+                      (x, (np.inf, -np.inf, np.nan)),
+                      (y, (np.inf, np.nan, 3e38)), (h, (np.inf, -np.inf, np.nan, 3e38))):
+        sel = rng.choice(n, 80, replace=False)
+        col[sel] = rng.choice(np.asarray(vals, f32), 80)
+    if min_t > 0:   # 1 / det subnormal, rounded up: t above min_t, tn below
+        mt = f32(min_t)
+        big = np.exp(rng.uniform(np.log(2.0 ** 126), np.log(3.4e38), 40000)).astype(f32)
+        tn = np.nextafter((big * mt).astype(f32), f32(0))
+        hb = (tn / big).astype(f32)
+        corner = (((hb * big).astype(f32) == tn)
+                  & ((tn * (f32(1) / big).astype(f32)).astype(f32) > mt))
+        big, hb = big[corner][:300], hb[corner][:300]
+        a, h = np.concatenate([a, big]), np.concatenate([h, hb])
+        x = np.concatenate([x, (f32(0.25) * big).astype(f32)])
+        y = np.concatenate([y, np.full(len(big), f32(0.25))])
+    ga = np.zeros((len(a), 9), f32)
+    ga[:, 3] = a
+    ga[:, 7] = 1.0
+    oa = np.stack([x, y, h], 1)
+    da = np.tile(np.asarray([0.0, 0.0, -1.0], f32), (len(a), 1))
+    m = 2000
+    v0 = rng.normal(0, 2, (m, 3))
+    e1 = rng.normal(0, 1, (m, 3)) * np.exp(rng.uniform(-12, 12, (m, 1)))
+    e2 = rng.normal(0, 1, (m, 3)) * np.exp(rng.uniform(-12, 12, (m, 1)))
+    bu = rng.uniform(0, 1, m)
+    bv = rng.uniform(0, 1, m) * (1 - bu)
+    kb = rng.integers(0, 5, m)
+    bu = np.select([kb == 0, kb == 3], [0.0, 0.0], bu)
+    bv = np.select([kb == 1, kb == 2, kb == 3], [0.0, 1 - bu, 1.0], bv)
+    db = rng.normal(0, 1, (m, 3))
+    dist = np.where(rng.uniform(size=m) < 0.5,
+                    min_t * (1 + rng.normal(0, 1e-6, m)), rng.uniform(0, 5, m))
+    ob = v0 + bu[:, None] * e1 + bv[:, None] * e2 - dist[:, None] * db
+    gb = np.concatenate([v0, e1, e2], 1)
+    return (np.concatenate([ga, gb]).astype(f32), np.concatenate([oa, ob]).astype(f32),
+            np.concatenate([da, db]).astype(f32))
+
+
 def aim_at_ties(o, d, table, seed: int) -> None:
     """Turn the first quarter of rays o/d [3, N] (card tensors) toward the
     spheres of rows 4-49, the ones the "ties" tables duplicate."""
@@ -424,9 +603,13 @@ def sass_text(lib_path: str) -> str:
 SASS_CLASSES = ("LDS", "LDG", "FADD", "FMUL", "FFMA", "FSETP", "MUFU", "BRA",
                 "BSSY", "BSYNC", "BAR")
 # The instruction that marks one pair test: a sphere's ``disc >= 0``
-# compare; a triangle's reciprocal of det (tri_pair_t's division).
+# compare; in kernel D a triangle's reciprocal of det (tri_pair_geom's
+# division); in kernels C and H the compare |det| >= 1e-9 (f32(1e-9)
+# prints as 9.99999971718...e-10), which their mask pass makes once per
+# pair with no division.
 SPHERE_PAIR_MARK = r"FSETP\.GE\.AND .*, RZ, PT"
 TRI_PAIR_MARK = r"MUFU\.RCP"
+TRI_MASK_MARK = r"FSETP\.\S+ .*\b9\.99999971\d*e-10\b"
 
 
 def sass_sweep_mix(dump: str, keys: tuple) -> dict:
@@ -447,7 +630,8 @@ def sass_sweep_mix(dump: str, keys: tuple) -> dict:
         name = name.strip()
         if not any(k in name for k in keys):
             continue
-        mark = TRI_PAIR_MARK if "tri" in name else SPHERE_PAIR_MARK
+        mark = (TRI_MASK_MARK if re.match(r"(void )?tri(_cols)?_kernel\b", demangle(name))
+                else TRI_PAIR_MARK if "tri" in name else SPHERE_PAIR_MARK)
         ins = [(int(m.group(1), 16), m.group(3).strip()) for m in re.finditer(
             r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([^;]*);", body)]
         loops, skips = [], []
@@ -474,6 +658,21 @@ def sass_sweep_mix(dump: str, keys: tuple) -> dict:
                 mix[c] = round(sum(op.split(" ")[0].split(".")[0] == c for op in hot) / pairs, 2)
             mixes.append(mix)
         out[demangle(name)] = mixes
+    return out
+
+
+def sass_digests(dump: str) -> dict:
+    """{kernel: first 12 hex digits of the sha1 of its SASS instructions}
+    (addresses and encodings dropped) for every kernel of a ``cuobjdump
+    -sass`` dump: two builds whose digests agree compiled a kernel to the
+    same code."""
+    import hashlib
+    out = {}
+    for part in re.split(r"\n\s*Function : ", dump)[1:]:
+        name, _, body = part.partition("\n")
+        ins = "\n".join(m.group(1).strip() for m in re.finditer(
+            r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", body))
+        out[demangle(name.strip())] = hashlib.sha1(ins.encode()).hexdigest()[:12]
     return out
 
 
@@ -605,10 +804,13 @@ class Smoke:
         for ln in ptxas_lines(_build.build_log, SWEEP_KERNELS):
             self.say("1 ptxas", ln)
         try:
-            loops = sass_sweep_mix(sass_text(path), SWEEP_KERNELS)
+            dump = sass_text(path)
         except (OSError, subprocess.SubprocessError) as e:
             self.say("1 sass", f"cuobjdump unavailable ({e})")
             return
+        loops = sass_sweep_mix(dump, SWEEP_KERNELS)
+        self.say("1 sass digest", ", ".join(
+            f"{k} {v}" for k, v in sorted(sass_digests(dump).items())))
         for name, mixes in loops.items():
             self.say("1 sass", f"{name}: per pair test, each sweep loop's hot "
                      "path: " + "; ".join(", ".join(f"{k} {v}" for k, v in mix.items())
@@ -902,7 +1104,7 @@ class Smoke:
         chunk's first bounce, kernel A on 524,288, 262,144, 65,536, 32,768
         and 8,192 of its rays, each event-timed and from a CUDA graph
         (B and A); kernel G and its v1 adapter (wavefront_times); kernels D
-        and I (grid_times).  One JSON line."""
+        and I (grid_times); kernels C and H (tri_times).  One JSON line."""
         from win32_raytracer_tpu_torch.config import RenderConfig
         from win32_raytracer_tpu_torch.kernels import bounce as B
         from win32_raytracer_tpu_torch.kernels import hit as K
@@ -931,6 +1133,7 @@ class Smoke:
         del st
         out.update(self.wavefront_times(table))
         out.update(self.grid_times())
+        out.update(self.tri_times())
         import win32_raytracer_tpu_torch as pkg
         print(json.dumps({"ab_times": out, "package": os.path.dirname(pkg.__file__),
                           "card": self.card}), flush=True)
@@ -958,6 +1161,41 @@ class Smoke:
         return {"hit_cols_ms": cuda_ms(lambda: G.hit_spheres_cols(table, o, d, t), 20),
                 "hit_v1_ms_262144": cuda_ms(
                     lambda: hit_spheres_pallas(table, o_s, d_s, t_s), 20)}
+
+    def tri_times(self) -> dict:
+        """Kernels C and H at their main paths' shapes, event-timed through
+        the public wrappers (phase 17): C on 524,288 of the ``mesh``
+        render's bounce-1 rays (800x450, 50 spp, picked as phase 6 picks
+        them), H on the wavefront ``mesh`` 800x450@4's first-bounce rays
+        (1,440,000)."""
+        from win32_raytracer_tpu_torch.config import RenderConfig
+        from win32_raytracer_tpu_torch.core.rng import fold_in, prng_key
+        from win32_raytracer_tpu_torch.kernels import tri as KC
+        from win32_raytracer_tpu_torch.kernels import tri_cols as H
+        from win32_raytracer_tpu_torch.kernels.dispatch import (
+            get_hit_fn_rows_accel, hit_tables)
+        from win32_raytracer_tpu_torch.render import make_primary_rays
+        from win32_raytracer_tpu_torch.scene.builders import get_scene
+        from win32_raytracer_tpu_torch.scene.camera import default_camera
+
+        dev = self.dev
+        scene = get_scene("mesh", device=dev)
+        tab = get_hit_fn_rows_accel(RenderConfig(), scene)[0].triangles
+        st, _, _ = fresh_chunk(RenderConfig(**CONFIG4), dev)
+        pick = torch.linspace(0, st.pixel.shape[1] - 1, 1 << 19, device=dev).long()
+        o, d = (x[:, pick].contiguous() for x in (st.origin, st.direction))
+        tm = torch.zeros((1, 1 << 19), device=dev)
+        del st
+        out = {"tri_ms": cuda_ms(lambda: KC.hit_triangles_rows(tab, o, d, tm), 20)}
+        cfg = RenderConfig(**WAVEFRONT_MESH)
+        w, h, spp = cfg.width, cfg.height, cfg.samples
+        st = make_primary_rays(default_camera(w, h, device=dev), 0,
+                               fold_in(fold_in(prng_key(0), 0), 1), cfg=cfg,
+                               width=w, height=h, spp=spp, rows=h)
+        cols = hit_tables(scene).triangles
+        out["tri_cols_ms"] = cuda_ms(
+            lambda: H.hit_triangles_cols(cols, st.origin, st.direction, st.time), 10)
+        return out
 
     def grid_times(self) -> dict:
         """The grid wrappers at their main-path shapes, event-timed through
@@ -1013,10 +1251,35 @@ class Smoke:
         return out
 
     # ---- phase 6 ----------------------------------------------------------
+    def tri_boundary_groups(self, min_t: float, cols: bool):
+        """tri_boundary_pairs as tables of 32 triangles (one mask chunk) on
+        the card, each with its 32 rays: [(table, o, d)], the rays [3, n]
+        (rows) or [n, 3] (cols)."""
+        from win32_raytracer_tpu_torch.ops.hit_tri import TRI_ATTR_COLS, TriTable
+        g, o, d = tri_boundary_pairs(min_t)
+        out = []
+        for i0 in range(0, len(g) - 31, 32):
+            attrs = np.zeros((32, TRI_ATTR_COLS), np.float32)
+            attrs[:, :9] = g[i0:i0 + 32]
+            attrs[:, 15] = np.arange(32)
+            tab = TriTable(torch.as_tensor(attrs, device=self.dev),
+                           torch.ones(32, dtype=torch.bool, device=self.dev))
+            oo, dd = (torch.as_tensor(x[i0:i0 + 32], device=self.dev) for x in (o, d))
+            if not cols:
+                oo, dd = oo.T, dd.T
+            out.append((tab, oo.contiguous(), dd.contiguous()))
+        return out
+
     def kernel_c(self):
-        """Kernel C against its plain version: 262,144 random rays aimed at
-        the mesh scene's meshes, then 524,288 rays of the first and second
-        bounce of a mesh render's chunk (800x450, 50 spp, kpp 2)."""
+        """Kernel C held exactly against its plain version (every field's
+        bits, 0 lanes differ, max |err| 0) in each launch form (default,
+        one and two rays a thread): 262,144 rays at the mesh scene's table
+        and its variants (tri_variant_tables: inactive rows, copied rows,
+        NaN padding, six stages) aimed at points, edges and vertices and
+        along edges (tri_rays); the boundary pairs (tri_boundary_pairs, 32
+        to a table); then 524,288 rays of the first and second bounce of a
+        mesh render's chunk (800x450, 50 spp, kpp 2), each form timed on
+        the first."""
         from win32_raytracer_tpu_torch.config import RenderConfig
         from win32_raytracer_tpu_torch.kernels import tri as KC
         from win32_raytracer_tpu_torch.kernels.dispatch import (
@@ -1027,23 +1290,35 @@ class Smoke:
         dev = self.dev
         scene = get_scene("mesh", device=dev)
         tab = get_hit_fn_rows_accel(RenderConfig(), scene)[0].triangles
-        tris = tri_arrays(scene.triangles)
-        n = 1 << 18
-        rng = np.random.default_rng(17)
-        o = rng.uniform([-3.0, 0.0, -2.0], [3.0, 3.0, 4.0], (n, 3))
-        tgt = np.where(rng.uniform(size=(n, 1)) < 0.8,
-                       [0.0, 1.0, 0.0] + rng.normal(0, 0.7, (n, 3)),
-                       [0.0, 0.35, 2.2] + rng.normal(0, 0.4, (n, 3)))
-        d = tgt - o + rng.normal(0, 0.05, (n, 3))
-        o_t, d_t = (torch.as_tensor(x.T, dtype=torch.float32, device=dev).contiguous()
-                    for x in (o, d))
-        tm = torch.zeros((1, n), device=dev)
-        c = compare_tri(KC.hit_triangles_rows(tab, o_t, d_t, tm),
-                        KC.hit_triangles_rows_plain(tab, o_t, d_t, tm),
-                        o_t, d_t, tris, "kernel C random rays")
-        self.say("6 kernel C", f"random rays vs mesh's {int(tab.active.sum())} "
-                 f"triangles: {fmt_cmp(c)}")
-        err = c["err"]
+        err = 0.0
+
+        def hold(t, o, d, what, min_t=RenderConfig().min_hit_t):
+            tm = torch.zeros((1, o.shape[1]), device=dev)
+            rp = tuple(KC.hit_triangles_rows_plain(t, o, d, tm, min_t=min_t))
+            res = {label: bits_cmp(tuple(KC.hit_triangles_rows(t, o, d, tm, min_t, **kw)), rp)
+                   for label, kw in HIT_FORMS}
+            for label, (lanes, e) in res.items():
+                check(lanes == 0 and e == 0.0,
+                      f"kernel C {label} {what}: {lanes} lanes differ, max |err| {e}")
+            return res, float(rp[0].float().mean())
+
+        for kind, t in tri_variant_tables(tab, dev).items():
+            o, d = tri_rays(t, RANDOM_RAYS, seed=17 + len(kind))
+            res, hits = hold(t, o.T.contiguous(), d.T.contiguous(), f"on {kind}")
+            err = max(err, *(v[1] for v in res.values()))
+            self.say("6 kernel C", f"{RANDOM_RAYS} rays vs the {kind} table "
+                     f"({int(t.active.sum())} active of {t.attrs.shape[0]}), hits "
+                     f"{hits:.3f}: " + "; ".join(f"{k} {v[0]} lanes differ, max "
+                                               f"|err| {v[1]:.1e}" for k, v in res.items()))
+        for min_t in (RenderConfig().min_hit_t, 0.0):
+            groups = self.tri_boundary_groups(min_t, cols=False)
+            lanes = 0
+            for t, o, d in groups:
+                res, _ = hold(t, o, d, f"boundary pairs, min_t {min_t}", min_t)
+                err = max(err, *(v[1] for v in res.values()))
+                lanes += o.shape[1]
+            self.say("6 kernel C", f"boundary pairs, min_t {min_t}: {len(groups)} "
+                     f"tables of 32, {lanes} rays, every form 0 lanes differ")
 
         cfg = RenderConfig(**CONFIG4, backend="jnp")
         st, dims, cam = fresh_chunk(cfg, dev)
@@ -1053,15 +1328,17 @@ class Smoke:
         for bounce in (1, 2):
             o_t, d_t = (x[:, pick].contiguous() for x in (st.origin, st.direction))
             tm = torch.zeros((1, m), device=dev)
-            rk = KC.hit_triangles_rows(tab, o_t, d_t, tm)
-            c = compare_tri(rk, KC.hit_triangles_rows_plain(tab, o_t, d_t, tm),
-                            o_t, d_t, tris, f"kernel C bounce {bounce}")
-            err = max(err, c["err"])
+            res, hits = hold(tab, o_t, d_t, f"mesh render bounce {bounce}")
+            err = max(err, *(v[1] for v in res.values()))
             self.say("6 kernel C", f"mesh render bounce {bounce}, {m} of its "
-                     f"rays: {fmt_cmp(c)}")
+                     f"rays, hits {hits:.3f}: " + "; ".join(
+                         f"{k} {v[0]} lanes differ, max |err| {v[1]:.1e}"
+                         for k, v in res.items()))
             if bounce == 1:
                 times = (cuda_ms(lambda: KC.hit_triangles_rows(tab, o_t, d_t, tm), 10),
                          cuda_ms(lambda: KC.hit_triangles_rows_plain(tab, o_t, d_t, tm), 2))
+                forms = {k: cuda_ms(lambda: KC.hit_triangles_rows(tab, o_t, d_t, tm, **kw), 10)
+                         for k, kw in HIT_FORMS[1:]}
                 st = p_bounce_step(hit_scene, cam, st, 12345, 1, dims, cfg=cfg,
                                    hit_fn=plain_fn, lean=True)
         active = int(tab.active.sum())
@@ -1070,9 +1347,11 @@ class Smoke:
         self.kernels.setdefault("tri", {}).update(
             ms=times[0], plain_ms=times[1], max_abs_err=err, bound_ms=b[0],
             bound_by=b[1])
+        floor = m * active * OPS_TRI_PAIR / PEAK_F32_UNFUSED * 1e3
         self.say("6 kernel C", f"at {m} rays x {active} triangles: kernel "
-                 f"{times[0]:.3f} ms, plain {times[1]:.3f} ms, bound {b[0]:.4f} ms "
-                 f"({b[1]}) [{self.card}]")
+                 f"{times[0]:.4f} ms (" + ", ".join(f"{k} {v:.4f}" for k, v in forms.items())
+                 + f"), plain {times[1]:.3f} ms, bound {b[0]:.4f} ms ({b[1]}), "
+                 f"--fmad=false floor {floor:.4f} ms [{self.card}]")
 
     # ---- phase 7 ----------------------------------------------------------
     def kernel_d(self):
@@ -1772,13 +2051,16 @@ class Smoke:
     def wavefront_kernels(self):
         """Kernels G and H against their plain versions (ops/hit.hit_spheres,
         ops/hit_tri.hit_triangles) on 262,144 random rays (G on the final
-        table and its tie, hole and shutter variants), then on the
+        table and its tie, hole and shutter variants; H on the mesh table,
+        phase 6's variant tables with aimed rays, its boundary pairs and
+        mesh20k's table with the wavefront's rays), then on the
         wavefront's own first and second bounce rays: ``final`` at
         1200x800, 4 spp (one chunk of 3,840,000 lanes; kernel G) and
         ``mesh`` at 800x450, 4 spp (1,440,000 lanes; G on its spheres, H
-        on its triangles).  Kernel G in each launch form.  Every comparison
-        must be exact: 0 lanes differ, max |err| 0.  Each kernel is timed
-        on its first-bounce rays, G in each launch form."""
+        on its triangles).  Both kernels in each launch form.  Every
+        comparison must be exact: 0 lanes differ (H by every field's bits),
+        max |err| 0.  Each kernel is timed on its first-bounce rays, in
+        each launch form."""
         from win32_raytracer_tpu_torch.config import RenderConfig
         from win32_raytracer_tpu_torch.core.rng import fold_in, prng_key
         from win32_raytracer_tpu_torch.kernels import hit_cols as G
@@ -1795,14 +2077,14 @@ class Smoke:
                   "tri_cols": (H.hit_triangles_cols, hit_triangles, "H")}
         errs = {"hit_cols": 0.0, "tri_cols": 0.0}
 
-        def hold(name, tab, o, d, t, what):
-            """The kernel against its plain version; kernel G in each
-            launch form."""
+        def hold(name, tab, o, d, t, what, min_t=RenderConfig().min_hit_t):
+            """The kernel against its plain version in each launch form
+            (kernel H by every field's bits)."""
             kfn, pfn, letter = kernel[name]
-            rp = pfn(tab, o, d, t)
-            forms = HIT_FORMS if name == "hit_cols" else HIT_FORMS[:1]
-            res = {label: exact_cmp(rows_of(kfn(tab, o, d, t, **kw)), rows_of(rp))
-                   for label, kw in forms}
+            rp = pfn(tab, o, d, t, min_t=min_t)
+            cmp = exact_cmp if name == "hit_cols" else bits_cmp
+            res = {label: cmp(rows_of(kfn(tab, o, d, t, min_t, **kw)), rows_of(rp))
+                   for label, kw in HIT_FORMS}
             torch.cuda.synchronize()
             self.say(f"13 kernel {letter}", f"{what}: {o.shape[0]} rays, hits "
                      f"{float(rp.hit.float().mean()):.3f}: vs plain " + "; ".join(
@@ -1820,7 +2102,7 @@ class Smoke:
         final = hit_tables(get_scene("final", device=dev))
         mesh = hit_tables(get_scene("mesh", device=dev))
         rng = np.random.default_rng(41)
-        n = 1 << 18
+        n = RANDOM_RAYS
         o = rng.uniform([-12, 0.01, -12], [12, 4, 12], (n, 3))
         o[: n // 3] = [15.0, 2.0, 4.0] + rng.normal(0, 0.3, (n // 3, 3))
         o, d, t = cuda_t(o), cuda_t(rng.normal(0, 1, (n, 3))), cuda_t(rng.uniform(0, 0.05, n))
@@ -1835,8 +2117,50 @@ class Smoke:
                        [0.0, 0.35, 2.2] + rng.normal(0, 0.4, (n, 3)))
         hold("tri_cols", mesh.triangles, cuda_t(o), cuda_t(tgt - o),
              torch.zeros(n, device=dev), "random rays vs mesh")
+        # Kernel H on phase 6's tables and boundary pairs, and on mesh20k's
+        # 20,492 triangles (81 stages) with 262,144 of the wavefront's rays.
+        for kind, tab in tri_variant_tables(mesh.triangles, dev).items():
+            o_k, d_k = tri_rays(tab, n, seed=43 + len(kind))
+            hold("tri_cols", tab, o_k, d_k, torch.zeros(n, device=dev),
+                 f"aimed rays vs the {kind} table")
+        for min_t in (RenderConfig().min_hit_t, 0.0):
+            groups = self.tri_boundary_groups(min_t, cols=True)
+            for tab, o_k, d_k in groups:
+                kfn, pfn, _ = kernel["tri_cols"]
+                t_k = torch.zeros(o_k.shape[0], device=dev)
+                rp = rows_of(pfn(tab, o_k, d_k, t_k, min_t=min_t))
+                for label, kw in HIT_FORMS:
+                    lanes, e = bits_cmp(rows_of(kfn(tab, o_k, d_k, t_k, min_t, **kw)), rp)
+                    check(lanes == 0 and e == 0.0, f"kernel H {label} boundary "
+                          f"pairs, min_t {min_t}: {lanes} lanes differ, max |err| {e}")
+            self.say("13 kernel H", f"boundary pairs, min_t {min_t}: {len(groups)} "
+                     "tables of 32, every form 0 lanes differ")
+        cfg = RenderConfig(**WAVEFRONT_MESH)
+        w, h, spp = cfg.width, cfg.height, cfg.samples
+        st = make_primary_rays(default_camera(w, h, device=dev), 0,
+                               fold_in(fold_in(prng_key(0), 0), 1), cfg=cfg,
+                               width=w, height=h, spp=spp, rows=h)
+        pick = torch.linspace(0, st.origin.shape[0] - 1, n, device=dev).long()
+        big = hit_tables(get_scene("mesh20k", device=dev)).triangles
+        what = (f"mesh20k ({int(big.active.sum())} triangles, "
+                f"{-(-big.attrs.shape[0] // 256)} stages)")
+        o20, d20, t20 = (x[pick].contiguous() for x in (st.origin, st.direction, st.time))
+        del st
+        hold("tri_cols", big, o20, d20, t20, f"{what}, wavefront {w}x{h}@{spp} rays")
+        big_ms = {}
+        for _ in range(2):   # in turns: R = 1, R = 2, R = 1, R = 2
+            for k, kw in HIT_FORMS[1:]:
+                big_ms.setdefault(k, []).append(cuda_ms(
+                    lambda: H.hit_triangles_cols(big, o20, d20, t20, **kw), 5))
+        self.say("13 times", f"kernel H on {what} at {n} wavefront rays by launch "
+                 "form, in turns: " + ", ".join(
+                     f"{k} " + " / ".join(f"{v:.4f}" for v in vs) + " ms"
+                     for k, vs in big_ms.items()) + f" [{self.card}]")
+        del o20, d20, t20
+        hold("tri_cols", big, *tri_rays(big, n, seed=47), torch.zeros(n, device=dev),
+             f"{what}, aimed rays")
 
-        times, bounds = {}, {}
+        times, bounds, forms_ms = {}, {}, {}
         for name, label, size, tab, sub in (
                 ("hit_cols", "final", WAVEFRONT, final, final),
                 ("tri_cols", "mesh", WAVEFRONT_MESH, mesh, mesh.triangles)):
@@ -1858,9 +2182,8 @@ class Smoke:
                     args = (sub, st.origin, st.direction, st.time)
                     times[name] = (cuda_ms(lambda: kfn(*args), 10),
                                    cuda_ms(lambda: pfn(*args), 2))
-                    if name == "hit_cols":
-                        g_forms = {k: cuda_ms(lambda: kfn(*args, **kw), 10)
-                                   for k, kw in HIT_FORMS[1:]}
+                    forms_ms[name] = {k: cuda_ms(lambda: kfn(*args, **kw), 10)
+                                      for k, kw in HIT_FORMS[1:]}
                     rays = st.origin.shape[0]
                     st = bounce_step(tab, st, fold_in(key, 2), 0, cfg=cfg,
                                      hit_fn=plain_fn)
@@ -1873,9 +2196,8 @@ class Smoke:
                                 else (active * OPS_TRI_PAIR, 24))
             bounds[name] = bound(rays * ray_ops,
                                  rays * (per_ray + RECORD_BYTES) + table_bytes)
-            forms = ("; by launch form: " + ", ".join(
-                f"{k} {v:.3f} ms" for k, v in g_forms.items())
-                if name == "hit_cols" else "")
+            forms = "; by launch form: " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in forms_ms[name].items())
             self.say("13 times", f"kernel {kernel[name][2]} at {rays} rays x "
                      f"{active} {'spheres' if name == 'hit_cols' else 'triangles'}"
                      f": {times[name][0]:.3f} ms, plain {times[name][1]:.3f} ms, "
@@ -2448,9 +2770,10 @@ HIT_FORMS = (("default", {}),
              ("R=2", dict(_rays=2)))
 
 # The kernels whose registers and sweep loops phase 1 prints: the packed
-# sweep's (A, B, B-multi, E, G) and the grids' (D, I).
+# sweeps' (A, B, B-multi, E, G; C, H) and the grids' (D, I).
 SWEEP_KERNELS = ("hit_kernel", "bounce_kernel", "bounce_multi_kernel",
-                 "hit_sky_kernel", "hit_cols_kernel", "tri_grid_kernel",
+                 "hit_sky_kernel", "hit_cols_kernel", "tri_kernel",
+                 "tri_cols_kernel", "tri_grid_kernel",
                  "hit_grid_kernel", "tri_grid_schedule_kernel",
                  "hit_grid_schedule_kernel")
 
@@ -2491,8 +2814,8 @@ def main() -> int:
                     help="comma-separated phases to run (0 always runs)")
     ap.add_argument("--root", default=None,
                     help="import win32_raytracer_tpu_torch from this checkout "
-                         "(phase 17 times another commit's kernels A, B, D, "
-                         "E, G and I)")
+                         "(phase 17 times another commit's kernels A, B, C, "
+                         "D, E, G, H and I)")
     args = ap.parse_args()
     phases = {int(p) for p in args.phases.split(",")}
     if args.root:
@@ -2508,6 +2831,8 @@ def main() -> int:
     print(f"[0 device] {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}; package "
           f"{os.path.dirname(win32_raytracer_tpu_torch.__file__)}", flush=True)
+    print(f"[0 clocks] SM clock now, its maximum: "
+          f"{card_line('clocks.sm,clocks.max.sm')}", flush=True)
 
     smoke = Smoke(card)
     if phases - {0}:

@@ -2,7 +2,10 @@
 // the sphere grid's hit_grid.cu),
 // the fused bounce kernels (bounce.cu), the split bounce's hit+sky and
 // scatter+respawn kernels (hit_sky.cu, scatter.cu) and the triangle kernels
-// (tri.cu, tri_cols.cu, tri_grid.cu).
+// (tri.cu, tri_cols.cu, tri_grid.cu).  Two sweeps live here: the sphere
+// sweep (sweep_packed_rows: kernels A, B, B-multi, E, G and both of
+// kernel I's launches) and the triangle sweep (tri_hit_body: kernels C
+// and H); kernel D shares the triangle pair test tri_pair_geom only.
 //
 // Every function here mirrors a plain torch function of the package op for
 // op, in the same order (win32_raytracer_tpu_torch/ops/hit.py,
@@ -11,7 +14,8 @@
 // rounding.  With IEEE sqrtf and division
 // (nvcc's defaults without --use_fast_math) a kernel then rounds where its
 // plain version rounds; only the transcendental functions may differ in
-// the last place.
+// the last place.  The triangle sweep's mask pass (tri_may_hit) mirrors
+// nothing: it only skips pairs that the exact test provably rejects.
 #pragma once
 
 #include <cstdint>
@@ -365,36 +369,11 @@ enum TriCol : int {
   T_MAT, T_ALR, T_ALG, T_ALB, T_FUZZ, T_IOR, T_IDX, TRI_ATTR_COLS
 };
 
-constexpr int kTriTile = 128;        // triangles per shared-memory tile
 constexpr float kDetEps = 1e-9f;     // ops/hit_tri.py _DET_EPS
 
-struct TriTile {  // the geometry columns of up to kTriTile rows
-  float v0x[kTriTile], v0y[kTriTile], v0z[kTriTile];
-  float e1x[kTriTile], e1y[kTriTile], e1z[kTriTile];
-  float e2x[kTriTile], e2y[kTriTile], e2z[kTriTile];
-};
-
-// Stage rows [row0, row0 + cnt) of a [*, cols] attribute table into `sh`;
-// every thread of the block takes part.
-__device__ __forceinline__ void stage_tris(const float* __restrict__ attrs,
-                                           int cols, long long row0, int cnt,
-                                           TriTile& sh) {
-  for (int j = threadIdx.x; j < cnt; j += blockDim.x) {
-    const float* row = attrs + (size_t)(row0 + j) * cols;
-    sh.v0x[j] = row[T_V0X];
-    sh.v0y[j] = row[T_V0Y];
-    sh.v0z[j] = row[T_V0Z];
-    sh.e1x[j] = row[T_E1X];
-    sh.e1y[j] = row[T_E1Y];
-    sh.e1z[j] = row[T_E1Z];
-    sh.e2x[j] = row[T_E2X];
-    sh.e2y[j] = row[T_E2Y];
-    sh.e2z[j] = row[T_E2Z];
-  }
-}
-
 // The pair test of ops/hit_tri.py tri_pair_t against the triangle (v0, e1,
-// e2): t of a valid hit, else kNoHit.  Kernels C, D and H share it.
+// e2): t of a valid hit, else kNoHit.  Kernel D calls it on every pair,
+// kernels C and H on the pairs their mask pass keeps (tri_sweep_packed).
 __device__ __forceinline__ float tri_pair_geom(
     float v0x, float v0y, float v0z, float e1x, float e1y, float e1z,
     float e2x, float e2y, float e2z, float ox, float oy, float oz, float dx,
@@ -416,16 +395,6 @@ __device__ __forceinline__ float tri_pair_geom(
   const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
   const bool valid = ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > min_t;
   return valid ? t : kNoHit;
-}
-
-// tri_pair_geom against staged triangle j of `sh`.
-__device__ __forceinline__ float tri_pair_t(const TriTile& sh, int j,
-                                            float ox, float oy, float oz,
-                                            float dx, float dy, float dz,
-                                            float min_t) {
-  return tri_pair_geom(sh.v0x[j], sh.v0y[j], sh.v0z[j], sh.e1x[j], sh.e1y[j],
-                       sh.e1z[j], sh.e2x[j], sh.e2y[j], sh.e2z[j], ox, oy, oz,
-                       dx, dy, dz, min_t);
 }
 
 // The winner's record (ops/hit_tri.py tri_record_rows_from_gather): row
@@ -573,42 +542,209 @@ struct TriArgs {
   void* stream;
 };
 
-// One thread per ray; the block stages the triangle table through `sh`
-// and `act` tile by tile; strict < keeps the first index on ties.
-template <Layout L>
-__device__ __forceinline__ void hit_triangles_body(const TriArgs& a,
-                                                   TriTile& sh, int* act) {
-  const long long n = a.n;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool on = i < n;
-  const long long k = on ? i : 0;  // idle threads still help stage tiles
-  float ox, oy, oz, dx, dy, dz;
-  load3<L>(a.origin, k, n, ox, oy, oz);
-  load3<L>(a.direction, k, n, dx, dy, dz);
+// ---------------------------------------------------------------------------
+// The triangle sweep of kernels C and H (ops/hit_tri.py _sweep): the
+// nearest t of tri_pair_geom over every active row, strict < so the lowest
+// row keeps ties.  It has the sphere sweep's shape (sweep_packed):
+//  * Stages of up to kBlock candidate rows; only the active ones are
+//    staged, ascending, by the CTA's ballot-and-prefix count (cta_prefix),
+//    each as three float4s in kernel D's layout ({v0, e1x}, {e1y, e1z,
+//    e2x, e2y}, {e2z, 0, 0, 0}; the third read as one float) with its
+//    table row beside them in an int array, read only for a pair that
+//    passes the mask.  Any table size: the stages repeat.
+//  * R rays per thread (kernels/hit.rays_per_thread, as kernels A, E, G),
+//    so one staged triangle's loads serve R pair tests.
+//  * Each chunk of kTriChunk staged triangles is swept twice.  The first
+//    pass forms, by tri_pair_geom's own operations, det, un = tvec.pvec,
+//    vn = d.qvec and tn = e2.qvec (the numerators of u, v and t), and sets
+//    bit k where the pair may pass (tri_may_hit): no division, no select,
+//    no branch.  The second visits the set bits ascending and runs the
+//    exact test, tri_pair_geom, on the same staged values: the same
+//    operations give the same bits, so the winner, its t and its row are
+//    _sweep's.
+//
+// Why the mask keeps every pair the exact test accepts (tri_may_hit).  Let
+// D = |det| >= 1e-9 (ok), s = sign(det), and for any x of un, vn, tn the
+// real quotient x s / D.  inv_det = RN(1/det) = s (1 + d0) / D with
+// |d0| <= 2^-22 (2^-24 while 1/D is normal; 1/D >= 2^-128, so a subnormal
+// inv_det still errs by at most 2^-150 / 2^-128).  Flipping a sign is
+// exact, so us = un s, vs = vn s, ts = tn s and us + vs = s RN(un + vn)
+// are formed without rounding, and every bound below is compared as
+// "not provably out", so a NaN keeps its pair.
+//  * u >= 0 (also u = -0): if us < -D 2^-24 (D 2^-24 exact: D is normal),
+//    |un inv_det| > 2^-24 (1 - 2^-22) > 2^-25, so u = RN(un inv_det) is a
+//    negative number or -inf, never -0: the exact test rejects.  So does
+//    v with vs.
+//  * RN(u + v) <= 1: accepted u, v >= -0 give u + v <= 1 + 2^-24, and
+//    un s / D <= (u + 2^-150) / ((1 - 2^-24)(1 - 2^-22)) (the same for
+//    vn), so (un + vn) s <= D (1 + 2^-20) < D (1 + 2^-18); RN is
+//    monotone, so us + vs <= RN(D (1 + 2^-18)).  A larger margin than
+//    needed: its product is the one rounding, and an overflow to inf
+//    keeps the pair.
+//  * t > min_t: with min_t >= 2^-64, t is normal, tn s / D >= t /
+//    ((1 + 2^-24)(1 + 2^-22)) > min_t (1 - 2^-21), while lo = RN(min_t
+//    (1 - 2^-18)) <= min_t (1 - 2^-18)(1 + 2^-24); so ts >= D lo as
+//    reals, and the float ts >= RN(D lo).  Below 2^-64 (or NaN) lo is
+//    -inf and t does not filter.
+// det = +-inf passes the bounds (D 2^-24 = inf) where it must and fails
+// D lo = inf where t = tn * 0 cannot exceed min_t.  A far hit (t above
+// the running best) is kept: too rare to pay two operations a pair.
+// tests/test_torch_tri_sweep_packed.py writes this order in torch, holds
+// it to ops/hit_tri.py _sweep bit for bit and holds the mask to the exact
+// test on adversarial pairs (it fails with any margin set to zero).
+// A mask pair test is 41 f32 multiplies, adds and subtractions, the sign
+// flips, three margin products, a sum and five compares.
+// ---------------------------------------------------------------------------
 
-  float best_t = kNoHit;
-  int best_i = -1;
-  for (int base = 0; base < a.n_tris; base += kTriTile) {
-    const int cnt = min(kTriTile, a.n_tris - base);
-    __syncthreads();  // the previous tile is consumed
-    stage_tris(a.attrs, TRI_ATTR_COLS, base, cnt, sh);
-    for (int j = threadIdx.x; j < cnt; j += blockDim.x)
-      act[j] = a.active[base + j];
-    __syncthreads();
-    if (!on) continue;
-    for (int j = 0; j < cnt; ++j) {
-      if (!act[j]) continue;
-      const float t = tri_pair_t(sh, j, ox, oy, oz, dx, dy, dz, a.min_t);
-      if (t < best_t) {
-        best_t = t;
-        best_i = base + j;
+constexpr int kTriGeomF4 = 3;  // float4s per staged triangle (kernel D's kGeomF4)
+// Triangles per mask pass.  The pass is unrolled: at 32 triangles and two
+// rays a thread its body is 64 pair tests, some 3,600 instructions (57 KB),
+// which outgrew the instruction cache (two rays a thread measured 0.434 ms
+// at 32, 0.369 at 16, 0.360 at 8 on kernel C's main shape, one ray 0.39 at
+// each; PERF.md section 6).
+constexpr int kTriChunk = 8;
+
+struct TriStage {
+  float4 geo[kBlock * kTriGeomF4];  // {v0, e1x}, {e1y, e1z, e2x, e2y}, {e2z, 0...}
+  int row[kBlock];                  // the original row
+  int warp_cnt[kBlock / 32];        // active rows per warp of the stage
+};
+
+// Stage the active rows among rows [base, base + rows) (rows <= kBlock) of
+// a [*, TRI_ATTR_COLS] table into `sh`, ascending; returns how many.
+// blockDim.x must be kBlock and every thread must call it.  Its first
+// barrier (in cta_prefix) orders it after the previous stage's readers; it
+// ends behind a barrier.
+__device__ __forceinline__ int stage_tris_packed(const float* __restrict__ attrs,
+                                                 const uint8_t* __restrict__ active,
+                                                 int base, int rows,
+                                                 TriStage& sh) {
+  const int row = base + threadIdx.x;
+  const bool act = (int)threadIdx.x < rows && active[row] != 0;
+  int total;
+  const int pos = cta_prefix(act, sh.warp_cnt, total);
+  if (act) {
+    const float* g = attrs + (size_t)row * TRI_ATTR_COLS;
+    float4* dst = sh.geo + kTriGeomF4 * pos;
+    dst[0] = make_float4(g[T_V0X], g[T_V0Y], g[T_V0Z], g[T_E1X]);
+    dst[1] = make_float4(g[T_E1Y], g[T_E1Z], g[T_E2X], g[T_E2Y]);
+    dst[2] = make_float4(g[T_E2Z], 0.0f, 0.0f, 0.0f);
+    sh.row[pos] = row;
+  }
+  __syncthreads();
+  return total;
+}
+
+// The mask pass's pair test of ray r of `ry` against the staged triangle
+// (p, q, e2z): false only where tri_pair_geom provably returns kNoHit (the
+// bounds in the note above; lo = min_t (1 - 2^-18), or -inf).
+template <int R>
+__device__ __forceinline__ bool tri_may_hit(float4 p, float4 q, float e2z,
+                                            const Rays<R>& ry, int r, float lo) {
+  const float v0x = p.x, v0y = p.y, v0z = p.z, e1x = p.w;
+  const float e1y = q.x, e1z = q.y, e2x = q.z, e2y = q.w;
+  const float dx = ry.dx[r], dy = ry.dy[r], dz = ry.dz[r];
+  const float px = dy * e2z - dz * e2y;  // tri_pair_geom's operations
+  const float py = dz * e2x - dx * e2z;
+  const float pz = dx * e2y - dy * e2x;
+  const float det = e1x * px + e1y * py + e1z * pz;
+  const float tx = ry.ox[r] - v0x;
+  const float ty = ry.oy[r] - v0y;
+  const float tz = ry.oz[r] - v0z;
+  const float un = tx * px + ty * py + tz * pz;
+  const float qx = ty * e1z - tz * e1y;
+  const float qy = tz * e1x - tx * e1z;
+  const float qz = tx * e1y - ty * e1x;
+  const float vn = dx * qx + dy * qy + dz * qz;
+  const float tn = e2x * qx + e2y * qy + e2z * qz;
+  const float ad = fabsf(det);
+  const unsigned sg = __float_as_uint(det) & 0x80000000u;
+  const float us = __uint_as_float(__float_as_uint(un) ^ sg);
+  const float vs = __uint_as_float(__float_as_uint(vn) ^ sg);
+  const float ts = __uint_as_float(__float_as_uint(tn) ^ sg);
+  const float eps = ad * 0x1p-24f;
+  return (ad >= kDetEps) & !(us < -eps) & !(vs < -eps) &
+         !(us + vs > ad * (1.0f + 0x1p-18f)) & !(ts < ad * lo);
+}
+
+// The pair tests of R rays against the cnt staged triangles of `sh`, in
+// chunks of kTriChunk: the mask pass, then tri_pair_geom on the set bits,
+// ascending, strict <.
+template <int R>
+__device__ __forceinline__ void tri_sweep_stage(const TriStage& sh, int cnt,
+                                                const Rays<R>& ry, float min_t,
+                                                float lo, float* best_t,
+                                                int* best_i) {
+  for (int j0 = 0; j0 < cnt; j0 += kTriChunk) {  // j0 + kTriChunk <= kBlock
+    unsigned m[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) m[r] = 0u;
+#pragma unroll
+    for (int k = 0; k < kTriChunk; ++k) {
+      const float4* g = sh.geo + kTriGeomF4 * (j0 + k);
+      const float4 p = g[0], q = g[1];
+      const float e2z = g[2].x;
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        m[r] |= (tri_may_hit(p, q, e2z, ry, r, lo) ? 1u : 0u) << k;
+    }
+    const int left = cnt - j0;  // rows past cnt hold stale values
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (left < kTriChunk) m[r] &= (1u << left) - 1u;
+      while (m[r]) {
+        const int j = j0 + __ffs(m[r]) - 1;
+        m[r] &= m[r] - 1u;
+        const float4* g = sh.geo + kTriGeomF4 * j;
+        const float4 p = g[0], q = g[1];
+        const float t = tri_pair_geom(p.x, p.y, p.z, p.w, q.x, q.y, q.z, q.w,
+                                      g[2].x, ry.ox[r], ry.oy[r], ry.oz[r],
+                                      ry.dx[r], ry.dy[r], ry.dz[r], min_t);
+        if (t < best_t[r]) {
+          best_t[r] = t;
+          best_i[r] = sh.row[j];
+        }
       }
     }
   }
-  if (!on) return;
-  const HitRec h = tri_winner_record(a.attrs, TRI_ATTR_COLS, best_t, best_i,
-                                     ox, oy, oz, dx, dy, dz);
-  store_record<L>(h, i, n, a.out_f, a.out_i, a.out_hit);
+}
+
+// R rays per thread, rays blockIdx.x * kBlock * R + r * kBlock + threadIdx.x
+// (r < R); the block stages the active triangles kBlock candidate rows at
+// a time (stage_tris_packed) and sweeps each stage (tri_sweep_stage), then
+// each ray's winner is read by index once (kernels C and H).
+template <Layout L, int R>
+__device__ __forceinline__ void tri_hit_body(const TriArgs& a, TriStage& sh) {
+  const long long n = a.n;
+  const long long i0 = (long long)blockIdx.x * (kBlock * R) + threadIdx.x;
+  const bool on = i0 < n;  // idle threads still help stage
+  Rays<R> ry;
+  float best_t[R];
+  int best_i[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const long long i = i0 + (long long)r * kBlock;
+    const long long k = i < n ? i : 0;
+    load3<L>(a.origin, k, n, ry.ox[r], ry.oy[r], ry.oz[r]);
+    load3<L>(a.direction, k, n, ry.dx[r], ry.dy[r], ry.dz[r]);
+    best_t[r] = kNoHit;
+    best_i[r] = -1;
+  }
+  const float lo = a.min_t >= 0x1p-64f ? a.min_t * (1.0f - 0x1p-18f) : -f32_inf();
+  for (int base = 0; base < a.n_tris; base += kBlock) {
+    const int cnt = stage_tris_packed(a.attrs, a.active, base,
+                                      min(kBlock, a.n_tris - base), sh);
+    if (on && cnt > 0) tri_sweep_stage<R>(sh, cnt, ry, a.min_t, lo, best_t, best_i);
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const long long i = i0 + (long long)r * kBlock;
+    if (i >= n) break;
+    const HitRec h = tri_winner_record(a.attrs, TRI_ATTR_COLS, best_t[r],
+                                       best_i[r], ry.ox[r], ry.oy[r], ry.oz[r],
+                                       ry.dx[r], ry.dy[r], ry.dz[r]);
+    store_record<L>(h, i, n, a.out_f, a.out_i, a.out_hit);
+  }
 }
 
 // ---------------------------------------------------------------------------

@@ -122,11 +122,11 @@ def load() -> ctypes.CDLL:
             lib.wrt_hit_sky.restype = ctypes.c_int
             lib.wrt_scatter_respawn.argtypes = [ctypes.c_void_p, ctypes.c_int]
             lib.wrt_scatter_respawn.restype = ctypes.c_int
-            lib.wrt_hit_triangles.argtypes = [ctypes.c_void_p]
+            lib.wrt_hit_triangles.argtypes = [ctypes.c_void_p, ctypes.c_int]
             lib.wrt_hit_triangles.restype = ctypes.c_int
             lib.wrt_hit_spheres_cols.argtypes = [ctypes.c_void_p, ctypes.c_int]
             lib.wrt_hit_spheres_cols.restype = ctypes.c_int
-            lib.wrt_hit_triangles_cols.argtypes = [ctypes.c_void_p]
+            lib.wrt_hit_triangles_cols.argtypes = [ctypes.c_void_p, ctypes.c_int]
             lib.wrt_hit_triangles_cols.restype = ctypes.c_int
             lib.wrt_hit_tri_grid.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                              ctypes.c_int]

@@ -74,8 +74,8 @@ def _sm_count(index: int) -> int:
 
 
 def check_rays(who: str, rays: Optional[int]) -> None:
-    """A forced launch form of a packed-sweep kernel (A, E, G) is 1 or 2
-    rays per thread, on every device."""
+    """A forced launch form of a packed-sweep kernel (A, C, E, G, H) is 1
+    or 2 rays per thread, on every device."""
     if rays not in (None, 1, 2):
         raise ValueError(f"{who}: _rays must be 1 or 2, not {rays}")
 

@@ -2,7 +2,7 @@
 
 Two-sided Moller-Trumbore in exact f32, in the operation order of the
 reference's sweep (``win32_raytracer_tpu/ops/hit_tri.py``) and of the CUDA
-kernels (csrc/common.cuh ``tri_pair_t``): triangles with ``|det| < 1e-9``
+kernels (csrc/common.cuh ``tri_pair_geom``): triangles with ``|det| < 1e-9``
 are rejected, the nearest ``t > min_t`` wins and the earliest index keeps
 exact ties; inactive (padding) triangles are masked.  The shading normal is
 the unit geometric normal e1 x e2; entering and exiting are resolved by the
