@@ -61,7 +61,24 @@ checks that each kernel of a path ran in it:
   grid headline's second bounce), C at the ``mesh`` render's bounce-1
   rays and H at the wavefront ``mesh``'s, with the public entry points only, so
   that ``--root`` can point it at another checkout of the package (an
-  earlier commit, for a side-by-side timing).
+  earlier commit, for a side-by-side timing);
+* phase 18: the persistent scheduler's opt-in knobs on the headline: the
+  route compactor against the sort compactor on the headline's state at
+  its first above-floor compaction (alive slots bit-equal, padding inert);
+  the window flush and the run-sum flush against ``index_add_`` on the
+  headline's dropped tails (sorted, argsorted, sparse) with TF32 matmuls
+  allowed; ``p_render_until`` against stepped bounces on the staged
+  tail's first stage; a receiver event's per-pixel sample accounting; and
+  the headline under each of ``compactor="route"``, ``flush_mode=
+  "window"``, ``one_shot`` "on" and "staged" and ``redistribute="on"``
+  beside the default (mean, launches, median wall, host reads, time in
+  compactions);
+* phase 19: checkpoints on the card: two uninterrupted headlines
+  bit-equal (and, for comparison, the same with ``index_add_`` as the
+  flush), the headline resumed at pass level (4 passes) and at chunk
+  level (4 row chunks), the wavefront's ``final`` 1200x800@4 resumed at
+  pass level, each byte-identical to its uninterrupted render, and one
+  CLI render with ``--checkpoint``.
 
 Phase 1 prints each sweep kernel's registers, spills and shared memory
 and, from ``cuobjdump -sass`` of the built library, the instruction mix
@@ -81,6 +98,7 @@ device.
     python3 chip_smoke.py --phases 0,1,2,3,5,9,10,13,15   # the packed sweep
     python3 chip_smoke.py --phases 0,1,6,7,8,13,14,17   # the triangle sweeps
     python3 chip_smoke.py --phases 0,1,17 --root out/parent  # A-E, G, H, I of a checkout
+    python3 chip_smoke.py --phases 0,1,18,19   # the scheduler's knobs and checkpoints
 
 Needs a CUDA card and nvcc.
 """
@@ -105,6 +123,9 @@ MANY_TILE_RAYS = 1 << 16    # phase 7's rays on the grid of 61,440 tiles
 MANY_GLOBAL_RAYS = 1 << 18  # phase 15's rays on the grids of many globals
 HEADLINE_MEAN = 170.1   # the JAX renderer's u8 image mean for this scene and size
 HEADLINE_MEAN_TOL = 1.5
+# Phase 19's chunk-level checkpoint: 983,040 rays a chunk give the headline
+# 4 chunks of up to 204 rows.
+HEADLINE_CHUNK_RAYS = 983040
 CONFIG4 = dict(width=800, height=450, samples=50)   # BASELINE.json config 4
 SMALL_MESH = dict(width=160, height=90, samples=8, seed=2)
 # The wavefront's full-width render and its mesh render (phases 13-14).
@@ -2739,6 +2760,383 @@ class Smoke:
             check(d == 0.0, f"hit_fn={label}: render differs from plain")
             check_route(got, ran, (), f"render(hit_fn={label} adapter)")
 
+    # ---- phase 18 ---------------------------------------------------------
+    def knobs(self):
+        """The persistent scheduler's opt-in knobs on the headline: the
+        route compactor against the sort compactor on the headline's state
+        at its first above-floor compaction; the window flush and the
+        run-sum flush against ``index_add_`` on the headline's dropped
+        tails with TF32 matmuls allowed; ``p_render_until`` against
+        successive ``p_bounce_step`` calls on the staged tail's first
+        stage; the per-pixel accounting of a receiver event; then each
+        knob's full headline (mean, launches, wall, host reads,
+        compaction time)."""
+        import win32_raytracer_tpu_torch.persistent as P
+        from win32_raytracer_tpu_torch.api import render
+        from win32_raytracer_tpu_torch.config import RenderConfig
+
+        cfg = RenderConfig(**HEADLINE)
+        kpp = P._resolve_kpp(cfg, cfg.samples)
+        caught = {}
+        real_compact, real_until = P._compact, P.p_render_until
+
+        def clone_state(st):
+            return P.PathState(*(x.clone() for x in st))
+
+        def catch_compact(st, accum, **k):
+            key = "above" if k.get("tail_sorted") else "below"
+            if key not in caught:
+                caught[key] = (clone_state(st), accum.clone(), dict(k))
+            return real_compact(st, accum, **k)
+
+        def catch_until(*a, **k):
+            if "until" not in caught:
+                caught["until"] = (a[:2] + (clone_state(a[2]),) + a[3:], dict(k))
+            return real_until(*a, **k)
+
+        P._compact, P.p_render_until = catch_compact, catch_until
+        try:
+            render("final", cfg=cfg.replace(one_shot="staged"), device=self.dev)
+        finally:
+            P._compact, P.p_render_until = real_compact, real_until
+        check({"above", "below", "until"} <= set(caught),
+              f"the headline's events not all seen: {sorted(caught)}")
+        self.route_vs_sort(P, *caught["above"], kpp)
+        self.flushes(P, caught, kpp)
+        self.until_vs_steps(P, *caught["until"])
+        self.receivers(P, cfg)
+        self.knob_headlines(P, cfg)
+
+    def route_vs_sort(self, P, st, accum, kw, kpp):
+        """Route and sort compactions of one state: the alive slots bit for
+        bit, the route's padding inert, per pixel flushed + retained
+        radiance to f32 summation order; each engine event-timed."""
+        k_new = kw["k_new"]
+        na = int(st.path_alive.sum())
+
+        def sort_c():
+            return P._compact(st, accum.clone(), k_new=k_new,
+                              lanes_per_pixel=kpp, tail_sorted=True)
+
+        def route_c():
+            return P._compact_route(st, accum.clone(), k_new=k_new,
+                                    lanes_per_pixel=kpp)
+        new_s, acc_s = sort_c()
+        new_r, acc_r = route_c()
+        lanes, err = exact_cmp(tuple(x[:, :na] for x in new_r),
+                               tuple(x[:, :na] for x in new_s))
+        inert = bool((new_r.s_quota[0, na:] == 0).all()
+                     and (new_r.sample[0, na:] == 0).all()
+                     and not new_r.path_alive[0, na:].any())
+
+        def totals(new, acc):
+            t = acc.double().clone()
+            t.index_add_(1, (new.pixel[0] // kpp).long(), new.radiance_sum.double())
+            return t
+        ta, tb = totals(new_r, acc_r), totals(new_s, acc_s)
+        rel = float(((ta - tb).abs() / tb.abs().clamp_min(1e-3)).max())
+        ms_s, ms_r = cuda_ms(sort_c, 5), cuda_ms(route_c, 5)
+        self.say("18 route", f"headline's first above-floor compaction, "
+                 f"{st.pixel.shape[1]} -> {k_new} lanes ({na} alive): route vs "
+                 f"sort alive slots {lanes} lanes differ, max |err| {err:.1e} "
+                 f"(must be 0); padding inert {inert}; per-pixel accumulated + "
+                 f"retained radiance max rel diff {rel:.2e} (<= 1e-5, f32 "
+                 f"summation order); sort {ms_s:.3f} ms, route {ms_r:.3f} ms "
+                 f"[{self.card}]")
+        check(lanes == 0 and err == 0.0, "route and sort alive slots differ")
+        check(inert, "the route's padding is not inert")
+        check(rel <= 1e-5, f"route vs sort accumulator: {rel}")
+
+    def flushes(self, P, caught, kpp):
+        """The window flush and the run-sum flush against index_add_ on the
+        headline's dropped tails (the first above-floor compaction's,
+        pixel-ascending; the first split event's, argsorted; a sparse one
+        that overflows the window), with TF32 matmuls allowed around the
+        calls; and, to show the check would catch it, a TF32 contraction."""
+        st, acc, kw = caught["above"]
+        key = (~st.path_alive[0]).to(torch.int32) * P._SORT_PIX_LIM + st.pixel[0]
+        tail = torch.sort(key, stable=True).indices[kw["k_new"]:]
+        pix_s = st.pixel[0, tail] // kpp
+        rad_s = st.radiance_sum[:, tail]
+        st_b, acc_b, kw_b = caught["below"]
+        tail_b = torch.sort((~st_b.path_alive[0]).to(torch.int32),
+                            stable=True).indices[kw_b["k_new"]:]
+        pix_b = st_b.pixel[0, tail_b] // kpp
+        order = torch.sort(pix_b, stable=True).indices
+        head = min(100_000, pix_s.shape[0] // 2)
+        sparse = torch.cat([torch.arange(head, device=self.dev),
+                            torch.arange(head, pix_s.shape[0], 600, device=self.dev)])
+        tails = {"sorted": (acc, pix_s, rad_s),
+                 "argsorted": (acc_b, pix_b[order], st_b.radiance_sum[:, tail_b][:, order]),
+                 "sparse": (acc, pix_s[sparse], rad_s[:, sparse])}
+        m = torch.backends.cuda.matmul
+        m.allow_tf32 = True
+        try:
+            for label, (a0, pix, rad) in tails.items():
+                check(bool((pix[1:] >= pix[:-1]).all()), f"{label} tail not ascending")
+                want = a0.clone().index_add_(1, pix, rad)
+                pad = (-pix.shape[0]) % P._FLUSH_BLOCK
+                p2 = torch.cat([pix, pix[-1:].expand(pad)]).reshape(-1, P._FLUSH_BLOCK)
+                over = int(((p2[:, -1] - p2[:, 0] // 128 * 128) >= P._FLUSH_WIN).sum())
+                errs = {}
+                for name, fn in (("window", lambda: P._window_flush(a0.clone(), pix, rad)),
+                                 ("run-sum", lambda: P._flush(a0.clone(), pix, rad,
+                                                              ascending=True))):
+                    got = fn()
+                    errs[name] = float(((got - want).abs()
+                                        / want.abs().clamp_min(1e-3)).max())
+                    errs[name + " ms"] = cuda_ms(fn, 3)
+                plain_ms = cuda_ms(lambda: a0.clone().index_add_(1, pix, rad), 3)
+                self.say("18 flush", f"{label} tail, {pix.shape[0]} lanes "
+                         f"({over} of {p2.shape[0]} blocks overflow the window), "
+                         f"TF32 allowed: max rel diff vs index_add_ window "
+                         f"{errs['window']:.2e}, run-sum {errs['run-sum']:.2e} "
+                         f"(<= 1e-5); window {errs['window ms']:.3f} ms, run-sum "
+                         f"{errs['run-sum ms']:.3f} ms, index_add_ {plain_ms:.3f} ms "
+                         f"[{self.card}]")
+                check(errs["window"] <= 1e-5 and errs["run-sum"] <= 1e-5,
+                      f"{label} tail flush: {errs}")
+                check(over > 0 or label != "sparse",
+                      "the sparse tail does not reach the run-sum path")
+            # A TF32 contraction of the sorted tail's first block.
+            b, w = P._FLUSH_BLOCK, P._FLUSH_WIN
+            pix, rad = pix_s[:b], rad_s[:, :b]
+            w0 = int(pix[0]) // 128 * 128
+            onehot = ((pix - w0)[:, None] == torch.arange(w, device=self.dev)).float()
+            tf32 = rad @ onehot
+        finally:
+            m.allow_tf32 = False
+        exact = torch.zeros((3, w), device=self.dev).index_add_(1, pix - w0, rad)
+        tf32_err = float(((tf32 - exact).abs() / exact.abs().clamp_min(1e-3)).max())
+        self.say("18 flush", f"the same first block contracted with TF32 "
+                 f"allowed and not pinned: max rel diff {tf32_err:.2e} (over the "
+                 f"1e-5 bound: {tf32_err > 1e-5})")
+
+    def until_vs_steps(self, P, args, kw):
+        """p_render_until on the card from the staged headline's first
+        stage state against successive p_bounce_step calls: the same exit
+        step and count and a bit-equal state."""
+        scene, cam, st0, salt, step0, target, dims, max_steps = args
+        P.HOST_READS = 0
+        st_u, step_u, cnt_u = P.p_render_until(*args, **kw)
+        reads = P.HOST_READS
+        seq, step = st0, step0
+        while True:
+            step += 1
+            seq = P.p_bounce_step(scene, cam, seq, salt, step, dims, **kw)
+            cnt = int(seq.path_alive.sum())
+            if cnt <= target or step >= max_steps:
+                break
+        lanes, err = exact_cmp(tuple(st_u), tuple(seq))
+        self.say("18 until", f"staged headline's first stage: {st0.pixel.shape[1]} "
+                 f"lanes from step {step0}, target {target}: p_render_until "
+                 f"step {step_u}, count {cnt_u}, {reads} host reads; stepped "
+                 f"step {step}, count {cnt}; {lanes} lanes differ, max |err| "
+                 f"{err:.1e} (must be 0)")
+        check((step_u, cnt_u) == (step, cnt), "p_render_until exit differs")
+        check(lanes == 0 and err == 0.0, "p_render_until state differs")
+
+    def receivers(self, P, cfg):
+        """The headline with redistribute="on": at each receiver event the
+        unstarted samples per pixel are unchanged, exactly."""
+        from win32_raytracer_tpu_torch.api import render
+        kpp = P._resolve_kpp(cfg, cfg.samples)
+        real = P._compact
+        events = []
+
+        def remaining(st):
+            rem = torch.clamp_min(st.s_quota - 1 - st.sample, 0)[0].long()
+            out = torch.zeros(cfg.width * cfg.height, dtype=torch.long,
+                              device=self.dev)
+            return out.index_add_(0, (st.pixel[0] // kpp).long(), rem)
+
+        def spy(st, accum, **k):
+            new, acc = real(st, accum, **k)
+            if k.get("n_receivers"):
+                moved = int(new.s_quota[0, -k["n_receivers"]:].sum())
+                events.append((st.pixel.shape[1], k["k_new"], k["n_receivers"],
+                               moved, bool(torch.equal(remaining(st),
+                                                       remaining(new)))))
+            return new, acc
+        P._compact = spy
+        try:
+            res = render("final", cfg=cfg.replace(redistribute="on"), device=self.dev)
+        finally:
+            P._compact = real
+        self.say("18 receivers", f"headline, redistribute=on: {len(events)} "
+                 "receiver events (lanes -> kept, receivers, samples moved, "
+                 f"per-pixel unstarted samples equal): {events}; image mean "
+                 f"{res.image.mean():.3f}")
+        check(events, "no receiver event on the headline")
+        check(all(e[-1] for e in events), "a receiver event lost samples")
+
+    def knob_headlines(self, P, cfg):
+        """Each knob's full headline: the u8 mean, the launches (kernel B,
+        and kernel A or B-multi), the wall (median of 3 after a warm call),
+        the host reads of a render and the event-timed span of its
+        compactions."""
+        from win32_raytracer_tpu_torch.api import render
+        self.knob_walls = {}
+        for label, knob in KNOBS:
+            c = cfg.replace(**knob)
+            render("final", cfg=c, device=self.dev)
+            walls = []
+            for _ in range(3):
+                reset_launches()
+                P.HOST_READS = 0
+                torch.cuda.synchronize()
+                res = render("final", cfg=c, device=self.dev)
+                walls.append(res.duration_ms / 1e3)
+                got, reads = launches(), P.HOST_READS
+            spans = []
+            real = {name: getattr(P, name) for name in ("_compact", "_compact_route")}
+
+            def timed(fn):
+                def wrapper(*a, **k):
+                    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                    s.record()
+                    out = fn(*a, **k)
+                    e.record()
+                    spans.append((s, e))
+                    return out
+                return wrapper
+            for name, fn in real.items():
+                setattr(P, name, timed(fn))
+            try:
+                render("final", cfg=c, device=self.dev)
+                torch.cuda.synchronize()
+            finally:
+                for name, fn in real.items():
+                    setattr(P, name, fn)
+            comp_ms = sum(s.elapsed_time(e) for s, e in spans)
+            mean = float(res.image.mean())
+            wall = float(np.median(walls))
+            self.knob_walls[label] = wall
+            self.say("18 " + label, f"final {c.width}x{c.height}@{c.samples}: "
+                     f"wall median {wall:.4f} s of {[round(x, 4) for x in walls]} "
+                     f"(default {self.knob_walls['default']:.4f} s), image mean "
+                     f"{mean:.3f} (170.1 +- 1.5), {reads} host reads, "
+                     f"{len(spans)} compactions spanning {comp_ms:.2f} ms on the "
+                     f"stream, launches {got} [{self.card}]")
+            check(abs(mean - HEADLINE_MEAN) <= HEADLINE_MEAN_TOL,
+                  f"{label}: headline image mean {mean}")
+            check(got["bounce"] > 0 and (got["hit"] > 0 or got["bounce_multi"] > 0),
+                  f"{label}: launches {got}")
+            check_route(got, ("bounce",), ("hit", "bounce_multi"), label)
+
+    # ---- phase 19 ---------------------------------------------------------
+    def checkpoints(self):
+        """Checkpoints on the card: two uninterrupted headlines bit-equal in
+        their linear f32 images (and the same with index_add_ as the flush,
+        for comparison, with both flushes' walls); the headline at 4 passes
+        stopped after 2 and resumed, byte-identical and its .npz
+        accumulator bit-equal; the headline in 4 row chunks stopped after 2
+        and resumed; the wavefront's final 1200x800@4 in 2 passes stopped
+        after 1 and resumed; one CLI render with --checkpoint."""
+        import win32_raytracer_tpu_torch.persistent as P
+        from win32_raytracer_tpu_torch.config import RenderConfig
+        from win32_raytracer_tpu_torch.io.image import read_image
+        from win32_raytracer_tpu_torch.scene.builders import get_scene
+        from win32_raytracer_tpu_torch.utils import checkpoint as CK
+
+        dev = self.dev
+        cfg = RenderConfig(**HEADLINE)
+        scene = get_scene("final", device=dev)
+
+        def linear():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = P.render_image_persistent(scene, None, cfg)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        real = P._flush
+
+        def index_add(accum, pix, rad, ascending=False):
+            return accum.index_add_(1, pix, rad)
+        linear()
+        runs = {"run-sum": [], "index_add_": []}
+        for flush in ("run-sum", "index_add_", "index_add_", "run-sum",
+                      "run-sum", "index_add_"):
+            P._flush = real if flush == "run-sum" else index_add
+            try:
+                runs[flush].append(linear())
+            finally:
+                P._flush = real
+        diff = {k: [int((v[0][0] != x[0]).any(-1).sum()) for x in v[1:]]
+                for k, v in runs.items()}
+        walls = {k: [round(x[1], 4) for x in v] for k, v in runs.items()}
+        self.say("19 determinism", f"headline linear f32 images, runs 2-3 vs run 1, "
+                 f"pixels that differ: run-sum flush {diff['run-sum']} (must be 0), "
+                 f"index_add_ flush {diff['index_add_']}; walls (interleaved) "
+                 f"run-sum {walls['run-sum']} s (median "
+                 f"{np.median(walls['run-sum']):.4f}), index_add_ "
+                 f"{walls['index_add_']} s (median {np.median(walls['index_add_']):.4f}) "
+                 f"[{self.card}]")
+        check(diff["run-sum"] == [0, 0], "two headlines differ")
+        del runs
+
+        root = os.path.dirname(os.path.abspath(__file__))
+        ck_dir = os.path.join(root, "out", "chip_smoke_ckpt")
+        shutil.rmtree(ck_dir, ignore_errors=True)
+        os.makedirs(ck_dir)
+
+        def ck(name):
+            return os.path.join(ck_dir, name)
+
+        def run(c, path, sc=scene, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img = CK.render_with_checkpoints(sc, None, c, path, device=dev, **kw)
+            return img, time.perf_counter() - t0
+
+        cases = (("pass level, persistent", cfg, 4, dict(max_passes_per_run=2), {}),
+                 ("chunk level", cfg.replace(rays_per_chunk=HEADLINE_CHUNK_RAYS), 1,
+                  dict(max_chunks_per_run=2), dict(chunk_checkpoints=True)),
+                 ("pass level, wavefront", RenderConfig(**WAVEFRONT), 2,
+                  dict(max_passes_per_run=1), {}))
+        for label, c, passes, stop, resume in cases:
+            tag = label.replace(" ", "_").replace(",", "")
+            full, t_full = run(c, ck(tag + "_full.npz"), passes=passes)
+            part, t_part = run(c, ck(tag + "_part.npz"), passes=passes, **stop)
+            mid = CK.load_checkpoint(ck(tag + "_part.npz"))
+            resumed, t_res = run(c, ck(tag + "_part.npz"), passes=passes, **resume)
+            a = CK.load_checkpoint(ck(tag + "_full.npz"))
+            b = CK.load_checkpoint(ck(tag + "_part.npz"))
+            same_img = resumed is not None and np.array_equal(full, resumed)
+            same_acc = bool(np.array_equal(a[0], b[0])) and a[1] == b[1] == passes
+            self.say("19 " + label, f"{c.width}x{c.height}@{c.samples} in "
+                     f"{passes} pass(es): uninterrupted {t_full:.3f} s; stopped "
+                     f"({'pass' if mid[1] else 'chunk y0'} "
+                     f"{mid[1] or mid[2]['chunk_y0']}) in {t_part:.3f} s and "
+                     f"resumed in {t_res:.3f} s: u8 image identical {same_img}, "
+                     f".npz accumulator bit-equal {same_acc}, mean "
+                     f"{full.mean():.3f} [{self.card}]")
+            check(part is None, f"{label}: the stopped run finished")
+            check(same_img and same_acc, f"{label}: the resumed render differs")
+
+        out = ck("cli.bmp")
+        path = ck("cli.npz")
+        cmd = [sys.executable, "-m", "win32_raytracer_tpu_torch.cli", "96", "64",
+               "16", "--scene", "test", "--checkpoint", path, "--passes", "2",
+               "--out", out]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=root,
+                              timeout=600)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"CLI exit {proc.returncode}: {proc.stderr[-2000:]}")
+        img = read_image(out)
+        want, _ = run(RenderConfig(width=96, height=64, samples=16, stratify=False),
+                      ck("cli_in_process.npz"), sc=get_scene("test"), passes=2)
+        saved = CK.load_checkpoint(path)
+        self.say("19 cli", f"{' '.join(cmd[3:6])} --checkpoint ... --passes 2 in "
+                 f"{wall:.2f} s (process included): "
+                 f"{' | '.join(proc.stderr.strip().splitlines())}; passes done "
+                 f"{saved[1]}, BMP equal to the in-process checkpointed render: "
+                 f"{bool(np.array_equal(img, want))}")
+        check(saved[1] == 2, "CLI checkpoint passes")
+        check(np.array_equal(img, want), "CLI checkpointed image differs")
+
 
 # Phase 11's routes: (label, knob, kernels the route must launch, the
 # kernel whose main path it is); kernel A may run below the floor on any.
@@ -2751,6 +3149,13 @@ ROUTES = (
      ("bounce", "bounce_multi"), "bounce_multi"),
 )
 ROUTE_SMALL = dict(width=160, height=120, samples=16, seed=2)
+# Phase 18's knobs of the persistent scheduler, each on the headline.
+KNOBS = (("default", {}),
+         ("compactor=route", dict(compactor="route")),
+         ("flush_mode=window", dict(flush_mode="window")),
+         ("one_shot=on", dict(one_shot="on")),
+         ("one_shot=staged", dict(one_shot="staged")),
+         ("redistribute=on", dict(redistribute="on")))
 # Kernel I's launches on the sphere grid: schedule kernel, then the sweep.
 GRID_ROUTE = ("hit_grid_sched", "hit_grid")
 CONFIG5 = dict(width=640, height=480, samples=32, seed=3)   # bench/configs.py:85-110
@@ -2810,7 +3215,7 @@ KERNEL_META = {
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,18,19",
                     help="comma-separated phases to run (0 always runs)")
     ap.add_argument("--root", default=None,
                     help="import win32_raytracer_tpu_torch from this checkout "
@@ -2870,6 +3275,10 @@ def main() -> int:
         smoke.grid_path()
     if 17 in phases:
         smoke.ab_times()
+    if 18 in phases:
+        smoke.knobs()
+    if 19 in phases:
+        smoke.checkpoints()
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, **{f: smoke.kernels[key][f] for f in keys},

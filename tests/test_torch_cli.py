@@ -80,16 +80,19 @@ def test_animate_writes_frames(tmp_path):
         assert read_image(str(tmp_path / f"fly_{i:04d}.png")).shape == (16, 24, 3)
 
 
-def test_refusals():
-    """Not ported yet: more than one device (ROADMAP Queue 1 item 11) and
-    --checkpoint (Queue 1 item 8); --animate with --checkpoint exits 2 as
-    in the reference; an unknown --platform raises; with no platform the
-    card is required, as api.resolve_device requires it."""
+def test_refusals(tmp_path):
+    """Not ported yet: more than one device (ROADMAP Queue 1 item 11);
+    --animate with --checkpoint exits 2 as in the reference; an unknown
+    --platform raises; with no platform the card is required, as
+    api.resolve_device requires it.  --checkpoint renders and resumes:
+    a checkpoint left after one of two passes, resumed by the CLI, gives
+    the bytes of an uninterrupted CLI run."""
+    from win32_raytracer_tpu_torch.scene.builders import get_scene
+    from win32_raytracer_tpu_torch.utils.checkpoint import (
+        load_checkpoint, render_with_checkpoints)
     base = ["16", "8", "2", "--scene", "test", "--quiet"]
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         cli.main(["16", "8", "2", "2", "--platform", "cpu", "--quiet"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        cli.main(base + ["--platform", "cpu", "--checkpoint", "x.npz"])
     assert cli.main(base + ["--platform", "cpu", "--animate", "2",
                             "--checkpoint", "x.npz"]) == 2
     with pytest.raises(ValueError, match="platform"):
@@ -97,3 +100,21 @@ def test_refusals():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(base)
+
+    ck = ["16", "8", "16", "--scene", "test", "--seed", "5", "--passes", "2",
+          "--platform", "cpu", "--quiet"]
+    full, half = tmp_path / "full.npz", tmp_path / "half.npz"
+    out_full, out_half = tmp_path / "full.bmp", tmp_path / "half.bmp"
+    assert cli.main(ck + ["--checkpoint", str(full), "--out",
+                          str(out_full)]) == 0
+    assert load_checkpoint(str(full))[1] == 2
+    # The CLI's config (8 spp a pass: the persistent scheduler).
+    cfg = TC(width=16, height=8, samples=16, seed=5, stratify=False)
+    assert render_with_checkpoints(get_scene("test"), None, cfg, str(half),
+                                   passes=2, max_passes_per_run=1,
+                                   device="cpu") is None
+    assert load_checkpoint(str(half))[1] == 1
+    assert cli.main(ck + ["--checkpoint", str(half), "--out",
+                          str(out_half)]) == 0
+    assert out_half.read_bytes() == out_full.read_bytes()
+    assert load_checkpoint(str(half))[1] == 2

@@ -12,8 +12,10 @@ The render runs on the CUDA card; ``--platform cpu`` renders on the CPU
 (the kernels' plain versions), and without either a missing card raises.
 ``perfTest`` (or ``--perf-test``) writes the elapsed ms to the perf file
 and exits (Game.cpp:187-191, 222-228), with a JSON line of Mrays/s on
-stdout.  ``devices`` > 1 and ``--checkpoint`` are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+stdout.  ``--checkpoint FILE`` renders in ``--passes`` resumable passes
+(utils/checkpoint.py; run the command again to resume).  ``devices`` > 1
+is not ported yet and raises ``NotImplementedError`` naming its ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -134,8 +136,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with --animate: skip batches whose frame files "
                         "already exist")
     p.add_argument("--checkpoint", default="",
-                   help="checkpoint file for resumable rendering (not "
-                        "ported yet)")
+                   help="checkpoint file for resumable rendering")
     p.add_argument("--passes", type=int, default=10,
                    help="resumable passes for --checkpoint (must divide "
                         "samples)")
@@ -256,12 +257,34 @@ def main(argv=None) -> int:
         return 0
 
     if args.checkpoint:
-        raise NotImplementedError(
-            "--checkpoint is not ported yet: ROADMAP Queue 1 item 8 "
-            "(utils/checkpoint.py)")
-
-    result = render(args.scene, cfg=cfg, shard_mode=args.shard_mode,
-                    device=device)
+        # A resumable render (utils/checkpoint.py): rerun the same command
+        # to resume from the file.
+        from .api import RenderResult
+        from .scene.builders import get_scene
+        from .utils.checkpoint import load_checkpoint, render_with_checkpoints
+        prior = load_checkpoint(args.checkpoint)
+        passes_before = prior[1] if prior is not None else 0
+        t0 = time.perf_counter()
+        img = render_with_checkpoints(get_scene(args.scene), None, cfg,
+                                      args.checkpoint, passes=args.passes,
+                                      device=device)
+        dur = (time.perf_counter() - t0) * 1e3
+        if img is None:
+            log("checkpoint budget exhausted; rerun to resume")
+            return 0
+        # Throughput counts only the passes this run rendered.
+        rendered_passes = max(0, args.passes - passes_before)
+        rays = (cfg.width * cfg.height * cfg.samples
+                * rendered_passes / args.passes)
+        if passes_before:
+            log(f"resumed at pass {passes_before}/{args.passes}; "
+                f"throughput counts {rendered_passes} rendered pass(es)")
+        result = RenderResult(image=img, duration_ms=dur, config=cfg,
+                              mrays_per_sec=rays / (dur / 1e3) / 1e6,
+                              device=str(device))
+    else:
+        result = render(args.scene, cfg=cfg, shard_mode=args.shard_mode,
+                        device=device)
     log(f"render duration: {result.duration_ms:.0f} ms "
         f"({result.mrays_per_sec:.2f} Mrays/s primary)")
 

@@ -10,6 +10,15 @@ the (dead, pixel) key onto the mantissa size grid, the dropped tail's
 radiance added into ``accum``), and below it splits unstarted samples onto
 clone lanes.
 
+The reference's opt-in knobs: ``compactor="route"`` (a stable partition
+by the alive bit, :func:`_route_partition`), ``flush_mode="window"``
+(:func:`_window_flush`), ``redistribute="on"`` (receiver lanes at
+above-floor compactions, :func:`_receive`), and ``one_shot`` "on" (the
+tail below the floor finished by :func:`p_render_oneshot`) and "staged"
+(:func:`p_render_until` stages between compact + split events).  Every
+flush adds in an order fixed by its stream (:func:`_flush`), so a render
+repeats bit for bit on a card and a checkpointed one resumes exactly.
+
 Bounces (:func:`resolve_routes`, the reference's resolution): on a plain
 sphere scene, above the floor one call of the fused bounce kernel
 (kernels/bounce.py); at or below it the sphere kernel (kernels/hit.py)
@@ -42,7 +51,7 @@ one shot.  Draws key on (salt, step, lane position) exactly as in the
 reference, so the same schedule draws the same numbers.
 
 State is [3, N] / [1, N] rows, as in the reference.  ``accum`` is updated
-in place (``index_add_``), which saves a copy of the image per flush.
+in place, which saves a copy of the image per flush.
 """
 
 from __future__ import annotations
@@ -273,16 +282,50 @@ def p_render_oneshot(scene, cam: Camera, st: PathState, salt,
     is dead or ``max_steps``.  After a bounce a dead lane has spent its
     quota (the bounce's respawn would have revived it otherwise), so the
     bounces after the last lane dies change nothing; the alive flag is
-    read only every ``_ONESHOT_SYNC`` bounces."""
+    read only every ``_ONESHOT_SYNC`` bounces.  As the tail finisher
+    (one_shot="on") it takes over a chunk at ``step0`` from the host loop."""
     step = step0
     while step < max_steps:
         for _ in range(min(_ONESHOT_SYNC, max_steps - step)):
             step += 1
             st = p_bounce_step(scene, cam, st, salt, step, dims, cfg=cfg,
                                hit_fn=hit_fn, lean=lean)
-        if not bool(st.path_alive.any()):
+        if _alive_count(st.path_alive)() == 0:
             break
     return st
+
+
+# p_render_until queues this many bounces ahead of the alive count it
+# waits for (the bounces past its exit are thrown away).
+_UNTIL_AHEAD = 2
+
+
+def p_render_until(scene, cam: Camera, st: PathState, salt, step0: int,
+                   alive_target: int, dims: Dims, max_steps: int, *,
+                   cfg: RenderConfig, hit_fn, lean: bool = False):
+    """One stage of the staged tail (one_shot="staged"): bounces step0+1..
+    until the alive count after a bounce is <= ``alive_target``, or
+    ``max_steps``; returns (state, step, alive count) at that bounce.
+
+    A do-while: the first bounce always runs (a just-split batch's clones
+    sit dead until the respawn inside it).  The state, step and count are
+    those of successive :func:`p_bounce_step` calls stopped at the first
+    bounce whose count reaches the target; each count is read behind the
+    next bounce (``_UNTIL_AHEAD``), which is thrown away when the stage
+    ends before it.  One host read per bounce."""
+    queue = []
+    step = step0
+    while True:
+        while len(queue) < _UNTIL_AHEAD and (step < max_steps or not queue
+                                             and step == step0):
+            step += 1
+            st = p_bounce_step(scene, cam, st, salt, step, dims, cfg=cfg,
+                               hit_fn=hit_fn, lean=lean)
+            queue.append((st, step, _alive_count(st.path_alive)))
+        st_k, step_k, read = queue.pop(0)
+        cnt = read()
+        if cnt <= alive_target or step_k >= max_steps:
+            return st_k, step_k, cnt
 
 
 def _next_pow2(x: int) -> int:
@@ -343,24 +386,263 @@ def _grid_size(n_alive: int, min_lanes: int, quantum: int = 0) -> int:
     return max(min_lanes, _next_pow2(n_alive))
 
 
+# ---------------------------------------------------------------------------
+# Flushes.  A dropped lane's radiance is added into ``accum`` in an order
+# fixed by the stream alone, so a render repeats bit for bit on a card:
+# ``index_add_`` on a CUDA float tensor adds colliding ids by atomics in no
+# fixed order.  Each flush sorts its stream by pixel (stable), sums each
+# pixel's run in a fixed tree of f32 adds and hands ``index_add_`` one
+# nonzero addend per pixel (adding +0.0 changes nothing, in any order).
+
+def _run_sums(pix: torch.Tensor, rad: torch.Tensor) -> torch.Tensor:
+    """[3, T]: each run of equal ids in the ascending ``pix`` [T] summed
+    (a segmented doubling scan, the same adds on every device) at the run's
+    last entry, +0.0 elsewhere."""
+    t = pix.shape[0]
+    x = rad.clone()
+    s = 1
+    while s < t:
+        # The right side is a new tensor: every step reads the last one's x.
+        x[:, s:] += torch.where(pix[s:] == pix[:-s], x[:, :-s], 0.0)
+        s *= 2
+    last = torch.ones_like(pix, dtype=torch.bool)
+    last[:-1] = pix[1:] != pix[:-1]
+    return torch.where(last, x, 0.0)
+
+
+def _flush(accum: torch.Tensor, pix: torch.Tensor, rad: torch.Tensor, *,
+           ascending: bool = False) -> torch.Tensor:
+    """``accum`` [3, P] += the per-pixel sums of ``rad`` [3, T] at pixel ids
+    ``pix`` [T] (in place); ``ascending`` promises sorted ids."""
+    if pix.shape[0] == 0:
+        return accum
+    if not ascending:
+        order = torch.sort(pix, stable=True).indices
+        pix, rad = pix[order], rad[:, order]
+    return accum.index_add_(1, pix, _run_sums(pix, rad))
+
+
+# Window flush (flush_mode="window", the reference's _window_flush): an
+# ascending stream in blocks of _FLUSH_BLOCK entries, each block's sums a
+# one-hot contraction onto its window of _FLUSH_WIN pixels from a 128-aligned
+# base; blocks whose span overflows the window take the run-sum flush.  The
+# contraction runs over _FLUSH_GROUP blocks at a time (a [32, 1024, 1152] f32
+# one-hot is 151 MB; a whole tail's would be gigabytes).
+_FLUSH_BLOCK = 1024
+_FLUSH_WIN = 1024 + 128
+_FLUSH_GROUP = 32
+
+
+def _ieee_matmul(fn):
+    """``fn()`` with TF32 matmuls off (the process's setting restored after):
+    TF32 keeps 10 bits of the radiance's mantissa.  Through
+    ``fp32_precision`` where torch has it: reading the older
+    ``allow_tf32`` raises once a process has set the newer flag."""
+    m = torch.backends.cuda.matmul
+    name, off = (("fp32_precision", "ieee") if hasattr(m, "fp32_precision")
+                 else ("allow_tf32", False))
+    saved = getattr(m, name)
+    setattr(m, name, off)
+    try:
+        return fn()
+    finally:
+        setattr(m, name, saved)
+
+
+def _window_flush(accum: torch.Tensor, pix: torch.Tensor,
+                  rad: torch.Tensor) -> torch.Tensor:
+    """``accum`` [3, P] += the per-pixel sums of ``rad`` [3, T] at ASCENDING
+    pixel ids ``pix`` [T] (all < P), in place.  The same sums as
+    :func:`_flush` up to f32 summation order.
+
+    A block's sums reach ``accum`` through its window, pixels strictly
+    inside the block's span (no other block has them) by one ``index_add_``
+    of every window; the first and last pixel of each span, which a run
+    crossing blocks shares, go as a stream of two entries a block through
+    :func:`_flush`, so that every pixel still gets one nonzero addend."""
+    global HOST_READS
+    t, p = pix.shape[0], accum.shape[1]
+    if t == 0:
+        return accum
+    b, w = _FLUSH_BLOCK, _FLUSH_WIN
+    pad = (-t) % b
+    if pad:
+        # The last id repeated (still ascending), zero radiance.
+        pix = torch.cat([pix, pix[t - 1:].expand(pad)])
+        rad = torch.nn.functional.pad(rad, (0, pad))
+    nb = (t + pad) // b
+    pix2 = pix.reshape(nb, b)
+    rad2 = rad.reshape(3, nb, b).transpose(0, 1)        # [nb, 3, b]
+    w0 = pix2[:, 0] // 128 * 128
+    ok = (pix2[:, -1] - w0) < w
+    off = pix2 - w0[:, None]
+    iota = torch.arange(w, dtype=pix.dtype, device=pix.device)
+    win = torch.empty((nb, 3, w), dtype=rad.dtype, device=rad.device)
+
+    def contract():
+        for g in range(0, nb, _FLUSH_GROUP):
+            sl = slice(g, g + _FLUSH_GROUP)
+            onehot = ((off[sl, :, None] == iota)
+                      & ok[sl, None, None]).to(rad.dtype)   # [g, b, w]
+            win[sl] = torch.bmm(rad2[sl], onehot)
+    _ieee_matmul(contract)
+
+    rows = torch.arange(nb, device=pix.device)
+    first, last = pix2[:, 0], pix2[:, -1]
+    fo = (first - w0).clamp_max(w - 1)
+    lo = (last - w0).clamp_max(w - 1)
+    head, tail = win[rows, :, fo], win[rows, :, lo]     # [nb, 3]
+    head = torch.where((first == last)[:, None], 0.0, head)
+    win[rows, :, fo] = 0.0
+    win[rows, :, lo] = 0.0
+    # Window positions past P hold zeros (every id is < P): clamp them.
+    ids = (w0[:, None] + iota).clamp_max(p - 1).reshape(-1)
+    accum.index_add_(1, ids, win.transpose(0, 1).reshape(3, nb * w))
+    _flush(accum, torch.stack([first, last], 1).reshape(-1),
+           torch.stack([head, tail], 2).transpose(0, 1).reshape(3, 2 * nb),
+           ascending=True)
+    # Overflowing blocks (sparse regions of the stream): their entries
+    # through the run-sum flush (a host read, as the reference's lax.cond).
+    bad = (~ok).nonzero()[:, 0]
+    HOST_READS += 1
+    if bad.numel():
+        _flush(accum, pix2[bad].reshape(-1),
+               rad2[bad].transpose(0, 1).reshape(3, -1), ascending=True)
+    return accum
+
+
+def _receive(new: PathState, accum: torch.Tensor, n_receivers: int,
+             lanes_per_pixel: int, ascending: bool):
+    """Receiver redistribution (redistribute="on"): the last
+    ``n_receivers`` lanes of the compacted batch, which the caller keeps
+    dead (n_receivers <= k_new - alive count), flush their radiance and
+    adopt half the unstarted samples of as many donor lanes strided evenly
+    over the rest.  Per pixel the sum of quotas is unchanged: a donor keeps
+    s_quota - give, its receiver gets give at s_base + the kept quota."""
+    k_new = new.pixel.shape[1]
+    r0 = k_new - n_receivers
+    stride = max(1, r0 // n_receivers)
+    _flush(accum, new.pixel[0, r0:] // lanes_per_pixel,
+           new.radiance_sum[:, r0:], ascending=ascending)
+    give = torch.clamp_min(new.s_quota - 1 - new.sample, 0) // 2
+    pos = torch.arange(k_new, device=new.pixel.device)
+    donor = ((pos % stride == 0) & (pos // stride < n_receivers))[None]
+    kept = torch.where(donor, new.s_quota - give, new.s_quota)
+
+    def don(row):
+        return row[:, ::stride][:, :n_receivers]
+
+    def put(row, val):
+        row = row.clone()
+        row[:, r0:] = val
+        return row
+
+    return new._replace(
+        s_quota=put(kept, don(give)),
+        s_base=put(new.s_base, don(new.s_base) + don(kept)),
+        pixel=put(new.pixel, don(new.pixel)),
+        sample=put(new.sample, -1),
+        depth=put(new.depth, 0),
+        throughput=put(new.throughput, 1.0),
+        radiance_sum=put(new.radiance_sum, 0.0),
+        path_alive=put(new.path_alive, False),
+    ), accum
+
+
 def _compact(st: PathState, accum: torch.Tensor, *, k_new: int,
-             lanes_per_pixel: int = 1, tail_sorted: bool = False):
-    """Keep the live lanes (alive first, stable) in a [k_new] batch and add
-    the dropped lanes' radiance into ``accum`` (in place).
+             lanes_per_pixel: int = 1, tail_sorted: bool = False,
+             n_receivers: int = 0, flush: str = "scatter"):
+    """The sort compactor: keep the live lanes (alive first, stable) in a
+    [k_new] batch and add the dropped lanes' radiance into ``accum`` (in
+    place) by :func:`_flush`, or by :func:`_window_flush` under ``flush``
+    "window".
 
     ``tail_sorted`` promises ascending pixel ids; the key is then the
-    composite (dead, pixel), which keeps the compacted head ascending too.
-    Dropped lanes are all dead (k_new >= alive count): their radiance is
-    final."""
+    composite (dead, pixel), which keeps the compacted head ascending too,
+    and the dropped tail needs no sort.  Dropped lanes are all dead
+    (k_new >= alive count): their radiance is final.  ``n_receivers`` > 0
+    redistributes work onto the head's last lanes (:func:`_receive`)."""
     key = (~st.path_alive[0]).to(torch.int32)
     if tail_sorted:
         key = key * _SORT_PIX_LIM + st.pixel[0]
     perm = torch.sort(key, stable=True).indices
     head, tail = perm[:k_new], perm[k_new:]
     new = PathState(*(x[:, head] for x in st))
-    accum.index_add_(1, st.pixel[0, tail] // lanes_per_pixel,
-                     st.radiance_sum[:, tail])
-    return new, accum
+    if n_receivers > 0:
+        new, accum = _receive(new, accum, n_receivers, lanes_per_pixel,
+                              ascending=tail_sorted)
+    drop_pix = st.pixel[0, tail] // lanes_per_pixel
+    drop_rad = st.radiance_sum[:, tail]
+    if flush == "window":
+        if not tail_sorted:
+            order = torch.sort(drop_pix, stable=True).indices
+            drop_pix, drop_rad = drop_pix[order], drop_rad[:, order]
+        return new, _window_flush(accum, drop_pix, drop_rad)
+    return new, _flush(accum, drop_pix, drop_rad, ascending=tail_sorted)
+
+
+# The route compactor (compactor="route", the reference's
+# _compact_route_core): a stable partition by the alive bit with no sort.
+# A cumsum of the bit gives each lane its slot (alive lanes left, dead
+# lanes right, each in order) and one index_copy_ per field stack moves
+# the columns: 13 f32 rows and 5 int32 rows, each in its own dtype (carried
+# as f32 bits, small integers are denormals that a card may flush to zero).
+# Alive lanes land in the slots the sort compactor gives them, so the
+# render continues with the same draws.  The retained dead lanes become
+# inert zero-quota padding that keeps pixel and radiance for the flush;
+# the dropped tail (one ascending run per earlier compaction) is flushed
+# through a sort.
+_ROUTE_F32 = ("origin", "direction", "time", "throughput", "radiance_sum")
+_ROUTE_I32 = ("depth", "sample", "pixel", "s_base", "s_quota")
+
+
+def _route_partition(st: PathState, k_new: int):
+    """The route compactor's partition: (the [k_new] head, the dropped
+    lanes' pixel-lane ids [n - k_new], their radiance [3, n - k_new])."""
+    alive = st.path_alive[0]
+    a = alive.to(torch.int64)
+    ca = torch.cumsum(a, 0)
+    n_alive = ca[-1:]
+    dest = torch.where(alive, ca - 1, n_alive + torch.cumsum(1 - a, 0) - 1)
+    mat_f = torch.cat([getattr(st, f) for f in _ROUTE_F32])   # [13, n]
+    mat_i = torch.cat([getattr(st, f) for f in _ROUTE_I32])   # [5, n]
+    mat_f = torch.empty_like(mat_f).index_copy_(1, dest, mat_f)
+    mat_i = torch.empty_like(mat_i).index_copy_(1, dest, mat_i)
+    ha = (torch.arange(k_new, device=alive.device) < n_alive)[None]
+    f, i = mat_f[:, :k_new], mat_i[:, :k_new]
+    dir_pad = torch.zeros_like(f[3:6])
+    dir_pad[2] = 1.0
+    # Every field contiguous, as the kernels take them.
+    new = PathState(
+        origin=torch.where(ha, f[0:3], 0.0),
+        direction=torch.where(ha, f[3:6], dir_pad),
+        time=torch.where(ha, f[6:7], 0.0),
+        throughput=torch.where(ha, f[7:10], 1.0),
+        radiance_sum=f[10:13].contiguous(),
+        depth=torch.where(ha, i[0:1], 0),
+        sample=torch.where(ha, i[1:2], 0),
+        pixel=i[2:3].contiguous(),
+        path_alive=ha,
+        s_base=torch.where(ha, i[3:4], 0),
+        s_quota=torch.where(ha, i[4:5], 0),
+    )
+    return new, mat_i[2, k_new:], mat_f[10:13, k_new:]
+
+
+def _compact_route(st: PathState, accum: torch.Tensor, *, k_new: int,
+                   lanes_per_pixel: int = 1):
+    """The route compactor (no receivers: those events keep the sort
+    engine): keep the live lanes in a [k_new] batch, flush the rest by
+    :func:`_flush` under any ``flush_mode``, as the reference does."""
+    new, drop_pix, drop_rad = _route_partition(st, k_new)
+    return new, _flush(accum, drop_pix // lanes_per_pixel, drop_rad)
+
+
+# Receiver redistribution (redistribute="on"): above the floor, overshoot
+# the compacted size by this factor and hand the spare dead lanes donor
+# work, when at least _RECV_MIN lanes are spare.
+_RECV_OVERSHOOT = 1.25
+_RECV_MIN = 1 << 16
 
 
 def _split(st: PathState) -> PathState:
@@ -477,26 +759,34 @@ def _derive_bin_box(cfg: RenderConfig, scene):
             float(1.0 / ext[0]), float(1.0 / ext[1]), float(1.0 / ext[2]))
 
 
+# The scheduler's reads of device values on the host (alive counts, the
+# window flush's overflow test) since a caller last set this to 0.
+HOST_READS = 0
+
+
 def _alive_count(alive: torch.Tensor):
-    """Start reading the alive count; returns a callable that waits for it.
-    On a card the count is copied back behind an event, so the caller can
-    queue more bounces before it waits."""
+    """Start reading the alive count; returns a callable that waits for it
+    (one host read).  On a card the count is copied back behind an event,
+    so the caller can queue more bounces before it waits."""
     cnt = alive.sum()
-    if cnt.device.type != "cuda":
-        return lambda: int(cnt)
-    host = cnt.to("cpu", non_blocking=True)
-    ready = torch.cuda.Event()
-    ready.record()
+    if cnt.device.type == "cuda":
+        host = cnt.to("cpu", non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+    else:
+        host, ready = cnt, None
 
     def read():
-        ready.synchronize()
+        global HOST_READS
+        HOST_READS += 1
+        if ready is not None:
+            ready.synchronize()
         return int(host)
     return read
 
 
 # Config values the port runs, and the ROADMAP item that ports the rest.
 _SUPPORTED = {
-    "redistribute": (("auto", "off"), "Queue 1 item 7 (redistribute)"),
     # Kernel D takes its any-touch skip per CTA and per warp, not per
     # sub-group of a ray block.
     "tri_sub_gate": ((0,), "Queue 1 item 9 (tri_sub_gate sub-group gates)"),
@@ -504,9 +794,6 @@ _SUPPORTED = {
                   "sort and DDA, kernels/tri_rebin.py and tri_dda.py)"),
     "tri_dda_k": ((0,), "Queue 1 item 9 (tri_rebin working-set sort and "
                   "DDA, kernels/tri_rebin.py and tri_dda.py)"),
-    "one_shot": (("auto", "off"), "Queue 1 item 7 (one_shot on/staged)"),
-    "compactor": (("", "sort"), "Queue 1 item 7 (route compactor)"),
-    "flush_mode": (("", "scatter"), "Queue 1 item 7 (window flush)"),
     "adaptive_alloc": (("off",), "Queue 1 item 8 (adaptive.py)"),
     "adaptive_pool": (("auto",), "Queue 1 item 8 (adaptive.py)"),
     "kpp_max": ((32,), "Queue 1 item 8 (adaptive.py)"),
@@ -514,20 +801,25 @@ _SUPPORTED = {
                          "the plain versions run on the CPU)"),
 }
 
-# The values of the bounce-route knobs (RenderConfig's comments); anything
-# else raises ValueError.
+# The values of the bounce-route and scheduler knobs (RenderConfig's
+# comments); anything else raises ValueError.
 _ROUTE_KNOBS = {
     "scatter_backend": ("auto", "pallas", "jnp"),
     "fuse_bounce": ("auto", "on", "off"),
     "multi_backend": ("", "xla", "fused"),
+    "one_shot": ("auto", "on", "off", "staged"),
+    "compactor": ("", "sort", "route"),
+    "flush_mode": ("", "scatter", "window"),
+    "redistribute": ("auto", "on", "off"),
 }
 
 
 def check_supported(cfg: RenderConfig, scene=None) -> None:
     """Raise NotImplementedError for a knob value this port does not run
     (after the reference's ValueError checks of the triangle knobs), and
-    ValueError for an unknown value of a bounce-route knob.  (Whether
-    ``accel="grid"`` applies to a scene is kernels/dispatch.py's check.)"""
+    ValueError for an unknown value of a bounce-route or scheduler knob.
+    (Whether ``accel="grid"`` applies to a scene is kernels/dispatch.py's
+    check.)"""
     del scene
     from .kernels.dispatch import validate_tri_knobs
     validate_tri_knobs(cfg)
@@ -551,7 +843,7 @@ class _Routes(NamedTuple):
     multi: object        # kernel B's k-bounce under multi_backend="fused"
     hit_sky: object      # kernel E, or its plain version
     scatter: object      # kernel F, or its plain version (scatter "pallas")
-    one_shot: str        # "chunk" or "off"
+    one_shot: str        # "chunk", "on", "staged" or "off"
 
 
 def resolve_routes(cfg: RenderConfig, hit_scene, device, *, h_virt: int,
@@ -608,16 +900,29 @@ def resolve_routes(cfg: RenderConfig, hit_scene, device, *, h_virt: int,
     scatter = None
     if pallas_scatter:
         scatter = F.scatter_respawn if kernels else F.scatter_respawn_plain
-    # Chunks that start at or below the floor run as one shot, unless the
-    # host loop must act between bounces (bin sorts, the pallas scatter).
+    # One shot: "auto" runs chunks that start at or below the floor whole
+    # ("chunk"); "on" also hands an above-floor chunk's tail to the
+    # finisher, "staged" to p_render_until stages.  Each needs bounces with
+    # no host step between them: bin sorts and the pallas scatter conflict
+    # ("auto" turns off; "on" and "staged" raise, as in the reference).
+    # (The reference's third conflict, tri_rebin, raises
+    # NotImplementedError in check_supported until Queue 1 item 9.)
+    conflicts = [name for cond, name in (
+        (bin_box is not None, "ray binning"),
+        (pallas_scatter, "scatter_backend='pallas'")) if cond]
     one_shot = cfg.one_shot
+    if one_shot in ("on", "staged") and conflicts:
+        raise ValueError(f"one_shot={one_shot!r} conflicts with "
+                         + ", ".join(conflicts))
     if one_shot == "auto":
-        one_shot = "off" if bin_box is not None or pallas_scatter else "chunk"
+        one_shot = "off" if conflicts else "chunk"
     return _Routes(fused, multi, hit_sky, scatter, one_shot)
 
 
 def render_image_persistent(scene: Scene, cam, cfg: RenderConfig,
-                            hit_fn=None) -> torch.Tensor:
+                            hit_fn=None, resume_accum=None,
+                            resume_y0: int = 0,
+                            chunk_callback=None) -> torch.Tensor:
     """Render the full image on the scene's device; returns linear radiance
     [H, W, 3] f32.  Bounces run through the kernels (cfg.backend "auto" or
     "pallas") or the plain torch ops ("jnp"); :func:`resolve_routes` picks
@@ -625,6 +930,14 @@ def render_image_persistent(scene: Scene, cam, cfg: RenderConfig,
     ``scene`` as passed (a GridScene, say), with no accel resolution and
     neither kernel B nor kernel E: every bounce is that hit function plus
     the scatter, as in the reference.
+
+    Checkpoint hooks (utils/checkpoint.py): ``chunk_callback(accum,
+    next_y0)`` runs after each row chunk's radiance is flushed, with the
+    running [3, H*W] f32 accumulator and the first row not rendered yet;
+    ``resume_accum`` and ``resume_y0`` continue a render from such a pair.
+    A chunk's draws depend only on (seed, y0) and every flush adds in an
+    order fixed by its stream, so a resumed render equals an uninterrupted
+    one bit for bit.
 
     Multi-frame batches: a LIST of cameras renders len(cam) frames in one
     batch, a virtual image of F * height rows with one camera per frame;
@@ -687,7 +1000,17 @@ def render_image_persistent(scene: Scene, cam, cfg: RenderConfig,
     dims = make_dims(cfg, w, h, spp, kpp)
     mk = cfg.multi_k or _MULTI_K
 
-    accum = torch.zeros((3, h_virt * w), dtype=torch.float32, device=device)
+    if resume_accum is not None:
+        accum = torch.as_tensor(resume_accum, dtype=torch.float32,
+                                device=device).clone()
+        if tuple(accum.shape) != (3, h_virt * w):
+            raise ValueError(f"resume_accum has shape {tuple(accum.shape)}, "
+                             f"this render's accumulator {(3, h_virt * w)}")
+    else:
+        accum = torch.zeros((3, h_virt * w), dtype=torch.float32,
+                            device=device)
+    use_route = (cfg.compactor or "sort") == "route"
+    flush_mode = cfg.flush_mode or "scatter"
 
     def split_bounce(st, salt, step):
         """Hit (+ sky), then scatter + respawn: two or more launches."""
@@ -731,8 +1054,44 @@ def render_image_persistent(scene: Scene, cam, cfg: RenderConfig,
                 st = split_bounce(st, salt, step)
         return st, step
 
+    def compact_fn(st, accum, *, k_new, tail_sorted=False, n_receivers=0):
+        """The compaction engine (cfg.compactor): the route compactor puts
+        the live lanes where the sort compactor does, so it is a cost knob;
+        receiver events keep the sort engine."""
+        if use_route and n_receivers == 0:
+            return _compact_route(st, accum, k_new=k_new, lanes_per_pixel=kpp)
+        return _compact(st, accum, k_new=k_new, lanes_per_pixel=kpp,
+                        tail_sorted=tail_sorted, n_receivers=n_receivers,
+                        flush=flush_mode)
+
+    def staged(st, accum, step, salt):
+        """The staged tail (one_shot="staged"): p_render_until stages that
+        end when the alive count reaches the power of two at or below half
+        the batch (where the host loop's compact + split first fires), each
+        followed by that compact + split; a batch of 2 * min_lanes or less
+        runs to its end as one shot."""
+        while step < max_steps:
+            cur = st.pixel.shape[1]
+            if cur <= 2 * min_lanes:
+                st = p_render_oneshot(hit_scene, cam, st, salt, step, dims,
+                                      max_steps, cfg=cfg, hit_fn=hit_fn,
+                                      lean=lean)
+                break
+            target = 1 << (max(cur // 2, 1).bit_length() - 1)
+            st, step, n_alive = p_render_until(
+                hit_scene, cam, st, salt, step, target, dims, max_steps,
+                cfg=cfg, hit_fn=hit_fn, lean=lean)
+            if n_alive == 0 or step >= max_steps:
+                break
+            st, accum = compact_fn(st, accum,
+                                   k_new=max(min_lanes, _next_pow2(n_alive)))
+            st = _split(st)
+        return st, accum
+
     def run_loop(st, accum, salt, state_sorted):
-        """The check / compact / split loop for one lane batch."""
+        """The check / compact / split loop for one lane batch; under
+        one_shot "on" or "staged" the batch's tail below the floor goes to
+        the finisher or the stages."""
         step = 0
         period = check_period
         last_alive = st.pixel.shape[1]
@@ -758,23 +1117,46 @@ def render_image_persistent(scene: Scene, cam, cfg: RenderConfig,
                 period = check_period
             last_alive = n_alive
             if cur <= _COMPACT_FLOOR:
+                if routes.one_shot == "staged":
+                    return staged(st, accum, step, salt)
                 # Bounce cost no longer shrinks with the batch: drop dead
                 # lanes and halve the sequential sample tails instead.
                 k_new = max(min_lanes, _next_pow2(n_alive))
                 if k_new <= cur // 2:
-                    st, accum = _compact(st, accum, k_new=k_new,
-                                         lanes_per_pixel=kpp)
+                    st, accum = compact_fn(st, accum, k_new=k_new)
                     st = _split(st)
+                if routes.one_shot == "on":
+                    # The tail finisher: the rest of the chunk with no
+                    # compaction and no count read but its own.
+                    return p_render_oneshot(
+                        hit_scene, cam, st, salt, step, dims, max_steps,
+                        cfg=cfg, hit_fn=hit_fn, lean=lean), accum
                 continue
-            k_new = _grid_size(n_alive, min_lanes, cfg.compact_quantum)
-            if k_new <= int(cur * shrink):
-                st, accum = _compact(st, accum, k_new=k_new,
-                                     lanes_per_pixel=kpp,
-                                     tail_sorted=state_sorted)
+            # Above the floor: compact on a shrink.  Under redistribute
+            # "on" the batch overshoots so that its spare dead lanes adopt
+            # donors' unstarted samples (after which the pixel order is
+            # gone).
+            k_base = _grid_size(n_alive, min_lanes, cfg.compact_quantum)
+            if k_base <= int(cur * shrink):
+                k_new, n_recv = k_base, 0
+                if cfg.redistribute == "on":
+                    k_new = min(_grid_size(int(n_alive * _RECV_OVERSHOOT),
+                                           min_lanes, cfg.compact_quantum),
+                                cur)
+                    spare = k_new - n_alive
+                    if spare >= _RECV_MIN:
+                        n_recv = min(1 << (spare.bit_length() - 1), k_new // 2)
+                    else:
+                        k_new = k_base
+                st, accum = compact_fn(st, accum, k_new=k_new,
+                                       tail_sorted=state_sorted,
+                                       n_receivers=n_recv)
+                if n_recv:
+                    state_sorted = False
         return st, accum
 
     i32 = dict(dtype=torch.int32, device=device)
-    for y0 in range(0, h_virt, rows):
+    for y0 in range(resume_y0, h_virt, rows):
         take = min(rows, h_virt - y0)
         n_real = take * w * kpp
         # Pad the chunk onto the size grid with dead zero-quota lanes that
@@ -803,7 +1185,9 @@ def render_image_persistent(scene: Scene, cam, cfg: RenderConfig,
         )
         salt = (cfg.seed * 0x9E3779B1 ^ (y0 + 1) * 0x85EBCA77) & 0xFFFFFFFF
         st = p_respawn_step(cam, st, salt, 0, dims, cfg=cfg, lean=lean)
-        if routes.one_shot == "chunk" and n <= _COMPACT_FLOOR:
+        if routes.one_shot == "staged" and n <= _COMPACT_FLOOR:
+            st, accum = staged(st, accum, 0, salt)
+        elif routes.one_shot in ("chunk", "on") and n <= _COMPACT_FLOOR:
             st = p_render_oneshot(hit_scene, cam, st, salt, 0, dims,
                                   max_steps, cfg=cfg, hit_fn=hit_fn,
                                   lean=lean)
@@ -814,7 +1198,9 @@ def render_image_persistent(scene: Scene, cam, cfg: RenderConfig,
                 state_sorted=(bin_box is None
                               and h_virt * w * kpp < _SORT_PIX_LIM))
         # Flush this chunk's remaining radiance.
-        accum.index_add_(1, st.pixel[0] // kpp, st.radiance_sum)
+        _flush(accum, st.pixel[0] // kpp, st.radiance_sum)
+        if chunk_callback is not None:
+            chunk_callback(accum, y0 + take)
 
     out = _div(accum, spp).T.reshape(h_virt, w, 3)
     return out if cams is None else out.reshape(n_frames, h, w, 3)
