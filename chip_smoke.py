@@ -78,7 +78,20 @@ checks that each kernel of a path ran in it:
   flush), the headline resumed at pass level (4 passes) and at chunk
   level (4 row chunks), the wavefront's ``final`` 1200x800@4 resumed at
   pass level, each byte-identical to its uninterrupted render, and one
-  CLI render with ``--checkpoint``.
+  CLI render with ``--checkpoint``;
+* phase 20: the triangle grid's other arms and adaptive allocation.  At
+  config 4, kernel D exact against its plain version on bounce 2's rays
+  sorted by capped chord keys and on the DDA pair sets at K = 4 and 12,
+  beside the unsorted and binned sets (its pair tests, any-touch tests,
+  walk entries and ms on each); the sorted and DDA passes against the
+  direct pass and their sort / expansion costs; config 4 under
+  ``tri_rebin`` "on", "dda" (K = 4, 12), ``tri_sub_gate=2``, unbinned and
+  the default (walls, launches, kernel D's pair tests; "on" bit-equal to
+  unbinned, "dda" in the reference's envelope, the sub-gate bit-equal to
+  the default).  The headline under ``adaptive_alloc="on"`` and with
+  ``adaptive_pool="on"`` against the default (walls, launches, host
+  reads), ``alloc_lanes``'s invariants exact on each chunk, two adaptive
+  headlines bit-equal.
 
 Phase 1 prints each sweep kernel's registers, spills and shared memory
 and, from ``cuobjdump -sass`` of the built library, the instruction mix
@@ -99,6 +112,7 @@ device.
     python3 chip_smoke.py --phases 0,1,6,7,8,13,14,17   # the triangle sweeps
     python3 chip_smoke.py --phases 0,1,17 --root out/parent  # A-E, G, H, I of a checkout
     python3 chip_smoke.py --phases 0,1,18,19   # the scheduler's knobs and checkpoints
+    python3 chip_smoke.py --phases 0,1,20      # the rebin / DDA arms and adaptive allocation
 
 Needs a CUDA card and nvcc.
 """
@@ -757,6 +771,29 @@ def compare_tri(rk, rp, o, d, tris, what, valid=None) -> dict:
               f"{what}: t beyond 4 f32 epsilons of its scale")
     return dict(lanes=int(valid.sum()), hits=float(hp[valid].mean()),
                 ties=int(tie.sum()), disagree=int(real.sum()), err=err)
+
+
+def alloc_invariants(pixel, s_base, s_quota, *, n_pix, n_lanes, spp_done,
+                     spp, **_):
+    """adaptive.alloc_lanes's invariants, exactly, on [L] card tensors:
+    L lanes; pixel ids ascending by 0 or 1, from 0 to n_pix - 1 (every pixel
+    owns >= 1 lane, a pixel's lanes contiguous); a pixel's first lane
+    starts at spp_done, each next lane where the one before ends, its last
+    lane ends at spp (its lanes partition its remaining samples)."""
+    check(pixel.numel() == n_lanes, f"alloc: {pixel.numel()} lanes, not {n_lanes}")
+    step = pixel[1:] - pixel[:-1]
+    check(int(pixel[0]) == 0 and int(pixel[-1]) == n_pix - 1
+          and bool(((step == 0) | (step == 1)).all()),
+          "alloc: pixel ids not every pixel in ascending runs")
+    new = torch.ones_like(pixel, dtype=torch.bool)
+    new[1:] = step != 0
+    end = s_base + s_quota
+    last = torch.ones_like(new)
+    last[:-1] = new[1:]
+    check(bool((s_quota >= 0).all()) and bool((s_base[new] == spp_done).all())
+          and bool((s_base[1:][~new[1:]] == end[:-1][~new[1:]]).all())
+          and bool((end[last] == spp).all()),
+          "alloc: a pixel's lanes do not partition its remaining samples")
 
 
 def below_cap(rk, rp, cap):
@@ -3137,6 +3174,351 @@ class Smoke:
         check(saved[1] == 2, "CLI checkpoint passes")
         check(np.array_equal(img, want), "CLI checkpointed image differs")
 
+    # ---- phase 20 ---------------------------------------------------------
+    def tri_arms(self):
+        """The triangle grid's other arms at config 4 (mesh20k, 800x450,
+        50 spp): kernel D against its plain version, exact as phase 7 holds
+        it, on bounce 2's rays sorted by capped chord keys and on the DDA
+        pair sets at K = 4 and K = 12 (parked and t_cap = 0 pairs
+        included), beside the unsorted and the binned sets, with its stats
+        and ms on each; the whole passes against the direct pass; the cost
+        of the sort + unsort and of the expansion + merge; then the renders
+        under each arm (tri_arm_renders)."""
+        from win32_raytracer_tpu_torch.config import RenderConfig
+        from win32_raytracer_tpu_torch.kernels import hit as K
+        from win32_raytracer_tpu_torch.kernels import tri_grid as KD
+        from win32_raytracer_tpu_torch.kernels.dispatch import (
+            get_hit_fn_rows_accel)
+        from win32_raytracer_tpu_torch.kernels.tri_dda import (
+            dda_pairs, dda_tri_pass)
+        from win32_raytracer_tpu_torch.kernels.tri_rebin import (
+            capped_chord_keys, sorted_tri_pass)
+        from win32_raytracer_tpu_torch.persistent import (
+            _bin_sort_core, _derive_bin_box, p_bounce_step)
+        from win32_raytracer_tpu_torch.scene.builders import get_scene
+        from win32_raytracer_tpu_torch.tri_accel import (
+            DEFAULT_TRI_GRID_RAY_BLOCK, clip_segment_to_box,
+            hit_triangles_grid_rows_plain)
+
+        dev = self.dev
+        cfg = RenderConfig(**CONFIG4, backend="jnp")
+        hit_scene, plain_fn = get_hit_fn_rows_accel(
+            cfg, get_scene("mesh20k", device=dev))
+        grid, spheres = hit_scene.triangles, hit_scene.spheres
+        tris = tri_arrays(grid.base)
+        min_t = cfg.min_hit_t
+        st, dims, cam = fresh_chunk(cfg, dev)
+        n = st.pixel.shape[1]
+        st = p_bounce_step(hit_scene, cam, st, 12345, 1, dims, cfg=cfg,
+                           hit_fn=plain_fn, lean=True)
+        o2, d2, t2 = (x.contiguous() for x in (st.origin, st.direction, st.time))
+        cap2 = K.hit_spheres_rows(spheres, o2, d2, t2).t.contiguous()
+        binned = _bin_sort_core(st, box=_derive_bin_box(cfg, hit_scene))
+        ob, db, tb_ = (x.contiguous() for x in (binned.origin, binned.direction,
+                                                binned.time))
+        capb = K.hit_spheres_rows(spheres, ob, db, tb_).t.contiguous()
+        del st, binned
+        zeros2 = torch.zeros((1, n), device=dev)
+        perm = torch.sort(capped_chord_keys(grid.scene_box, o2, d2, cap2[0],
+                                            min_t=min_t), stable=True).indices
+        sets = [("unsorted", o2, d2, cap2), ("binned", ob, db, capb),
+                ("sorted", o2[:, perm], d2[:, perm], cap2[:, perm])]
+        for k in (4, 12):
+            key, o_p, d_p, cap_p, _, _ = dda_pairs(grid.scene_box, o2, d2,
+                                                   cap2[0], k_max=k,
+                                                   min_t=min_t)
+            pp = torch.sort(key, stable=True).indices
+            sets.append((f"DDA K={k}", o_p[:, pp], d_p[:, pp], cap_p[:, pp]))
+            del key, o_p, d_p, cap_p, pp
+        rb = DEFAULT_TRI_GRID_RAY_BLOCK
+        for label, o, d, cap in sets:
+            m = o.shape[1]
+            zeros = torch.zeros((1, m), device=dev)
+            stats = torch.zeros(4, dtype=torch.int64, device=dev)
+            rk = KD.hit_triangles_grid_rows(grid, o, d, zeros, t_cap=cap,
+                                            stats=stats)
+            t0 = time.perf_counter()
+            rp = hit_triangles_grid_rows_plain(grid, o, d, zeros, t_cap=cap)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            c = compare_tri(rk, rp, o, d, tris, f"kernel D, {label}",
+                            below_cap(rk, rp, cap))
+            check(c["disagree"] == 0 and c["ties"] == 0 and c["err"] == 0.0,
+                  f"kernel D {label}: not exact against plain ({fmt_cmp(c)})")
+            tiles, pairs, touches, walked = (int(x) for x in stats.cpu())
+            ms = cuda_ms(lambda: KD.hit_triangles_grid_rows(grid, o, d, zeros,
+                                                            t_cap=cap), 5)
+            ctas = -(-m // rb) * -(-rb // KD.SWEEP_LANES_PER_CTA)
+            parked = int((cap[0] == 0).sum())
+            # Phase 7's bound: both launches' operations, the function's
+            # bytes (rays and caps in, record out, the grid's tables).
+            bl = bound(pairs * OPS_TRI_PAIR + touches * OPS_ANY_TOUCH
+                       + m * OPS_TRI_CLIP + -(-m // rb) * grid.n_tiles * OPS_TRI_TLO,
+                       m * (24 + 4 + RECORD_BYTES) + grid.tile_attrs.numel() * 4
+                       + grid.tile_boxes.numel() * 4)
+            self.say("20 kernel D", f"{label}: {m} lanes ({parked} with "
+                     f"t_cap 0), vs plain {fmt_cmp(c)}; {pairs} pair tests "
+                     f"({pairs / n:.1f} per bounce lane), {touches} any-touch "
+                     f"tests, per CTA ({ctas}) {walked / ctas:.2f} walk entries "
+                     f"and {tiles / ctas:.2f} tiles staged; kernel D {ms:.4f} ms "
+                     f"(bound {bl[0]:.4f} ms, {bl[1]}), the plain sweep "
+                     f"{plain_s:.2f} s of wall [{self.card}]")
+            check(pairs > 0, f"kernel D {label}: no pair test")
+            del rk, rp, zeros
+        del sets
+
+        # The whole passes (kernel D inside) against the direct pass, and
+        # their overheads: the same pass with the sweep replaced by its
+        # precomputed record.
+        def kd(g, o, d, t, min_t=min_t, t_cap=None):
+            return KD.hit_triangles_grid_rows(g, o, d, t, min_t=min_t,
+                                              t_cap=t_cap)
+        direct = kd(grid, o2, d2, zeros2, t_cap=cap2)
+        direct_ms = cuda_ms(lambda: kd(grid, o2, d2, zeros2, t_cap=cap2), 5)
+        live_d = below_cap(direct, direct, cap2) & direct.hit[0].cpu().numpy()
+        hi_chord = clip_segment_to_box(grid.scene_box, o2, d2, t_cap=cap2[0],
+                                       min_t=min_t)[1]
+        srt = sorted_tri_pass(kd, grid, o2, d2, zeros2, cap2, min_t=min_t)
+        c = compare_tri(srt, direct, o2, d2, tris, "sorted pass vs direct",
+                        below_cap(srt, direct, cap2))
+        self.rebin_ties = c["ties"]
+        check(c["disagree"] == 0 and c["err"] == 0.0,
+              f"sorted pass vs direct: {fmt_cmp(c)}")
+        inner = {}
+
+        def stub(g, o, d, t, min_t=min_t, t_cap=None):
+            return inner["rec"]
+        inner["rec"] = kd(grid, o2[:, perm], d2[:, perm], zeros2[:, perm],
+                          t_cap=cap2[:, perm])
+        sort_ms = cuda_ms(lambda: sorted_tri_pass(stub, grid, o2, d2, zeros2,
+                                                  cap2, min_t=min_t), 5)
+        pass_ms = cuda_ms(lambda: sorted_tri_pass(kd, grid, o2, d2, zeros2,
+                                                  cap2, min_t=min_t), 5)
+        self.say("20 rebin pass", f"sorted_tri_pass vs the direct kernel D pass "
+                 f"on bounce 2 ({n} lanes): {fmt_cmp(c)}; the pass "
+                 f"{pass_ms:.4f} ms against the direct {direct_ms:.4f} ms; "
+                 f"keys + sort + gathers + unsort {sort_ms:.4f} ms [{self.card}]")
+        for k in (4, 12):
+            dda = dda_tri_pass(kd, grid, o2, d2, zeros2, cap2, k_max=k,
+                               min_t=min_t)
+            live_x = below_cap(dda, dda, cap2) & dda.hit[0].cpu().numpy()
+            both = live_d & live_x
+            t_d, t_x = direct.t[0].cpu().numpy(), dda.t[0].cpu().numpy()
+            i_d, i_x = direct.idx[0].cpu().numpy(), dda.idx[0].cpu().numpy()
+            # A pair's window ends exactly at its interval's end, the last
+            # one at the chord's end (scene box exit or t_cap): a hit there
+            # (a triangle on the box's face) rounds in or out of the window
+            # from the shifted origin, where the direct pass keeps it.
+            # Those are counted apart; any other mask difference fails.
+            end = hi_chord.cpu().numpy()
+            t_any = np.where(live_d, t_d, t_x)
+            at_end = np.abs(t_any - end) <= 1e-6 * np.maximum(1.0, np.abs(end))
+            mask_diff = live_d != live_x
+            end_diff = int((mask_diff & at_end).sum())
+            real_diff = int((mask_diff & ~at_end).sum())
+            idx_diff = int((both & (i_d != i_x)).sum())
+            same = both & (i_d == i_x)
+            dt = float(np.abs(t_x - t_d)[same].max(initial=0.0))
+            # The reference's tolerance: rtol = atol = 2e-5.
+            far_t = int((same & (np.abs(t_x - t_d)
+                                 > 2e-5 * (1.0 + np.abs(t_d)))).sum())
+            key_, o_p, d_p, cap_p, _, _ = dda_pairs(grid.scene_box, o2, d2,
+                                                    cap2[0], k_max=k, min_t=min_t)
+            pp = torch.sort(key_, stable=True).indices
+            m = key_.numel()
+            inner["rec"] = kd(grid, o_p[:, pp], d_p[:, pp],
+                              torch.zeros((1, m), device=dev), t_cap=cap_p[:, pp])
+            del key_, o_p, d_p, cap_p, pp
+            over_ms = cuda_ms(lambda: dda_tri_pass(stub, grid, o2, d2, zeros2,
+                                                   cap2, k_max=k, min_t=min_t), 3)
+            pass_ms = cuda_ms(lambda: dda_tri_pass(kd, grid, o2, d2, zeros2,
+                                                   cap2, k_max=k, min_t=min_t), 3)
+            self.say("20 DDA pass", f"dda_tri_pass K={k} vs the direct pass: "
+                     f"{int(live_d.sum())} surviving hits, surviving masks "
+                     f"differ in {real_diff} lanes and at the chord's end in "
+                     f"{end_diff} (direct only {int((live_d & ~live_x).sum())}, "
+                     f"DDA only {int((live_x & ~live_d).sum())}), winners in "
+                     f"{idx_diff}, max "
+                     f"|dt| {dt:.3e} where the winner agrees; the pass "
+                     f"{pass_ms:.4f} ms (expansion + sort + gathers + unsort + "
+                     f"merge {over_ms:.4f} ms) against the direct "
+                     f"{direct_ms:.4f} ms [{self.card}]")
+            check(real_diff == 0 and idx_diff <= 1e-4 * n and far_t == 0,
+                  f"DDA K={k} pass vs direct: masks {real_diff} (and {end_diff} "
+                  f"at the chord's end), winners {idx_diff}, {far_t} t's "
+                  "beyond 2e-5")
+            del dda
+        inner.clear()
+        del direct, srt, o2, d2, t2, cap2, ob, db, tb_, capb, zeros2, perm, hi_chord
+        torch.cuda.empty_cache()
+        self.tri_arm_renders()
+
+    def tri_arm_renders(self):
+        """Config 4 under each arm through the entry point: one warm call,
+        one counted call (launches set to 0 just before it and read just
+        after, kernel D's stats summed), three timed calls interleaved
+        across the arms (median); linear images: tri_rebin="on" against the
+        unbinned render bit for bit (kernel D's cross-tile ties counted
+        apart), "dda" (K = 4 and 12) within the reference's envelope,
+        tri_sub_gate=2 bit-equal to the default; every arm's u8 mean within
+        3.0 of the default's."""
+        import win32_raytracer_tpu_torch.persistent as P
+        from win32_raytracer_tpu_torch.api import render
+        from win32_raytracer_tpu_torch.config import RenderConfig
+        from win32_raytracer_tpu_torch.kernels import dispatch as D
+        from win32_raytracer_tpu_torch.scene.builders import get_scene
+
+        base = RenderConfig(**CONFIG4)
+        arms = [(label, base.replace(**kw)) for label, kw in TRI_ARMS]
+        path = ("hit", "tri_grid_sched", "tri_grid")
+        real_kd = D.hit_triangles_grid_rows
+        stats = torch.zeros(4, dtype=torch.int64, device=self.dev)
+
+        def with_stats(*a, **k):
+            return real_kd(*a, stats=stats, **k)
+        res = {}
+        for label, c in arms:
+            render("mesh20k", cfg=c, device=self.dev)
+            stats.zero_()
+            D.hit_triangles_grid_rows = with_stats
+            try:
+                reset_launches()
+                torch.cuda.synchronize()
+                r = render("mesh20k", cfg=c, device=self.dev)
+                got = launches()
+            finally:
+                D.hit_triangles_grid_rows = real_kd
+            check_route(got, path, (), f"config 4, {label}")
+            res[label] = dict(mean=float(r.image.mean()), launches=got,
+                              stats=[int(x) for x in stats.cpu()], walls=[])
+        for _ in range(3):
+            for label, c in arms:
+                torch.cuda.synchronize()
+                r = render("mesh20k", cfg=c, device=self.dev)
+                res[label]["walls"].append(r.duration_ms / 1e3)
+        scene = get_scene("mesh20k", device=self.dev)
+        lin = {label: P.render_image_persistent(scene, None, c)
+               for label, c in arms}
+        torch.cuda.synchronize()
+        mean0 = res["default"]["mean"]
+        for label, _ in arms:
+            r = res[label]
+            tiles, pairs, touches, walked = r["stats"]
+            self.say("20 " + label, f"mesh20k {base.width}x{base.height}@"
+                     f"{base.samples}: wall median {np.median(r['walls']):.4f} s "
+                     f"of {[round(x, 4) for x in r['walls']]}, image mean "
+                     f"{r['mean']:.3f} (default {mean0:.3f}), kernel D {pairs} "
+                     f"pair tests, {touches} any-touch tests, {walked} walk "
+                     f"entries, {tiles} CTA tiles staged, launches "
+                     f"{r['launches']} [{self.card}]")
+            check(abs(r["mean"] - mean0) <= 3.0,
+                  f"config 4 {label}: mean {r['mean']} against {mean0}")
+
+        def differ(a, b):
+            return int((lin[a] != lin[b]).any(-1).sum())
+        rebin_px = differ("tri_rebin=on", "ray_binning=off")
+        gate_px = differ("tri_sub_gate=2", "default")
+        self.say("20 equality", f"linear images: tri_rebin=on vs ray_binning=off "
+                 f"{rebin_px} pixels differ (kernel D ties between the sorted "
+                 f"and unsorted bounce-2 sets: {self.rebin_ties}); tri_sub_gate=2 "
+                 f"vs default {gate_px} pixels differ")
+        check(gate_px == 0, "tri_sub_gate=2 render differs from the default")
+        check(rebin_px == 0 or (self.rebin_ties > 0 and rebin_px
+                                <= 1e-4 * base.width * base.height),
+              f"tri_rebin=on render: {rebin_px} pixels differ, "
+              f"{self.rebin_ties} ties")
+        off = lin["ray_binning=off"].cpu().numpy()
+        for label in ("tri_rebin=dda", "tri_rebin=dda, K=12"):
+            x = lin[label].cpu().numpy()
+            diff = np.abs(np.sqrt(np.clip(x, 0, 1)) - np.sqrt(np.clip(off, 0, 1)))
+            far = float((diff > 8 / 255).mean())
+            self.say("20 equality", f"{label} vs ray_binning=off: mean |diff| of "
+                     f"the square-rooted images {diff.mean():.3e} (< 2e-3), share "
+                     f"beyond 8/255 {far:.2e} (< 0.01)")
+            check(diff.mean() < 2e-3 and far < 0.01,
+                  f"{label}: outside the reference's envelope")
+
+    def adaptive_headline(self):
+        """The headline under adaptive_alloc="on" (and with adaptive_pool
+        "on") against the default: alloc_lanes's invariants exact on each
+        chunk's arrays, its arrays the same in two runs, two adaptive
+        headlines bit-equal, the means within 170.1 +- 1.5, kernel B's and
+        kernel A's launches, host reads and walls (median of 3 after a warm
+        call, interleaved)."""
+        import win32_raytracer_tpu_torch.persistent as P
+        from win32_raytracer_tpu_torch.api import render
+        from win32_raytracer_tpu_torch.config import RenderConfig
+        from win32_raytracer_tpu_torch.scene.builders import get_scene
+
+        base = RenderConfig(**HEADLINE)
+        arms = [("default", base), ("adaptive", base.replace(adaptive_alloc="on")),
+                ("adaptive + pool", base.replace(adaptive_alloc="on",
+                                                 adaptive_pool="on"))]
+        res = {}
+        for label, c in arms:
+            render("final", cfg=c, device=self.dev)
+            reset_launches()
+            P.HOST_READS = 0
+            torch.cuda.synchronize()
+            r = render("final", cfg=c, device=self.dev)
+            got, reads = launches(), P.HOST_READS
+            check_route(got, ("bounce", "hit"), (), f"headline, {label}")
+            res[label] = dict(mean=float(r.image.mean()), launches=got,
+                              reads=reads, walls=[])
+        for _ in range(3):
+            for label, c in arms:
+                torch.cuda.synchronize()
+                r = render("final", cfg=c, device=self.dev)
+                res[label]["walls"].append(r.duration_ms / 1e3)
+        for label, _ in arms:
+            r = res[label]
+            self.say("20 " + label, f"final {base.width}x{base.height}@"
+                     f"{base.samples}: wall median {np.median(r['walls']):.4f} s "
+                     f"of {[round(x, 4) for x in r['walls']]}, image mean "
+                     f"{r['mean']:.3f} (170.1 +- 1.5), {r['reads']} host reads, "
+                     f"launches {r['launches']} [{self.card}]")
+            check(abs(r["mean"] - HEADLINE_MEAN) <= HEADLINE_MEAN_TOL,
+                  f"headline {label}: image mean {r['mean']}")
+
+        # Two adaptive headlines, linear, with every chunk's allocation.
+        scene = get_scene("final", device=self.dev)
+        real = P.alloc_lanes
+        for label, c in arms[1:]:
+            runs = []
+            for _ in range(2):
+                allocs = []
+
+                def spy(est, **k):
+                    out = real(est, **k)
+                    allocs.append((est.clone(), k, tuple(x.clone() for x in out)))
+                    return out
+                P.alloc_lanes = spy
+                try:
+                    img = P.render_image_persistent(scene, None, c)
+                    torch.cuda.synchronize()
+                finally:
+                    P.alloc_lanes = real
+                runs.append((img, allocs))
+            (img_a, al_a), (img_b, al_b) = runs
+            same_img = bool(torch.equal(img_a, img_b))
+            same_est = len(al_a) == len(al_b) and all(
+                torch.equal(a[0], b[0]) for a, b in zip(al_a, al_b))
+            same_alloc = same_est and all(
+                torch.equal(x, y) for a, b in zip(al_a, al_b)
+                for x, y in zip(a[2], b[2]))
+            for est, k, (pixel, s_base, s_quota) in al_a:
+                alloc_invariants(pixel[0], s_base[0], s_quota[0],
+                                 n_pix=est.numel(), **k)
+            lanes = [int(a[2][0].shape[1]) for a in al_a]
+            counts = torch.bincount(al_a[0][2][0][0], minlength=al_a[0][0].numel())
+            self.say("20 " + label, f"{len(al_a)} chunk(s) of {lanes} lanes: "
+                     f"alloc_lanes invariants exact; lanes a pixel min "
+                     f"{int(counts.min())}, max {int(counts.max())}; prepass "
+                     f"estimates equal in two runs {same_est}, arrays equal "
+                     f"{same_alloc}; linear headlines bit-equal {same_img}")
+            check(same_alloc, f"{label}: alloc_lanes arrays differ between runs")
+            check(same_img, f"{label}: two headlines differ")
+
 
 # Phase 11's routes: (label, knob, kernels the route must launch, the
 # kernel whose main path it is); kernel A may run below the floor on any.
@@ -3156,6 +3538,14 @@ KNOBS = (("default", {}),
          ("one_shot=on", dict(one_shot="on")),
          ("one_shot=staged", dict(one_shot="staged")),
          ("redistribute=on", dict(redistribute="on")))
+# Phase 20's arms of config 4: the triangle grid's working-set sort and DDA
+# expansion beside the binned default and the unbinned render.
+TRI_ARMS = (("default", {}),
+            ("ray_binning=off", dict(ray_binning="off")),
+            ("tri_rebin=on", dict(tri_rebin="on")),
+            ("tri_rebin=dda", dict(tri_rebin="dda")),
+            ("tri_rebin=dda, K=12", dict(tri_rebin="dda", tri_dda_k=12)),
+            ("tri_sub_gate=2", dict(tri_sub_gate=2)))
 # Kernel I's launches on the sphere grid: schedule kernel, then the sweep.
 GRID_ROUTE = ("hit_grid_sched", "hit_grid")
 CONFIG5 = dict(width=640, height=480, samples=32, seed=3)   # bench/configs.py:85-110
@@ -3215,7 +3605,7 @@ KERNEL_META = {
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,18,19",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,18,19,20",
                     help="comma-separated phases to run (0 always runs)")
     ap.add_argument("--root", default=None,
                     help="import win32_raytracer_tpu_torch from this checkout "
@@ -3279,6 +3669,9 @@ def main() -> int:
         smoke.knobs()
     if 19 in phases:
         smoke.checkpoints()
+    if 20 in phases:
+        smoke.tri_arms()
+        smoke.adaptive_headline()
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, **{f: smoke.kernels[key][f] for f in keys},

@@ -200,10 +200,10 @@ def test_one_shot_renders(mode, form, monkeypatch):
 @pytest.mark.parametrize("mode", ["on", "staged"])
 def test_one_shot_conflicts_raise(mode):
     """one_shot "on" or "staged" needs bounces with no host step between
-    them: ray binning (a mesh on the triangle grid) and the pallas scatter
-    raise ValueError, as in the reference; "auto" turns the one shot off
-    there.  (The reference's third conflict, tri_rebin, is not ported: it
-    raises NotImplementedError naming Queue 1 item 9.)"""
+    them: ray binning (a mesh on the triangle grid), the triangle pass's
+    working-set sorts (tri_rebin "on") and the pallas scatter raise
+    ValueError, as in the reference; "auto" turns the one shot off
+    there."""
     from win32_raytracer_tpu_torch.scene.builders import mesh_scene
     cfg = TC(width=16, height=8, samples=8, seed=2)
     with pytest.raises(ValueError, match="one_shot.*ray binning"):
@@ -213,7 +213,7 @@ def test_one_shot_conflicts_raise(mode):
         TP.render_image_persistent(get_scene("test"), None,
                                    cfg.replace(scatter_backend="pallas",
                                                one_shot=mode))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="one_shot.*tri_rebin"):
         TP.render_image_persistent(mesh_scene(subdivisions=3), None,
                                    cfg.replace(accel="grid", tri_rebin="on",
                                                ray_binning="off",

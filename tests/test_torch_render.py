@@ -77,10 +77,9 @@ def test_render_matches_reference(scene, mode, monkeypatch):
 
 def test_render_matches_native_oracle(monkeypatch):
     """tests/test_golden.py's production-path check, on the port."""
-    from win32_raytracer_tpu import oracle
+    from win32_raytracer_tpu_torch import oracle
     if not oracle.available():
         pytest.skip("native oracle not built")
-    from win32_raytracer_tpu.scene.builders import test_scene as jax_scene
     from win32_raytracer_tpu_torch.render import render as render_scene
     from win32_raytracer_tpu_torch.scene.builders import test_scene
     from win32_raytracer_tpu_torch.scene.camera import default_camera
@@ -90,8 +89,8 @@ def test_render_matches_native_oracle(monkeypatch):
     ours = render_scene(test_scene(), default_camera(48, 32),
                         TC(scheduler="persistent", **kw))
     focus = float(np.linalg.norm(np.array([15.0, 2, 4]) - np.array([0.0, 1, 0])))
-    ref = oracle.oracle_render(jax_scene(), (15, 2, 4), (0, 1, 0), (0, 1, 0),
-                               20.0, 0.1, focus, JC(**kw))
+    ref = oracle.oracle_render(test_scene(), (15, 2, 4), (0, 1, 0), (0, 1, 0),
+                               20.0, 0.1, focus, TC(**kw))
     d, r = _stats(ours, ref)
     assert d < 5.0, d
     assert r > 0.97, r

@@ -30,15 +30,14 @@ def test_builders_array_equal(name):
 
 
 def test_mesh_scenes_not_ported():
-    """The mesh scenes build now (tests/test_torch_tri_scene.py holds them
-    to the reference); what their path still lacks, the reference's
-    working-set rebin, raises naming ROADMAP Queue 1 item 9."""
+    """The mesh scenes build (tests/test_torch_tri_scene.py holds them to
+    the reference), and mesh20k passes the check with the reference's
+    working-set rebin, the last of its path to be ported."""
     from win32_raytracer_tpu_torch.config import RenderConfig
     from win32_raytracer_tpu_torch.persistent import check_supported
     scene = tb.get_scene("mesh20k")
     assert scene.triangles.padded_size == 20608
-    with pytest.raises(NotImplementedError, match="item 9"):
-        check_supported(RenderConfig(tri_rebin="on"), scene)
+    check_supported(RenderConfig(tri_rebin="on"), scene)
 
 
 def test_scene_from_numpy_round_trip():

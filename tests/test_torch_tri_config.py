@@ -23,8 +23,27 @@ torch.set_num_threads(1)
     (dict(tri_dda_k=4), "tri_dda"),
 ])
 def test_unported_tri_knobs_raise(knob, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item 9 .*{item}"):
-        check_supported(RenderConfig(**knob), tb.mesh_scene())
+    """The knobs of ROADMAP Queue 1 item 9, which raised NotImplementedError
+    until they were ported, now pass the check and reach the grid route;
+    the hit function's record equals the default knobs' where the hit
+    survives the sphere pass (rays from the camera side at the mesh)."""
+    scene = tb.mesh_scene(subdivisions=3)
+    cfg = RenderConfig(**knob)
+    check_supported(cfg, scene)
+    hit_scene, hit_fn = D.get_hit_fn_rows_accel(cfg, scene)
+    assert isinstance(hit_scene.triangles, TriGridScene)
+    base_scene, base_fn = D.get_hit_fn_rows_accel(RenderConfig(), scene)
+    rng = np.random.default_rng(5)
+    o = torch.from_numpy(rng.uniform([-1, 0.5, -6], [1, 1.5, -5], (64, 3))
+                         .T.astype(np.float32)).contiguous()
+    d = torch.from_numpy(rng.normal([0, 0, 1], 0.2, (64, 3))
+                         .T.astype(np.float32)).contiguous()
+    rec = hit_fn(hit_scene, o, d, torch.zeros(1, 64))
+    ref = base_fn(base_scene, o, d, torch.zeros(1, 64))
+    assert ref.hit.any()
+    for f, a, b in zip(rec._fields, rec, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=2e-5 if f in
+                                   ("t", "point") else 0, msg=f"{item}: {f}")
 
 
 @pytest.mark.parametrize("knob,match", [

@@ -18,7 +18,6 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from win32_raytracer_tpu import oracle
 from win32_raytracer_tpu.animation import render_animation as jax_animation
 from win32_raytracer_tpu.config import RenderConfig as JC
 from win32_raytracer_tpu.kernels.dispatch import get_hit_fn as jax_get_hit_fn
@@ -31,6 +30,7 @@ from win32_raytracer_tpu.scene import builders as jb
 from win32_raytracer_tpu.scene.camera import default_camera as jax_default_camera
 from win32_raytracer_tpu.scene.camera import make_camera as jax_make_camera
 from win32_raytracer_tpu.scene.spheres import SceneBuilder as JBuilder
+from win32_raytracer_tpu_torch import oracle
 from win32_raytracer_tpu_torch.animation import orbit_path, render_animation
 from win32_raytracer_tpu_torch.api import render as api_render
 from win32_raytracer_tpu_torch.config import RenderConfig as TC
@@ -316,8 +316,8 @@ def test_exact_regime_matches_native_oracle(case):
     aspect = kw["width"] / kw["height"]
     ours = render(build(SceneBuilder), make_camera(*look, 45.0, aspect, 0.0, 4.0),
                   TC(**kw))
-    ref = oracle.oracle_render(build(JBuilder), *look, 45.0, 0.0, 4.0, JC(**kw),
-                               deterministic=True)
+    ref = oracle.oracle_render(build(SceneBuilder), *look, 45.0, 0.0, 4.0,
+                               TC(**kw), deterministic=True)
     diff = np.abs(ours.astype(int) - ref.astype(int))
     assert diff.mean() < 0.5, diff.mean()
     assert (diff > 3).mean() < 0.01

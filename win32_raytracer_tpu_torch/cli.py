@@ -115,8 +115,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="triangle-grid winner-attribute path "
                         "(RenderConfig.tri_gather)")
     p.add_argument("--adaptive", default="off", choices=["off", "on"],
-                   help="difficulty-adaptive lane allocation "
-                        "(RenderConfig.adaptive_alloc)")
+                   help="difficulty-adaptive lane allocation: a quota-1 "
+                        "prepass measures per-pixel path length, then the "
+                        "remaining samples run on difficulty-proportional "
+                        "lanes (RenderConfig.adaptive_alloc; persistent "
+                        "scheduler, lanes_per_pixel > 1)")
     p.add_argument("--stratify", action="store_true",
                    help="stratified pixel jitter (variance reduction)")
     p.add_argument("--shard-mode", default="persistent",

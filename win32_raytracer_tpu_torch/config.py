@@ -2,10 +2,9 @@
 
 The same immutable dataclass as ``win32_raytracer_tpu.config``: every field
 and default is kept so a config can be handed to either package (a test
-holds the two field lists equal).  Fields that select code the port has
-not brought over yet are still accepted; the persistent scheduler raises
-``NotImplementedError`` naming the ROADMAP item when one is set to a value
-other than its default (``persistent.check_supported``).
+holds the two field lists equal).  The one field with no counterpart here,
+``pallas_interpret``, is accepted; the persistent scheduler raises
+``NotImplementedError`` when it is set (``persistent.check_supported``).
 """
 
 from __future__ import annotations
@@ -69,12 +68,14 @@ class RenderConfig:
     scatter_backend: str = "auto"   # "auto" | "pallas" | "jnp"
     hit_kernel: str = "auto"        # "auto" | "v4" | "v6" | "v7"
     fuse_bounce: str = "auto"       # "auto" | "on" | "off"
-    # Opt-in engines the port does not run yet raise
-    # (persistent.check_supported).
+    # Acceleration: the sphere grid and the triangle grid; ray binning.
     accel: str = "auto"             # "auto" | "grid" | "off"
     ray_binning: str = "auto"       # "auto" | "on" | "off"
     redistribute: str = "auto"      # "auto" | "on" | "off"
-    # Triangle-grid knobs (triangle scenes only).
+    # Triangle-grid knobs (triangle scenes only).  tri_sub_gate changes no
+    # result here (kernel D gates per CTA of 32 lanes); tri_rebin "on" and
+    # "dda" sort the triangle pass's working set (kernels/tri_rebin.py,
+    # kernels/tri_dda.py; tri_dda_k pairs a lane, 0 = 4).
     tri_tile_rows: int = 0
     tri_ray_block: int = 0
     tri_early_exit: str = "auto"    # "auto" | "on" | "off"
@@ -109,7 +110,10 @@ class RenderConfig:
     flush_mode: str = ""            # "" (= "scatter") | "scatter" | "window"
     # Replica lanes per pixel (0 = auto: largest of 8/4/2 with quota >= 4).
     lanes_per_pixel: int = 0
-    # Difficulty-adaptive lane allocation (opt-in research arm).
+    # Difficulty-adaptive lane allocation (adaptive.py): a quota-1 prepass,
+    # then the remaining samples on lanes allocated by path length; pool
+    # "on" = max(raw, 3x3 box mean)^1.2 of the estimate; kpp_max caps the
+    # lanes a pixel takes (softly).
     adaptive_alloc: str = "off"     # "off" | "on"
     adaptive_pool: str = "auto"     # "auto" | "on" | "off"
     kpp_max: int = 32

@@ -1,9 +1,10 @@
-"""Image file writers and readers in pure numpy.  The writers are
-byte-identical to the JAX package's encoders
-(``win32_raytracer_tpu/io/image.py``): 24bpp bottom-up BGR BMP (what
-stb_image_write emits for the reference's out.bmp, Game.cpp:27-43), PNG and
-binary PPM.  :func:`read_image` reads any of them back (by magic bytes), as
-``animation.render_animation``'s resume path does."""
+"""Image file writers and readers in numpy, with the native BMP encoder
+tried first (io/native.py), as the JAX package's ``io/image.py`` does.  The
+writers are byte-identical to the JAX package's encoders: 24bpp bottom-up
+BGR BMP (what stb_image_write emits for the reference's out.bmp,
+Game.cpp:27-43), PNG and binary PPM.  :func:`read_image` reads any of them
+back (by magic bytes), as ``animation.render_animation``'s resume path
+does."""
 
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ import threading
 import zlib
 
 import numpy as np
+
+from . import native
 
 
 def _as_u8_rgb(image: np.ndarray) -> np.ndarray:
@@ -72,11 +75,16 @@ _ENCODERS = {".bmp": encode_bmp, ".png": encode_png, ".ppm": encode_ppm}
 
 def write_image(path: str, image: np.ndarray) -> None:
     """Write a u8 [H, W, 3] RGB image; format chosen by extension.  The
-    file is written beside ``path`` and renamed into place."""
+    native encoder (io/native.py) goes first where it is built and has the
+    format, else the Python encoder here: the same bytes.  The file is
+    written beside ``path`` and renamed into place."""
     ext = os.path.splitext(path)[1].lower()
     if ext not in _ENCODERS:
         raise ValueError(f"unsupported image format {ext!r} (use .bmp/.png/.ppm)")
-    data = _ENCODERS[ext](_as_u8_rgb(image))
+    img = _as_u8_rgb(image)
+    data = native.try_encode(ext, img)
+    if data is None:
+        data = _ENCODERS[ext](img)
     tmp = f"{path}.tmp{os.getpid()}-{threading.get_ident()}{ext}"
     try:
         with open(tmp, "wb") as f:

@@ -30,7 +30,11 @@ Pallas backend:
   indices after the spheres'.  On the grid the sphere pass's nearest t
   caps the triangle pass (``t_cap``): a sphere hit occludes every farther
   tile, so fewer tiles are scheduled.  The brute composite runs both
-  sweeps whole, as the reference's does.
+  sweeps whole, as the reference's does;
+* the grid's triangle pass under ``tri_rebin`` "on" and "dda"
+  (:func:`_make_tri_pass`): kernel D on the working set sorted by capped
+  chord keys (``kernels/tri_rebin.py``) or on the lanes' DDA pair
+  expansion (``kernels/tri_dda.py``), the record put back in lane order.
 
 The wavefront scheduler's column hit functions (:func:`get_hit_fn`) have
 no grid, as in the reference: spheres go to kernel G
@@ -44,7 +48,7 @@ from __future__ import annotations
 import torch
 
 from ..accel import build_grid_accel, hit_spheres_grid_rows_plain
-from ..config import SHUTTER_CLOSE_T, RenderConfig
+from ..config import MIN_HIT_T, SHUTTER_CLOSE_T, RenderConfig
 from ..ops.hit import SphereTable, hit_spheres, sphere_table
 from ..ops.hit_tri import hit_triangles, tri_table
 from ..ops.rows import combine_hits_rows
@@ -60,7 +64,9 @@ from .hit_cols import hit_spheres_cols
 from .hit_grid import hit_spheres_grid_rows
 from .tri import hit_triangles_rows, hit_triangles_rows_plain
 from .tri_cols import hit_triangles_cols
+from .tri_dda import dda_tri_pass
 from .tri_grid import hit_triangles_grid_rows
+from .tri_rebin import sorted_tri_pass
 
 
 def resolve_backend(cfg: RenderConfig, device) -> str:
@@ -173,18 +179,33 @@ def validate_tri_knobs(cfg: RenderConfig) -> None:
             f"got {cfg.tri_tile_rows} and {cfg.tri_ray_block}")
 
 
-def _make_tri_pass(kernel, **kernel_kw):
-    """Triangle pass ``(tris, o, d, t, min_t, t_cap)`` over a hit function:
-    the grid sweep takes ``t_cap`` and its knobs, the brute sweep neither.
-    The reference's two other arms (the working-set rebin and the DDA
-    expansion, cfg.tri_rebin "on"/"dda") are not ported."""
+def _make_tri_pass(kernel, rebin: str = "off", dda_k: int = 0, **kernel_kw):
+    """Triangle pass ``(tris, o, d, t, min_t, t_cap)`` over a hit function
+    (the reference's ``_make_tri_pass``).  The brute sweep takes neither
+    ``t_cap`` nor knobs.  The grid sweep (``kernel_kw``: its ray block and
+    knobs) runs one of three ways, the same code for kernel D and its plain
+    version: directly, on the working set sorted by capped chord keys
+    (``rebin="on"``, kernels/tri_rebin.py), or on the DDA pair expansion
+    (``"dda"``, kernels/tri_dda.py; ``dda_k`` pairs a lane when non-zero).
+    A missing ``t_cap`` (a mesh with no spheres) is 3.4e38 for the last
+    two."""
     if not kernel_kw:
         def tri_pass(tris, o, d, t, min_t, t_cap):
             return kernel(tris, o, d, t, min_t=min_t)
         return tri_pass
 
-    def tri_pass(grid, o, d, t, min_t, t_cap):
+    def tf(grid, o, d, t, min_t=MIN_HIT_T, t_cap=None):
         return kernel(grid, o, d, t, min_t=min_t, t_cap=t_cap, **kernel_kw)
+
+    def tri_pass(grid, o, d, t, min_t, t_cap):
+        if rebin == "off":
+            return tf(grid, o, d, t, min_t=min_t, t_cap=t_cap)
+        if t_cap is None:
+            t_cap = torch.full_like(o[:1], 3.4e38)
+        if rebin == "dda":
+            kw = {"k_max": dda_k} if dda_k else {}
+            return dda_tri_pass(tf, grid, o, d, t, t_cap, min_t=min_t, **kw)
+        return sorted_tri_pass(tf, grid, o, d, t, t_cap, min_t=min_t)
     return tri_pass
 
 
@@ -247,8 +268,20 @@ def get_hit_fn_rows_accel(cfg: RenderConfig, scene, cam=None):
         grid = build_tri_grid(tri, tile_rows=cfg.tri_tile_rows
                               or DEFAULT_TILE_ROWS, partition=part)
     if grid is not None:
+        rb = cfg.tri_ray_block or DEFAULT_TRI_GRID_RAY_BLOCK
+        # tri_sub_gate only sets how finely the reference's any-touch gate
+        # skips work, per ray_block / q lanes; kernel D votes per CTA of 32
+        # lanes and runs unchanged.  Kept: the reference kernel's refusal of
+        # a split that is not a multiple of 128 lanes, where its Pallas
+        # route raises it (the skip on; "auto" picks 2 only where it fits).
+        q = cfg.tri_sub_gate
+        if (q > 1 and cfg.tri_any_skip in ("auto", "on") and rb % (128 * q)
+                and resolve_backend(cfg, scene.device) == "kernels"):
+            raise ValueError(f"n_sub={q} must divide ray_block={rb} into "
+                             f"128-lane multiples")
         tri_pass = _make_tri_pass(
-            grid_fn, ray_block=cfg.tri_ray_block or DEFAULT_TRI_GRID_RAY_BLOCK,
+            grid_fn, rebin="off" if cfg.tri_rebin == "auto" else cfg.tri_rebin,
+            dda_k=cfg.tri_dda_k, ray_block=rb,
             early_exit=cfg.tri_early_exit in ("auto", "on"),
             any_skip=cfg.tri_any_skip in ("auto", "on"))
         hit_scene, cap = CompositeScene(spheres, grid), True

@@ -40,6 +40,12 @@ grid's kernels A and I), then scatter and respawn (``p_hit_step``, and
 Multi-frame batches: a list of cameras renders its frames as one tall
 virtual image, each lane taking the camera of its row's frame.
 
+Difficulty-adaptive allocation (``adaptive_alloc="on"``, adaptive.py): each
+chunk first runs ``max_depth + 1`` bounces of quota-1 lanes, kpp a pixel,
+with no count read; the final depths give each pixel's path length; the
+remaining samples then run on lanes allocated in proportion to it (raw
+pixel ids, ``_Phase``), through the same check / compact / split loop.
+
 Ray binning: when the triangle side is the Morton-tile grid (and on the
 sphere grid under ``ray_binning="on"`` only), every bounce first sorts
 the whole state by a chord key (origin cell, chord-exit cell, direction
@@ -48,7 +54,10 @@ schedule is a tight spatial wedge; dead lanes sort last with their rays
 parked outside every tile.  Binned renders take single steps (a multi-step
 would run on bins gone stale after one scatter) and never run a chunk as
 one shot.  Draws key on (salt, step, lane position) exactly as in the
-reference, so the same schedule draws the same numbers.
+reference, so the same schedule draws the same numbers.  Under
+``tri_rebin`` "on" or "dda" the triangle pass sorts its own working set
+after the sphere pass (kernels/tri_rebin.py, tri_dda.py) and the state is
+not binned.
 
 State is [3, N] / [1, N] rows, as in the reference.  ``accum`` is updated
 in place, which saves a copy of the image per flush.
@@ -62,6 +71,7 @@ import numpy as np
 import torch
 
 from .accel import GridScene
+from .adaptive import alloc_lanes
 from .config import RenderConfig
 from .core.rng import hash_uniform01
 from .ops.hit import SphereTable
@@ -730,12 +740,24 @@ def _bin_sort_core(st: PathState, *, box) -> PathState:
     return PathState(*(x[:, perm] for x in st))
 
 
+def _tri_rebin_active(cfg: RenderConfig, scene) -> bool:
+    """Whether the triangle pass sorts its own working set (``tri_rebin``
+    "on" or "dda", kernels/tri_rebin.py and tri_dda.py): the hit scene's
+    triangle side is a TriGridScene.  The one-shot conflict reads this, not
+    the bin box, which is None under the rebin."""
+    g = scene if isinstance(scene, TriGridScene) else getattr(
+        scene, "triangles", None)
+    return isinstance(g, TriGridScene) and cfg.tri_rebin in ("on", "dda")
+
+
 def _derive_bin_box(cfg: RenderConfig, scene):
     """The ray-binning box of a hit scene: on ("auto" or "on") whenever the
-    triangle side is a TriGridScene; on the sphere grid's (x, z) tiles and
-    y slab under "on" only ("auto" keeps its lane order, as the
-    reference's does); None when binning is off or inapplicable."""
-    if cfg.ray_binning == "off":
+    triangle side is a TriGridScene, unless the triangle pass sorts its own
+    working set (:func:`_tri_rebin_active`: a state sort on top of it would
+    be redundant); on the sphere grid's (x, z) tiles and y slab under "on"
+    only ("auto" keeps its lane order, as the reference's does); None when
+    binning is off or inapplicable."""
+    if cfg.ray_binning == "off" or _tri_rebin_active(cfg, scene):
         return None
     g = scene if isinstance(scene, TriGridScene) else getattr(
         scene, "triangles", None)
@@ -785,18 +807,8 @@ def _alive_count(alive: torch.Tensor):
     return read
 
 
-# Config values the port runs, and the ROADMAP item that ports the rest.
+# Config values the port runs, and why it runs no other.
 _SUPPORTED = {
-    # Kernel D takes its any-touch skip per CTA and per warp, not per
-    # sub-group of a ray block.
-    "tri_sub_gate": ((0,), "Queue 1 item 9 (tri_sub_gate sub-group gates)"),
-    "tri_rebin": (("auto", "off"), "Queue 1 item 9 (tri_rebin working-set "
-                  "sort and DDA, kernels/tri_rebin.py and tri_dda.py)"),
-    "tri_dda_k": ((0,), "Queue 1 item 9 (tri_rebin working-set sort and "
-                  "DDA, kernels/tri_rebin.py and tri_dda.py)"),
-    "adaptive_alloc": (("off",), "Queue 1 item 8 (adaptive.py)"),
-    "adaptive_pool": (("auto",), "Queue 1 item 8 (adaptive.py)"),
-    "kpp_max": ((32,), "Queue 1 item 8 (adaptive.py)"),
     "pallas_interpret": ((False,), "'Not to port' (no interpret mode; "
                          "the plain versions run on the CPU)"),
 }
@@ -831,7 +843,7 @@ def check_supported(cfg: RenderConfig, scene=None) -> None:
         val = getattr(cfg, field)
         if val not in ok:
             raise NotImplementedError(
-                f"RenderConfig.{field}={val!r} is not ported yet: ROADMAP "
+                f"RenderConfig.{field}={val!r} is not ported: ROADMAP "
                 f"{item}; supported: {list(ok)}")
 
 
@@ -903,12 +915,12 @@ def resolve_routes(cfg: RenderConfig, hit_scene, device, *, h_virt: int,
     # One shot: "auto" runs chunks that start at or below the floor whole
     # ("chunk"); "on" also hands an above-floor chunk's tail to the
     # finisher, "staged" to p_render_until stages.  Each needs bounces with
-    # no host step between them: bin sorts and the pallas scatter conflict
-    # ("auto" turns off; "on" and "staged" raise, as in the reference).
-    # (The reference's third conflict, tri_rebin, raises
-    # NotImplementedError in check_supported until Queue 1 item 9.)
+    # no host step between them: bin sorts, the triangle pass's working-set
+    # sorts and the pallas scatter conflict ("auto" turns off; "on" and
+    # "staged" raise, as in the reference).
     conflicts = [name for cond, name in (
         (bin_box is not None, "ray binning"),
+        (_tri_rebin_active(cfg, hit_scene), "tri_rebin working-set sorts"),
         (pallas_scatter, "scatter_backend='pallas'")) if cond]
     one_shot = cfg.one_shot
     if one_shot in ("on", "staged") and conflicts:
@@ -917,6 +929,29 @@ def resolve_routes(cfg: RenderConfig, hit_scene, device, *, h_virt: int,
     if one_shot == "auto":
         one_shot = "off" if conflicts else "chunk"
     return _Routes(fused, multi, hit_sky, scatter, one_shot)
+
+
+class _Phase(NamedTuple):
+    """One lane batch's encoding and step limits: ``dims`` (its kpp is the
+    pixel-lane id stride, 1 for raw pixel ids), the first alive check and
+    the step cap."""
+
+    dims: Dims
+    first_check: int
+    max_steps: int
+
+
+def _pool_est(est: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """``adaptive_pool="on"``'s transform of the prepass estimate over the
+    chunk's (rows, width): max(raw, 3x3 box mean)^1.2, the box over an edge
+    pad.  The box only raises an estimate (a blur would dilute the hard
+    pixels the tail is made of); the exponent over-allocates against the
+    estimate's regression to the mean."""
+    img = est.reshape(h, w).to(torch.float32)
+    pad = torch.nn.functional.pad(img[None, None], (1, 1, 1, 1),
+                                  mode="replicate")[0, 0]
+    box = sum(pad[dy:dy + h, dx:dx + w] for dy in range(3) for dx in range(3))
+    return torch.pow(torch.maximum(img, _div(box, 9)), 1.2).reshape(-1)
 
 
 def render_image_persistent(scene: Scene, cam, cfg: RenderConfig,
@@ -990,15 +1025,31 @@ def render_image_persistent(scene: Scene, cam, cfg: RenderConfig,
         raise ValueError(
             f"pixel-lane ids must stay below 2^29 "
             f"(width*height*frames*lanes_per_pixel = {h_virt * w * kpp})")
+    # Difficulty-adaptive allocation (adaptive.py): a quota-1 prepass
+    # measures each pixel's path length, then the remaining samples run on
+    # lanes allocated by it, raw pixel ids (the replicas live in s_base and
+    # s_quota).
+    adaptive = (cfg.adaptive_alloc == "on" and kpp > 1 and spp > kpp
+                and bin_box is None)
+    if cfg.adaptive_alloc == "on" and not adaptive:
+        raise ValueError(
+            "adaptive_alloc='on' needs an unbinned render with "
+            "lanes_per_pixel > 1 and samples > lanes_per_pixel "
+            f"(got kpp={kpp}, samples={spp}, "
+            f"ray_binning={'active' if bin_box else 'off'})")
+    if cfg.adaptive_pool not in ("auto", "on", "off"):
+        raise ValueError(
+            f"adaptive_pool must be auto|on|off, got {cfg.adaptive_pool!r}")
     routes = resolve_routes(cfg, hit_scene, device, h_virt=h_virt, kpp=kpp,
                             bin_box=bin_box, own_hit_fn=own_hit_fn)
     quota = spp // kpp
     check_period = cfg.check_period or 8
-    first_check = quota + 2
-    max_steps = (quota + 1) * (cfg.max_depth + 2)
     min_lanes = 1 << 12
-    dims = make_dims(cfg, w, h, spp, kpp)
     mk = cfg.multi_k or _MULTI_K
+    # The uniform layout's lane encoding and step limits; the adaptive
+    # phase 2 makes its own (_Phase).
+    uniform = _Phase(make_dims(cfg, w, h, spp, kpp), quota + 2,
+                     (quota + 1) * (cfg.max_depth + 2))
 
     if resume_accum is not None:
         accum = torch.as_tensor(resume_accum, dtype=torch.float32,
@@ -1012,7 +1063,7 @@ def render_image_persistent(scene: Scene, cam, cfg: RenderConfig,
     use_route = (cfg.compactor or "sort") == "route"
     flush_mode = cfg.flush_mode or "scatter"
 
-    def split_bounce(st, salt, step):
+    def split_bounce(st, salt, step, dims):
         """Hit (+ sky), then scatter + respawn: two or more launches."""
         if routes.hit_sky is not None:
             rec, st = routes.hit_sky(hit_scene, st, cfg=cfg)
@@ -1024,10 +1075,11 @@ def render_image_persistent(scene: Scene, cam, cfg: RenderConfig,
         return p_scatter_respawn_step(cam, st, rec, salt, step, dims,
                                       cfg=cfg, lean=lean)
 
-    def do_steps(st, k, step, salt):
+    def do_steps(st, k, step, salt, ph):
         # Below the floor: torch bounces (k at a time when unbinned), or
         # kernel B's k-bounce under multi_backend="fused".  Binned scenes
         # take single steps: a k-bounce would run on stale bins.
+        dims = ph.dims
         tail = st.pixel.shape[1] <= _COMPACT_FLOOR
         if tail and bin_box is None:
             while k >= mk:
@@ -1051,60 +1103,64 @@ def render_image_persistent(scene: Scene, cam, cfg: RenderConfig,
                 st = routes.fused(hit_scene, cam_rows, st, salt, step, dims,
                                   cfg=cfg, lean=lean)
             else:
-                st = split_bounce(st, salt, step)
+                st = split_bounce(st, salt, step, dims)
         return st, step
 
-    def compact_fn(st, accum, *, k_new, tail_sorted=False, n_receivers=0):
+    def compact_fn(st, accum, ph, *, k_new, tail_sorted=False,
+                   n_receivers=0):
         """The compaction engine (cfg.compactor): the route compactor puts
         the live lanes where the sort compactor does, so it is a cost knob;
         receiver events keep the sort engine."""
+        kpp_s = ph.dims.kpp
         if use_route and n_receivers == 0:
-            return _compact_route(st, accum, k_new=k_new, lanes_per_pixel=kpp)
-        return _compact(st, accum, k_new=k_new, lanes_per_pixel=kpp,
+            return _compact_route(st, accum, k_new=k_new,
+                                  lanes_per_pixel=kpp_s)
+        return _compact(st, accum, k_new=k_new, lanes_per_pixel=kpp_s,
                         tail_sorted=tail_sorted, n_receivers=n_receivers,
                         flush=flush_mode)
 
-    def staged(st, accum, step, salt):
+    def staged(st, accum, step, salt, ph):
         """The staged tail (one_shot="staged"): p_render_until stages that
         end when the alive count reaches the power of two at or below half
         the batch (where the host loop's compact + split first fires), each
         followed by that compact + split; a batch of 2 * min_lanes or less
         runs to its end as one shot."""
-        while step < max_steps:
+        while step < ph.max_steps:
             cur = st.pixel.shape[1]
             if cur <= 2 * min_lanes:
-                st = p_render_oneshot(hit_scene, cam, st, salt, step, dims,
-                                      max_steps, cfg=cfg, hit_fn=hit_fn,
-                                      lean=lean)
+                st = p_render_oneshot(hit_scene, cam, st, salt, step,
+                                      ph.dims, ph.max_steps, cfg=cfg,
+                                      hit_fn=hit_fn, lean=lean)
                 break
             target = 1 << (max(cur // 2, 1).bit_length() - 1)
             st, step, n_alive = p_render_until(
-                hit_scene, cam, st, salt, step, target, dims, max_steps,
-                cfg=cfg, hit_fn=hit_fn, lean=lean)
-            if n_alive == 0 or step >= max_steps:
+                hit_scene, cam, st, salt, step, target, ph.dims,
+                ph.max_steps, cfg=cfg, hit_fn=hit_fn, lean=lean)
+            if n_alive == 0 or step >= ph.max_steps:
                 break
-            st, accum = compact_fn(st, accum,
+            st, accum = compact_fn(st, accum, ph,
                                    k_new=max(min_lanes, _next_pow2(n_alive)))
             st = _split(st)
         return st, accum
 
-    def run_loop(st, accum, salt, state_sorted):
+    def run_loop(st, accum, salt, ph, state_sorted):
         """The check / compact / split loop for one lane batch; under
         one_shot "on" or "staged" the batch's tail below the floor goes to
         the finisher or the stages."""
         step = 0
         period = check_period
         last_alive = st.pixel.shape[1]
+        first_check, max_steps = ph.first_check, ph.max_steps
         while step < max_steps:
             next_check = first_check if step < first_check else step + period
             st, step = do_steps(st, min(next_check, max_steps) - step, step,
-                                salt)
+                                salt, ph)
             cur = st.pixel.shape[1]
             # Read the count behind a few optimistic bounces: alive is
             # monotone within a chunk, so the stale count is an upper bound.
             pending = _alive_count(st.path_alive)
             ov = 1 if cur >= (1 << 21) else (2 if cur >= (1 << 20) else 4)
-            st, step = do_steps(st, min(ov, max_steps - step), step, salt)
+            st, step = do_steps(st, min(ov, max_steps - step), step, salt, ph)
             n_alive = pending()
             if n_alive == 0:
                 break
@@ -1118,18 +1174,18 @@ def render_image_persistent(scene: Scene, cam, cfg: RenderConfig,
             last_alive = n_alive
             if cur <= _COMPACT_FLOOR:
                 if routes.one_shot == "staged":
-                    return staged(st, accum, step, salt)
+                    return staged(st, accum, step, salt, ph)
                 # Bounce cost no longer shrinks with the batch: drop dead
                 # lanes and halve the sequential sample tails instead.
                 k_new = max(min_lanes, _next_pow2(n_alive))
                 if k_new <= cur // 2:
-                    st, accum = compact_fn(st, accum, k_new=k_new)
+                    st, accum = compact_fn(st, accum, ph, k_new=k_new)
                     st = _split(st)
                 if routes.one_shot == "on":
                     # The tail finisher: the rest of the chunk with no
                     # compaction and no count read but its own.
                     return p_render_oneshot(
-                        hit_scene, cam, st, salt, step, dims, max_steps,
+                        hit_scene, cam, st, salt, step, ph.dims, max_steps,
                         cfg=cfg, hit_fn=hit_fn, lean=lean), accum
                 continue
             # Above the floor: compact on a shrink.  Under redistribute
@@ -1148,7 +1204,7 @@ def render_image_persistent(scene: Scene, cam, cfg: RenderConfig,
                         n_recv = min(1 << (spare.bit_length() - 1), k_new // 2)
                     else:
                         k_new = k_base
-                st, accum = compact_fn(st, accum, k_new=k_new,
+                st, accum = compact_fn(st, accum, ph, k_new=k_new,
                                        tail_sorted=state_sorted,
                                        n_receivers=n_recv)
                 if n_recv:
@@ -1156,20 +1212,12 @@ def render_image_persistent(scene: Scene, cam, cfg: RenderConfig,
         return st, accum
 
     i32 = dict(dtype=torch.int32, device=device)
-    for y0 in range(resume_y0, h_virt, rows):
-        take = min(rows, h_virt - y0)
-        n_real = take * w * kpp
-        # Pad the chunk onto the size grid with dead zero-quota lanes that
-        # repeat the last pixel id (ascending order survives).
-        n = _grid_size(n_real, min_lanes, cfg.compact_quantum)
-        base = y0 * w * kpp
-        pixel = torch.arange(base, base + n, **i32).clamp_max(
-            base + n_real - 1)[None]
-        s_quota = torch.full((1, n), quota, **i32)
-        s_quota[:, n_real:] = 0
+
+    def fresh_state(pixel, s_base, s_quota):
+        n = pixel.shape[1]
         direction = torch.zeros((3, n), dtype=torch.float32, device=device)
         direction[2] = 1.0
-        st = PathState(
+        return PathState(
             origin=torch.zeros((3, n), dtype=torch.float32, device=device),
             direction=direction,
             time=torch.zeros((1, n), dtype=torch.float32, device=device),
@@ -1180,25 +1228,68 @@ def render_image_persistent(scene: Scene, cam, cfg: RenderConfig,
             sample=torch.full((1, n), -1, **i32),
             pixel=pixel,
             path_alive=torch.zeros((1, n), dtype=torch.bool, device=device),
-            s_base=(torch.arange(n, **i32) % kpp * quota)[None],
+            s_base=s_base,
             s_quota=s_quota,
         )
+
+    # Binning breaks the pixel order the argsort-free flush needs.
+    state_sorted = bin_box is None and h_virt * w * kpp < _SORT_PIX_LIM
+    for y0 in range(resume_y0, h_virt, rows):
+        take = min(rows, h_virt - y0)
+        n_real = take * w * kpp
+        # Pad the chunk onto the size grid with dead zero-quota lanes that
+        # repeat the last pixel id (ascending order survives).
+        n = _grid_size(n_real, min_lanes, cfg.compact_quantum)
+        base = y0 * w * kpp
+        pixel = torch.arange(base, base + n, **i32).clamp_max(
+            base + n_real - 1)[None]
+        s_quota = torch.full((1, n), 1 if adaptive else quota, **i32)
+        s_quota[:, n_real:] = 0
+        lane_rank = torch.arange(n, **i32) % kpp
         salt = (cfg.seed * 0x9E3779B1 ^ (y0 + 1) * 0x85EBCA77) & 0xFFFFFFFF
-        st = p_respawn_step(cam, st, salt, 0, dims, cfg=cfg, lean=lean)
-        if routes.one_shot == "staged" and n <= _COMPACT_FLOOR:
-            st, accum = staged(st, accum, 0, salt)
-        elif routes.one_shot in ("chunk", "on") and n <= _COMPACT_FLOOR:
-            st = p_render_oneshot(hit_scene, cam, st, salt, 0, dims,
-                                  max_steps, cfg=cfg, hit_fn=hit_fn,
-                                  lean=lean)
+        if adaptive:
+            # Phase 1, the prepass: kpp quota-1 lanes a pixel.  Every path
+            # ends within max_depth + 1 bounces, so they run with no count
+            # read and no compaction; the final depth row, in pixel order,
+            # is each sample's path length.
+            st = fresh_state(pixel, lane_rank[None], s_quota)
+            st = p_respawn_step(cam, st, salt, 0, uniform.dims, cfg=cfg,
+                                lean=lean)
+            st, _ = do_steps(st, cfg.max_depth + 1, 0, salt, uniform)
+            est = st.depth[0, :n_real].reshape(take * w, kpp).sum(
+                1, dtype=torch.int32)
+            if cfg.adaptive_pool == "on":
+                est = _pool_est(est, take, w)
+            _flush(accum, st.pixel[0] // kpp, st.radiance_sum,
+                   ascending=True)
+            # Phase 2: the remaining samples on difficulty-proportional
+            # lanes, the same budget (the filler lanes take real work too),
+            # raw pixel ids.
+            pix2, s_base2, s_quota2 = alloc_lanes(
+                est, n_lanes=n, spp_done=kpp, spp=spp, kpp_max=cfg.kpp_max)
+            salt = (salt * 0x85EBCA77 + 0x632BE5AB) & 0xFFFFFFFF
+            spp_rest = spp - kpp
+            ph = _Phase(make_dims(cfg, w, h, spp, 1),
+                        spp_rest // min(cfg.kpp_max, spp_rest) + 2,
+                        (spp_rest + 1) * (cfg.max_depth + 2))
+            st = fresh_state(pix2 + y0 * w, s_base2, s_quota2)
+            st = p_respawn_step(cam, st, salt, 0, ph.dims, cfg=cfg, lean=lean)
+            # The whole-chunk one shot is skipped here; the tail forms stay.
+            st, accum = run_loop(st, accum, salt, ph, state_sorted)
         else:
-            # Binning breaks the pixel order the argsort-free flush needs.
-            st, accum = run_loop(
-                st, accum, salt,
-                state_sorted=(bin_box is None
-                              and h_virt * w * kpp < _SORT_PIX_LIM))
+            ph = uniform
+            st = fresh_state(pixel, (lane_rank * quota)[None], s_quota)
+            st = p_respawn_step(cam, st, salt, 0, ph.dims, cfg=cfg, lean=lean)
+            if routes.one_shot == "staged" and n <= _COMPACT_FLOOR:
+                st, accum = staged(st, accum, 0, salt, ph)
+            elif routes.one_shot in ("chunk", "on") and n <= _COMPACT_FLOOR:
+                st = p_render_oneshot(hit_scene, cam, st, salt, 0, ph.dims,
+                                      ph.max_steps, cfg=cfg, hit_fn=hit_fn,
+                                      lean=lean)
+            else:
+                st, accum = run_loop(st, accum, salt, ph, state_sorted)
         # Flush this chunk's remaining radiance.
-        _flush(accum, st.pixel[0] // kpp, st.radiance_sum)
+        _flush(accum, st.pixel[0] // ph.dims.kpp, st.radiance_sum)
         if chunk_callback is not None:
             chunk_callback(accum, y0 + take)
 
