@@ -92,6 +92,18 @@ checks that each kernel of a path ran in it:
   ``adaptive_pool="on"`` against the default (walls, launches, host
   reads), ``alloc_lanes``'s invariants exact on each chunk, two adaptive
   headlines bit-equal.
+* phase 21: several devices (parallel/) on the one card: 2 ranks as 2
+  processes sharing cuda:0 (gloo), so it checks the lane partition, the
+  lockstep decisions and the reduce over ranks, and its walls are the
+  sharded scheduler's overhead, not scaling.  Small sharded renders
+  (``final``, ``test``, ``mesh`` at 160x120@16; persistent, rows and spp
+  modes) bit-equal to their plain renders and to a second run, with each
+  route's kernels; the headline over the 2 ranks (mean, launches per
+  rank, median wall of 3); ``multi_backend="fused"`` against the default
+  over the ranks (bit-equal); BASELINE config 5 through
+  ``render_animation(mesh=, shard_mode="rows")``; a pass-level sharded
+  checkpoint resumed byte-equal; the headline over 1 rank under NCCL;
+  and what NCCL does with 2 ranks on one card (a subprocess).
 
 Phase 1 prints each sweep kernel's registers, spills and shared memory
 and, from ``cuobjdump -sass`` of the built library, the instruction mix
@@ -113,6 +125,7 @@ device.
     python3 chip_smoke.py --phases 0,1,17 --root out/parent  # A-E, G, H, I of a checkout
     python3 chip_smoke.py --phases 0,1,18,19   # the scheduler's knobs and checkpoints
     python3 chip_smoke.py --phases 0,1,20      # the rebin / DDA arms and adaptive allocation
+    python3 chip_smoke.py --phases 0,1,21      # several devices (ranks sharing the card)
 
 Needs a CUDA card and nvcc.
 """
@@ -2100,6 +2113,7 @@ class Smoke:
         check_route(got, ("bounce",), ("hit",), "config 5")
         check(set(frames_seen) == {8}, f"kernel B cameras {set(frames_seen)}")
         small_means = fk.reshape(8, -1).mean(1)
+        self.fly_small_means = small_means.tolist()
         check(all(abs(x - y) <= FLY_MEAN_TOL for x, y in zip(means, small_means)),
               f"config 5 frame means {means} far from the small frames' "
               f"{small_means.tolist()}")
@@ -3520,6 +3534,301 @@ class Smoke:
             check(same_img, f"{label}: two headlines differ")
 
 
+    # ---- phase 21 ---------------------------------------------------------
+    def multi_device(self):
+        """The sharded paths (parallel/) on this one card: D ranks as D
+        processes sharing cuda:0, so the phase checks the lane partition,
+        the lockstep decisions and the cross-rank reduce, and its walls
+        measure the sharded loop's overhead, not scaling.  Any rank's failure
+        fails the phase (spawn raises)."""
+        from win32_raytracer_tpu_torch.parallel.dryrun import spawn
+
+        self.say("21 nccl", nccl_probe())
+        means = getattr(self, "fly_small_means", None)
+        if means is None:
+            means = fly_small_means(self.dev)
+        spawn(MESH_D, p21_ranks, self.card, means, device_type="cuda")
+        spawn(1, p21_single, self.card, device_type="cuda")
+
+
+# Phase 21: D ranks on the one card; the small renders' scenes and sizes.
+MESH_D = 2
+MESH_SMALL = dict(width=160, height=120, samples=16, seed=2)
+MESH_SMALL_SCENES = ("final", "test", "mesh")
+MESH_FLOOR = 1 << 14   # the floor of the small renders (kernel B runs)
+MESH_CKPT = dict(width=600, height=400, samples=32, seed=4)
+
+
+def say21(mesh, what: str, msg: str) -> None:
+    """Rank 0 prints a phase-21 line."""
+    from win32_raytracer_tpu_torch.parallel.shard import mesh_rank
+    if mesh_rank(mesh) == 0:
+        print(f"[21 {what}] {msg}", flush=True)
+
+
+def fly_small_means(dev) -> list:
+    """Phase 12's small flythrough frame means (the batched kernel frames
+    of FLY_SMALL on one card, the floor at 2^14)."""
+    import win32_raytracer_tpu_torch.persistent as P
+    from win32_raytracer_tpu_torch.animation import orbit_path, render_animation
+    from win32_raytracer_tpu_torch.config import RenderConfig
+    from win32_raytracer_tpu_torch.scene.builders import get_scene
+
+    small = RenderConfig(**FLY_SMALL)
+    cams = orbit_path(n_frames=8, aspect_ratio=small.width / small.height,
+                      device=dev)
+    saved = P._COMPACT_FLOOR
+    P._COMPACT_FLOOR = 1 << 14
+    try:
+        fk = np.stack(render_animation(get_scene("final", device=dev), cams,
+                                       small, device=dev))
+    finally:
+        P._COMPACT_FLOOR = saved
+    return fk.reshape(8, -1).mean(1).tolist()
+
+
+_NCCL_PROBE = """
+import sys
+sys.path.insert(0, {root!r})
+import torch.distributed as dist
+from win32_raytracer_tpu_torch.parallel.dryrun import spawn
+def probe(mesh):
+    import torch
+    from win32_raytracer_tpu_torch.parallel.shard import all_gather
+    return [int(x) for x in all_gather(torch.ones(1, device='cuda'), mesh)]
+if __name__ == '__main__':
+    print(spawn(2, probe, device_type='cuda', backend='nccl'))
+"""
+
+
+def nccl_probe(timeout: float = 120.0) -> str:
+    """Two NCCL ranks on one card, in a process group of their own that
+    is killed after ``timeout``: what NCCL does with them (the reason
+    parallel/shard.pick_backend takes gloo when ranks share a card)."""
+    import signal
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        script = os.path.join(tmp, "probe.py")
+        with open(script, "w") as f:
+            f.write(_NCCL_PROBE.format(root=root))
+        proc = subprocess.Popen([sys.executable, script], stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+        try:
+            out, _ = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            return f"2 NCCL ranks on one card: no answer in {timeout:.0f} s (killed)"
+    lines = [ln for ln in out.splitlines() if ln.strip()]
+    hits = [ln.strip() for ln in lines
+            if re.search(r"[Dd]uplicate GPU|ncclInvalidUsage|NCCL error", ln)]
+    what = hits[0] if hits else (lines[-1].strip() if lines else "no output")
+    verdict = "refused" if proc.returncode else "accepted"
+    return (f"2 NCCL ranks on one card: {verdict} (exit {proc.returncode}): "
+            f"{what[:300]}")
+
+
+def p21_launches(mesh, got: dict) -> str:
+    """Each rank's launches ``got`` (a launches() dict), rank order."""
+    from win32_raytracer_tpu_torch.parallel.shard import gather_ints
+    names = list(_counters())
+    got = gather_ints([got[k] for k in names], mesh)
+    return "; ".join(f"rank {r}: " + str({k: int(v) for k, v in zip(names, row) if v})
+                     for r, row in enumerate(got))
+
+
+def p21_ranks(mesh, card: str, small_means: list) -> None:
+    """Phase 21 on each of MESH_D ranks sharing the card (gloo)."""
+    import torch.distributed as dist
+    import win32_raytracer_tpu_torch.persistent as P
+    from win32_raytracer_tpu_torch.animation import orbit_path, render_animation
+    from win32_raytracer_tpu_torch.config import RenderConfig
+    from win32_raytracer_tpu_torch.parallel.persistent_shard import (
+        render_image_persistent_sharded)
+    from win32_raytracer_tpu_torch.parallel.shard import (
+        barrier, mesh_rank, rank_device, render_image_sharded)
+    from win32_raytracer_tpu_torch.render import tonemap
+    from win32_raytracer_tpu_torch.scene.builders import get_scene
+    from win32_raytracer_tpu_torch.utils import checkpoint as CK
+
+    dev = rank_device(mesh)
+    d = mesh.size()
+    say21(mesh, "mesh", f"{d} ranks on {torch.cuda.device_count()} card(s), "
+          f"backend {dist.get_backend()}, rank 0 on {dev}")
+
+    # Small renders: kernels bit-equal to plain, twice; each route's kernels.
+    routes = {("final", "persistent"): ("bounce", "hit"),
+              ("test", "persistent"): ("bounce", "hit"),
+              ("mesh", "persistent"): ("hit", "tri"),
+              ("mesh", "rows"): ("hit_cols", "tri_cols"),
+              ("mesh", "spp"): ("hit_cols", "tri_cols")}
+    saved = P._COMPACT_FLOOR
+    P._COMPACT_FLOOR = MESH_FLOOR
+    try:
+        for name in MESH_SMALL_SCENES:
+            scene = get_scene(name, device=dev)
+            for mode in ("persistent", "rows", "spp"):
+                cfg = RenderConfig(**MESH_SMALL)
+
+                def run(c):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    if mode == "persistent":
+                        out = render_image_persistent_sharded(scene, None, c, mesh)
+                    else:
+                        out = render_image_sharded(scene, None, c, mesh, mode=mode)
+                    torch.cuda.synchronize()
+                    return out, time.perf_counter() - t0
+                reset_launches()
+                k1, t1 = run(cfg)
+                got = launches()
+                k2, _ = run(cfg)
+                pl, tp = run(cfg.replace(backend="jnp"))
+                same = bool(torch.equal(k1, pl)) and bool(torch.equal(k1, k2))
+                check_route(got, routes.get((name, mode), ("hit_cols",) if mode != "persistent"
+                                            else ("bounce", "hit")), (),
+                            f"{name} {mode} on {d} ranks")
+                say21(mesh, "small", f"{name} {cfg.width}x{cfg.height}@{cfg.samples} "
+                      f"{mode}: kernels bit-equal to plain and to a second run "
+                      f"{same}, u8 mean {float(tonemap(k1).float().mean()):.3f}, "
+                      f"{t1:.3f} s (plain {tp:.3f} s); launches "
+                      f"{p21_launches(mesh, got)}")
+                check(same, f"{name} {mode}: sharded kernel render differs "
+                      "from plain or from its second run")
+    finally:
+        P._COMPACT_FLOOR = saved
+
+    # The headline over the ranks: mean, launches, median wall of 3; then
+    # multi_backend="fused" against the default, which it must equal.
+    cfg = RenderConfig(**HEADLINE)
+    scene = get_scene("final", device=dev)
+
+    def headline(c):
+        barrier(mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = render_image_persistent_sharded(scene, None, c, mesh)
+        img = tonemap(out).cpu().numpy()
+        return out, img, time.perf_counter() - t0
+    headline(cfg)
+    walls, lin = [], None
+    for _ in range(3):
+        reset_launches()
+        lin, img, wall = headline(cfg)
+        walls.append(wall)
+    got = launches()
+    mean = float(img.mean())
+    say21(mesh, "headline", f"final {cfg.width}x{cfg.height}@{cfg.samples} "
+          f"spp over {d} ranks on one card: walls {[round(w, 4) for w in walls]} s (median "
+          f"{np.median(walls):.4f}), image mean {mean:.3f} (170.1 +- 1.5), "
+          f"launches {p21_launches(mesh, got)} [{card}]")
+    check_route(got, ("bounce", "hit"), (), "sharded headline")
+    check(abs(mean - HEADLINE_MEAN) <= HEADLINE_MEAN_TOL,
+          f"sharded headline mean {mean}")
+    reset_launches()
+    fused, _, t_f = headline(cfg.replace(multi_backend="fused"))
+    got = launches()
+    same = bool(torch.equal(fused, lin))
+    say21(mesh, "fused", f"the headline under multi_backend=\"fused\" (kernel "
+          f"B's k-bounce above the per-rank floor): {t_f:.4f} s, linear image "
+          f"bit-equal to the default's {same} "
+          f"({int((fused != lin).any(-1).sum())} pixels differ), launches "
+          f"{p21_launches(mesh, got)} [{card}]")
+    check_route(got, ("bounce", "bounce_multi", "hit"), (),
+                "sharded multi_backend=fused")
+    check(same, "sharded multi_backend='fused' differs from 'xla'")
+    del lin, fused
+
+    # BASELINE config 5 over the ranks (bench/configs.py:84-110: the
+    # flythrough sharded in row blocks): one batch of 8 frames.
+    cfg5 = RenderConfig(**CONFIG5)
+    cams = orbit_path(n_frames=8, aspect_ratio=cfg5.width / cfg5.height,
+                      device=dev)
+    render_animation(scene, cams, cfg5.replace(seed=cfg5.seed + 7001),
+                     mesh=mesh, shard_mode="rows")
+    reset_launches()
+    barrier(mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frames = render_animation(scene, cams, cfg5, mesh=mesh, shard_mode="rows")
+    wall = time.perf_counter() - t0
+    got = launches()
+    fmeans = [float(f.mean()) for f in frames]
+    rays = cfg5.width * cfg5.height * cfg5.samples * len(cams)
+    say21(mesh, "config 5", f"final, 8 frames {cfg5.width}x{cfg5.height}@"
+          f"{cfg5.samples} spp over {d} ranks "
+          f"(shard_mode=\"rows\"): {wall:.4f} s, {len(frames) / wall:.3f} fps, "
+          f"{rays / wall / 1e6:.3f} Mrays/s, frame means "
+          f"{[round(x, 2) for x in fmeans]} (within {FLY_MEAN_TOL} of phase "
+          f"12's small frames {[round(x, 2) for x in small_means]}), "
+          f"launches {p21_launches(mesh, got)} [{card}]")
+    check(len(frames) == 8 and all(f.shape == (cfg5.height, cfg5.width, 3)
+                                   for f in frames), "sharded config 5 shapes")
+    check_route(got, ("bounce",), ("hit",), "sharded config 5")
+    check(all(abs(x - y) <= FLY_MEAN_TOL for x, y in zip(fmeans, small_means)),
+          f"sharded config 5 frame means {fmeans}")
+
+    # A pass-level checkpoint over the ranks, stopped and resumed.
+    ck_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "out",
+                          "chip_smoke_ckpt", "mesh")
+    if mesh_rank(mesh) == 0:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+        os.makedirs(ck_dir)
+    barrier(mesh)
+    c = RenderConfig(**MESH_CKPT)
+
+    def ck(name, **kw):
+        t0 = time.perf_counter()
+        img = CK.render_with_checkpoints(scene, None, c, os.path.join(ck_dir, name),
+                                         passes=4, mesh=mesh, **kw)
+        return img, time.perf_counter() - t0
+    full, t_full = ck("full.npz")
+    part, t_part = ck("part.npz", max_passes_per_run=2)
+    resumed, t_res = ck("part.npz")
+    a = CK.load_checkpoint(os.path.join(ck_dir, "full.npz"))
+    b = CK.load_checkpoint(os.path.join(ck_dir, "part.npz"))
+    same = resumed is not None and bool(np.array_equal(full, resumed))
+    same_acc = bool(np.array_equal(a[0], b[0])) and a[1] == b[1] == 4
+    say21(mesh, "checkpoint", f"final {c.width}x{c.height}@{c.samples} in 4 "
+          f"passes over {d} ranks: uninterrupted {t_full:.3f} s; stopped after "
+          f"2 passes in {t_part:.3f} s and resumed in {t_res:.3f} s: u8 image "
+          f"identical {same}, .npz accumulator bit-equal {same_acc} [{card}]")
+    check(part is None and same and same_acc, "sharded checkpoint resume differs")
+
+
+def p21_single(mesh, card: str) -> None:
+    """The headline over one rank under NCCL: mean, wall, and the pixels
+    that differ from the one-card headline (other floor and min_lanes, so
+    no equality is asked)."""
+    import torch.distributed as dist
+    from win32_raytracer_tpu_torch.api import render
+    from win32_raytracer_tpu_torch.config import RenderConfig
+
+    cfg = RenderConfig(**HEADLINE)
+    render("final", cfg=cfg, mesh=mesh, shard_mode="persistent")
+    walls = []
+    for _ in range(3):
+        reset_launches()
+        res = render("final", cfg=cfg, mesh=mesh, shard_mode="persistent")
+        walls.append(res.duration_ms / 1e3)
+    got = launches()
+    one = render("final", cfg=cfg, device=res.device)
+    mean = float(res.image.mean())
+    differ = int((res.image != one.image).any(-1).sum())
+    say21(mesh, "D=1", f"the headline over 1 rank (backend "
+          f"{dist.get_backend()}): walls {[round(w, 4) for w in walls]} s "
+          f"(median {np.median(walls):.4f}; one card, no mesh: "
+          f"{one.duration_ms / 1e3:.4f}), mean {mean:.3f}, pixels that differ "
+          f"from the one-card headline {differ} of {one.image.shape[0] * one.image.shape[1]}, "
+          f"launches {p21_launches(mesh, got)} [{card}]")
+    check(abs(mean - HEADLINE_MEAN) <= HEADLINE_MEAN_TOL,
+          f"D=1 sharded headline mean {mean}")
+    check_route(got, ("bounce", "hit"), (), "D=1 sharded headline")
+
+
 # Phase 11's routes: (label, knob, kernels the route must launch, the
 # kernel whose main path it is); kernel A may run below the floor on any.
 ROUTES = (
@@ -3605,7 +3914,7 @@ KERNEL_META = {
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,18,19,20",
+    ap.add_argument("--phases", default="0,1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,18,19,20,21",
                     help="comma-separated phases to run (0 always runs)")
     ap.add_argument("--root", default=None,
                     help="import win32_raytracer_tpu_torch from this checkout "
@@ -3672,6 +3981,8 @@ def main() -> int:
     if 20 in phases:
         smoke.tri_arms()
         smoke.adaptive_headline()
+    if 21 in phases:
+        smoke.multi_device()
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [{"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, **{f: smoke.kernels[key][f] for f in keys},

@@ -106,13 +106,19 @@ def test_checkpoint_rays_per_chunk_refusal(tmp_path):
         _run(cfg.replace(lanes_per_pixel=2), ck, passes=2)
 
 
-def test_checkpoint_refusals():
-    """mesh= (a multi-device render) names ROADMAP Queue 1 item 11; chunk
-    checkpoints need the persistent scheduler; passes must divide the
-    samples; without device= the card is required."""
+def test_checkpoint_refusals(tmp_path):
+    """On a mesh (one rank in this process) chunk checkpoints are refused
+    and a pass must resolve the persistent scheduler; chunk checkpoints
+    need the persistent scheduler; passes must divide the samples; without
+    device= the card is required."""
+    from torch_shard_cases import one_rank
     cfg = TC(width=16, height=8, samples=8, seed=1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        _run(cfg, "unused.npz", passes=2, mesh=object())
+    with one_rank(tmp_path) as mesh:
+        with pytest.raises(ValueError, match="chunk_checkpoints"):
+            _run(cfg.replace(samples=16), "unused.npz", passes=1, mesh=mesh,
+                 chunk_checkpoints=True)
+        with pytest.raises(ValueError, match="sharded persistent"):
+            _run(cfg, "unused.npz", passes=2, mesh=mesh)
     with pytest.raises(ValueError, match="persistent"):
         _run(cfg.replace(scheduler="wavefront"), "unused.npz", passes=2,
              chunk_checkpoints=True)

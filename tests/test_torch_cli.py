@@ -81,8 +81,10 @@ def test_animate_writes_frames(tmp_path):
 
 
 def test_refusals(tmp_path):
-    """Not ported yet: more than one device (ROADMAP Queue 1 item 11);
-    --animate with --checkpoint exits 2 as in the reference; an unknown
+    """More than one device: ``devices`` 2 on the CPU starts two ranks,
+    and rank 0 writes an image that agrees with the one-device render in
+    its statistics (other draws); --animate with --checkpoint exits 2 as
+    in the reference; an unknown
     --platform raises; with no platform the card is required, as
     api.resolve_device requires it.  --checkpoint renders and resumes:
     a checkpoint left after one of two passes, resumed by the CLI, gives
@@ -91,8 +93,13 @@ def test_refusals(tmp_path):
     from win32_raytracer_tpu_torch.utils.checkpoint import (
         load_checkpoint, render_with_checkpoints)
     base = ["16", "8", "2", "--scene", "test", "--quiet"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        cli.main(["16", "8", "2", "2", "--platform", "cpu", "--quiet"])
+    two, one = tmp_path / "two.bmp", tmp_path / "one.bmp"
+    for n, out in (("2", two), ("0", one)):
+        assert cli.main(["16", "8", "8", n, "--scene", "test", "--platform",
+                         "cpu", "--quiet", "--out", str(out)]) == 0
+    a, b = read_image(str(two)), read_image(str(one))
+    assert a.shape == b.shape == (8, 16, 3)
+    assert np.abs(a.astype(float) - b.astype(float)).mean() < 6.0
     assert cli.main(base + ["--platform", "cpu", "--animate", "2",
                             "--checkpoint", "x.npz"]) == 2
     with pytest.raises(ValueError, match="platform"):

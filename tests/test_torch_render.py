@@ -116,7 +116,7 @@ def test_encoders_byte_identical(shape, tmp_path):
     assert path.read_bytes() == jax_bmp(img)
 
 
-def test_render_async_and_result():
+def test_render_async_and_result(tmp_path):
     got = []
     handle = render_async("test", cfg=TC(width=16, height=8, samples=8),
                           device="cpu", callback=got.append)
@@ -124,6 +124,14 @@ def test_render_async_and_result():
     assert handle.done() and got and got[0] is res
     assert res.image.shape == (8, 16, 3)
     assert res.mrays_per_sec > 0 and len(res.image_parts) == 1
-    with pytest.raises(NotImplementedError, match="item 11"):
-        render("test", cfg=TC(width=8, height=8, samples=8), device="cpu",
-               mesh=object())
+    # mesh=: the render over a mesh (here one rank in this process) is
+    # parallel/shard.render_sharded of the same arguments.
+    from torch_shard_cases import one_rank
+    from win32_raytracer_tpu_torch.parallel.shard import render_sharded
+    from win32_raytracer_tpu_torch.scene.builders import test_scene
+    cfg = TC(width=8, height=8, samples=8)
+    with one_rank(tmp_path) as mesh:
+        res = render("test", cfg=cfg, device="cpu", mesh=mesh)
+        want = render_sharded(test_scene(), cfg=cfg, mesh=mesh)
+    assert res.device == "cpu" and res.image.shape == (8, 8, 3)
+    np.testing.assert_array_equal(res.image, want)

@@ -8,6 +8,8 @@ one camera per frame (``persistent.render_image_persistent`` with a camera
 list), so the scheduler's tail and its alive checks are paid once per
 batch instead of once per frame.  On the wavefront scheduler
 (deterministic renders, below 8 spp) each frame is one ``api.render``.
+Over a mesh of ranks a batch's tall image shards by interleaved row blocks
+(parallel/persistent_shard.py), as the reference's sharded flythrough.
 """
 
 from __future__ import annotations
@@ -91,7 +93,11 @@ def render_animation(
     ``frame_callback(i, image, ms)``.
 
     ``scene`` is a scene or a scene name.  ``device``: None means the CUDA
-    card, and raises when there is none (pass ``device="cpu"``).
+    card, and raises when there is none (pass ``device="cpu"``).  With a
+    ``mesh`` (parallel/shard.make_mesh) every rank calls this: batches
+    render through the persistent scheduler over the mesh (shard modes
+    "rows" and "persistent"), single frames through ``api.render(mesh=,
+    shard_mode=)``, and only rank 0 of the mesh writes ``out_pattern``.
 
     Frame seeds derive from (cfg.seed, batch start), so animations are
     reproducible and frames decorrelated.  ``batch_frames`` (0 = auto,
@@ -101,23 +107,28 @@ def render_animation(
     resolution (resumed frames call ``frame_callback`` with ms 0.0); a
     missing, unreadable or wrong-size file re-renders its batch, with its
     original seed, so a resumed animation equals an uninterrupted one."""
-    from .api import _resolve, render as api_render, resolve_device
+    from .api import _resolve, mesh_device, render as api_render
+    from .parallel.shard import is_writer
 
     cfg = cfg or RenderConfig()
-    if mesh is not None:
-        raise NotImplementedError(
-            f"multi-device animation (shard_mode={shard_mode!r}) is not "
-            "ported yet: ROADMAP Queue 1 item 11")
     scheduler = resolve_scheduler(cfg)
     cameras = list(cameras)
+    # A batch is one tall image sharded by row blocks: on a mesh, only the
+    # row-block modes batch.
+    mesh_batchable = mesh is None or shard_mode in ("rows", "persistent")
     if batch_frames <= 0:
         batch_frames = (_auto_batch_frames(cfg, len(cameras))
-                        if scheduler == "persistent" else 1)
+                        if scheduler == "persistent" and mesh_batchable
+                        else 1)
+    if batch_frames > 1 and not mesh_batchable:
+        raise ValueError(
+            f"batch_frames={batch_frames} needs shard_mode 'rows' or "
+            f"'persistent' on a mesh (got {shard_mode!r})")
     if batch_frames > 1 and scheduler != "persistent":
         raise ValueError(
             f"batch_frames={batch_frames} requires the persistent "
             f"scheduler (resolved scheduler is {scheduler!r})")
-    dev = resolve_device(device)
+    dev = mesh_device(mesh, device)
     scene, _, cfg = _resolve(scene, cameras[0] if cameras else None, cfg, dev)
 
     def read_back(path):
@@ -133,7 +144,7 @@ def render_animation(
         return img if img.shape == (cfg.height, cfg.width, 3) else None
 
     def emit(i, img, ms):
-        if out_pattern:
+        if out_pattern and is_writer(mesh):
             from .io.image import write_image
             os.makedirs(os.path.dirname(out_pattern) or ".", exist_ok=True)
             write_image(out_pattern % i, img)
@@ -151,13 +162,22 @@ def render_animation(
                         frame_callback(i, img, 0.0)
                     continue
             res = api_render(scene, cam=cam, cfg=cfg.replace(
-                seed=cfg.seed * 1000003 + i), device=dev)
+                seed=cfg.seed * 1000003 + i), device=dev, mesh=mesh,
+                shard_mode=shard_mode)
             frames.append(res.image)
             emit(i, res.image, res.duration_ms)
         return frames
 
     from .persistent import _resolve_kpp, render_image_persistent
     from .render import tonemap
+
+    if mesh is not None:
+        from .parallel.persistent_shard import render_image_persistent_sharded
+
+        def render_batch(s, group, c):
+            return render_image_persistent_sharded(s, group, c, mesh)
+    else:
+        render_batch = render_image_persistent
 
     # Size the chunk with the multi-frame kpp rule, so each batch is one
     # chunk: more chunks would bring back the per-chunk tail.
@@ -195,7 +215,7 @@ def render_animation(
                            rays_per_chunk=max(cfg.rays_per_chunk,
                                               len(group) * per_frame))
         t0 = time.perf_counter()
-        linear = render_image_persistent(scene, group, fcfg)
+        linear = render_batch(scene, group, fcfg)
         u8 = tonemap(linear)            # [F, H, W, 3], still on the device
         copied = None
         if u8.device.type == "cuda":

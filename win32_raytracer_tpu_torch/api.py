@@ -55,6 +55,20 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+def mesh_device(mesh, device=None) -> torch.device:
+    """The device of a render: :func:`resolve_device` without a mesh, this
+    rank's device (parallel/shard.rank_device) with one; a ``device`` of
+    another type than the mesh's raises."""
+    if mesh is None:
+        return resolve_device(device)
+    from .parallel.shard import rank_device
+    dev = rank_device(mesh)
+    if device is not None and torch.device(device).type != dev.type:
+        raise ValueError(f"device={device!r} but the mesh's ranks run on "
+                         f"{dev.type}")
+    return dev
+
+
 def _resolve(scene, cam, cfg, device):
     cfg = cfg or RenderConfig()
     if isinstance(scene, str):
@@ -73,18 +87,23 @@ def render(scene: Optional[Scene | str] = None,
     """Blocking render of a sphere, triangle or composite scene, a scene
     name ('test' / 'random' / 'final' / 'mesh' / 'mesh20k') or None (the
     RTIOW random scene, like the reference), through one camera (a camera
-    list renders through ``animation.render_animation``)."""
+    list renders through ``animation.render_animation``).
+
+    ``mesh`` (parallel/shard.make_mesh) renders over the ranks of a mesh:
+    every rank calls this and gets the whole image; ``shard_mode`` is
+    "rows", "spp" or "persistent" (parallel/shard.render_image_sharded).
+    The device is then the rank's."""
     if isinstance(cam, (list, tuple)) and not isinstance(cam, Camera):
         raise TypeError("render takes one camera; render a list of cameras "
                         "with animation.render_animation")
-    if mesh is not None:
-        raise NotImplementedError(
-            f"multi-device rendering (shard_mode={shard_mode!r}) is not "
-            "ported yet: ROADMAP Queue 1 item 11")
-    dev = resolve_device(device)
+    dev = mesh_device(mesh, device)
     scene, cam, cfg = _resolve(scene, cam, cfg, dev)
     start = time.perf_counter()
-    image = _render_single(scene, cam, cfg)   # ends in a device->host copy
+    if mesh is not None:
+        from .parallel.shard import render_sharded
+        image = render_sharded(scene, cam, cfg, mesh=mesh, mode=shard_mode)
+    else:
+        image = _render_single(scene, cam, cfg)   # ends in a device->host copy
     dur = (time.perf_counter() - start) * 1e3
     rays = cfg.width * cfg.height * cfg.samples
     return RenderResult(image=image, duration_ms=dur, config=cfg,
@@ -119,7 +138,7 @@ def render_async(scene: Optional[Scene | str] = None,
     (``ptr::asyncRender``).  The device is resolved before the thread
     starts, so a missing card raises here, as in :func:`render`."""
     handle: AsyncRender
-    kw["device"] = resolve_device(kw.get("device"))
+    kw["device"] = mesh_device(kw.get("mesh"), kw.get("device"))
 
     def work():
         try:

@@ -13,9 +13,14 @@ The render runs on the CUDA card; ``--platform cpu`` renders on the CPU
 ``perfTest`` (or ``--perf-test``) writes the elapsed ms to the perf file
 and exits (Game.cpp:187-191, 222-228), with a JSON line of Mrays/s on
 stdout.  ``--checkpoint FILE`` renders in ``--passes`` resumable passes
-(utils/checkpoint.py; run the command again to resume).  ``devices`` > 1
-is not ported yet and raises ``NotImplementedError`` naming its ROADMAP
-item.
+(utils/checkpoint.py; run the command again to resume).
+
+``devices`` > 1 renders over a mesh of that many ranks
+(parallel/shard.py), in ``--shard-mode`` (default "persistent"): the CLI
+starts the ranks itself as processes (the ``spawn`` start method, a
+``FileStore`` in a temporary directory), or, run under ``torchrun``
+(``WORLD_SIZE`` set), each process is a rank.  Rank 0 writes the image and
+the perf file; a rank that fails makes the CLI exit non-zero.
 """
 
 from __future__ import annotations
@@ -40,8 +45,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("height", nargs="?", type=int, default=DEFAULT_IMAGE_HEIGHT)
     p.add_argument("samples", nargs="?", type=int, default=DEFAULT_NUM_SAMPLES)
     p.add_argument("devices", nargs="?", type=int, default=0,
-                   help="devices (0 = one device; the reference's 'threads' "
-                        "slot; more than one is not ported yet)")
+                   help="devices: ranks of a mesh (0 = one device; the "
+                        "reference's 'threads' slot)")
     p.add_argument("perf", nargs="?", default="",
                    help="literal 'perfTest' for perf-harness mode "
                         "(Main.cpp:112-118)")
@@ -166,11 +171,63 @@ def _device(platform: str):
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    perf_mode = args.perf_test or args.perf == "perfTest"
+    if args.animate and args.checkpoint:
+        if not args.quiet:
+            print("--animate and --checkpoint are mutually exclusive; use "
+                  "--resume to resume a flythrough at frame granularity",
+                  file=sys.stderr, flush=True)
+        return 2
+    device = _device(args.platform)
+    from .api import resolve_device
+    dev = resolve_device(device)
+    if not (args.devices and args.devices > 1):
+        return _render(args, dev, None)
+    device_type = dev.type
+    if "WORLD_SIZE" in os.environ:
+        # Under torchrun: this process is one rank.
+        import torch.distributed as dist
 
-    from .api import render, resolve_device
-    device = resolve_device(_device(args.platform))
+        from .parallel.shard import init_ranks, make_mesh
+        init_ranks(int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]),
+                   device_type=device_type, verbose=not args.quiet)
+        try:
+            mesh = make_mesh(args.devices, device_type)
+            return 0 if mesh is None else _mesh_render(mesh, argv)
+        finally:
+            dist.destroy_process_group()
+    import torch.multiprocessing as mp
+
+    from .parallel.dryrun import spawn
+    try:
+        return spawn(args.devices, _mesh_render, argv, device_type=device_type)
+    except mp.ProcessException as e:
+        print(f"a rank failed: {e}", file=sys.stderr, flush=True)
+        return 1
+
+
+def _mesh_render(mesh, argv) -> int:
+    """One rank of a multi-device run: the render over ``mesh``; only rank
+    0 of the mesh logs and writes.  A rank that would exit non-zero
+    raises, so the run fails."""
+    from .parallel.shard import mesh_rank, rank_device
+    args = build_parser().parse_args(argv)
+    if mesh_rank(mesh) != 0:
+        args.quiet = True
+    rc = _render(args, rank_device(mesh), mesh)
+    if rc:
+        raise RuntimeError(f"rank {mesh_rank(mesh)} exited {rc}")
+    return rc
+
+
+def _render(args, device, mesh) -> int:
+    """The render the arguments ask for, on ``device`` (over ``mesh`` when
+    there is one; then every rank runs this and rank 0 writes)."""
+    from .api import render
+    from .parallel.shard import is_writer
+    perf_mode = args.perf_test or args.perf == "perfTest"
+    writer = is_writer(mesh)
 
     cfg = RenderConfig(
         width=args.width, height=args.height, samples=args.samples,
@@ -203,15 +260,8 @@ def main(argv=None) -> int:
     log(f"scene={args.scene} {cfg.width}x{cfg.height} spp={cfg.samples} "
         f"depth={cfg.max_depth} seed={cfg.seed} backend={cfg.backend}")
 
-    if args.devices and args.devices > 1:
-        raise NotImplementedError(
-            f"rendering on {args.devices} devices is not ported yet: ROADMAP "
-            "Queue 1 item 11 (multi-device)")
-
-    if args.animate and args.checkpoint:
-        log("--animate and --checkpoint are mutually exclusive; use "
-            "--resume to resume a flythrough at frame granularity")
-        return 2
+    if mesh is not None:
+        log(f"mesh: {mesh.size()} rank(s), shard mode {args.shard_mode}")
 
     if args.animate:
         from .animation import orbit_path, render_animation
@@ -233,6 +283,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         frames = render_animation(
             get_scene(args.scene), cams, cfg, out_pattern=pattern,
+            mesh=mesh, shard_mode=args.shard_mode,
             batch_frames=args.batch_frames, resume=args.resume,
             frame_callback=(lambda i, img, ms:
                             resumed.append(i) if ms == 0.0 else None),
@@ -246,7 +297,7 @@ def main(argv=None) -> int:
             f"({cfg.width * cfg.height * cfg.samples * rendered / dt / 1e6:.1f}"
             " Mrays/s primary)")
         log(f"wrote {pattern % 0} .. {pattern % (len(frames) - 1)}")
-        if perf_mode:
+        if perf_mode and writer:
             with open(args.perf_file, "w") as f:
                 f.write(f"{dt * 1e3:.0f}\n")
             print(json.dumps({
@@ -270,7 +321,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         img = render_with_checkpoints(get_scene(args.scene), None, cfg,
                                       args.checkpoint, passes=args.passes,
-                                      device=device)
+                                      mesh=mesh, device=device)
         dur = (time.perf_counter() - t0) * 1e3
         if img is None:
             log("checkpoint budget exhausted; rerun to resume")
@@ -286,11 +337,13 @@ def main(argv=None) -> int:
                               mrays_per_sec=rays / (dur / 1e3) / 1e6,
                               device=str(device))
     else:
-        result = render(args.scene, cfg=cfg, shard_mode=args.shard_mode,
-                        device=device)
+        result = render(args.scene, cfg=cfg, mesh=mesh,
+                        shard_mode=args.shard_mode, device=device)
     log(f"render duration: {result.duration_ms:.0f} ms "
         f"({result.mrays_per_sec:.2f} Mrays/s primary)")
 
+    if not writer:
+        return 0
     if perf_mode:
         # Reference behaviour: elapsed ms to the perf file, then exit
         # (Game.cpp:187-191), plus a JSON line on stdout for harnesses.

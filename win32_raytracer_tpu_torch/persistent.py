@@ -931,6 +931,45 @@ def resolve_routes(cfg: RenderConfig, hit_scene, device, *, h_virt: int,
     return _Routes(fused, multi, hit_sky, scatter, one_shot)
 
 
+def split_bounce(routes: _Routes, hit_scene, hit_fn, cam: Camera, cam_rows,
+                 st: PathState, salt, step, dims: Dims, *, cfg: RenderConfig,
+                 lean: bool = False) -> PathState:
+    """An above-floor bounce with no fused kernel: hit (+ sky: kernel E,
+    or the hit function), then scatter + respawn (kernel F, or torch)."""
+    if routes.hit_sky is not None:
+        rec, st = routes.hit_sky(hit_scene, st, cfg=cfg)
+    else:
+        rec, st = p_hit_step(hit_scene, st, cfg=cfg, hit_fn=hit_fn)
+    if routes.scatter is not None:
+        return routes.scatter(cam_rows, st, rec, salt, step, dims, cfg=cfg,
+                              lean=lean)
+    return p_scatter_respawn_step(cam, st, rec, salt, step, dims, cfg=cfg,
+                                  lean=lean)
+
+
+def fresh_state(pixel: torch.Tensor, s_base: torch.Tensor,
+                s_quota: torch.Tensor) -> PathState:
+    """Lanes with no path yet on ``pixel``'s device: the first respawn
+    starts their samples."""
+    n, device = pixel.shape[1], pixel.device
+    f32 = dict(dtype=torch.float32, device=device)
+    direction = torch.zeros((3, n), **f32)
+    direction[2] = 1.0
+    return PathState(
+        origin=torch.zeros((3, n), **f32),
+        direction=direction,
+        time=torch.zeros((1, n), **f32),
+        throughput=torch.ones((3, n), **f32),
+        radiance_sum=torch.zeros((3, n), **f32),
+        depth=torch.zeros((1, n), dtype=torch.int32, device=device),
+        sample=torch.full((1, n), -1, dtype=torch.int32, device=device),
+        pixel=pixel,
+        path_alive=torch.zeros((1, n), dtype=torch.bool, device=device),
+        s_base=s_base,
+        s_quota=s_quota,
+    )
+
+
 class _Phase(NamedTuple):
     """One lane batch's encoding and step limits: ``dims`` (its kpp is the
     pixel-lane id stride, 1 for raw pixel ids), the first alive check and
@@ -1063,18 +1102,6 @@ def render_image_persistent(scene: Scene, cam, cfg: RenderConfig,
     use_route = (cfg.compactor or "sort") == "route"
     flush_mode = cfg.flush_mode or "scatter"
 
-    def split_bounce(st, salt, step, dims):
-        """Hit (+ sky), then scatter + respawn: two or more launches."""
-        if routes.hit_sky is not None:
-            rec, st = routes.hit_sky(hit_scene, st, cfg=cfg)
-        else:
-            rec, st = p_hit_step(hit_scene, st, cfg=cfg, hit_fn=hit_fn)
-        if routes.scatter is not None:
-            return routes.scatter(cam_rows, st, rec, salt, step, dims,
-                                  cfg=cfg, lean=lean)
-        return p_scatter_respawn_step(cam, st, rec, salt, step, dims,
-                                      cfg=cfg, lean=lean)
-
     def do_steps(st, k, step, salt, ph):
         # Below the floor: torch bounces (k at a time when unbinned), or
         # kernel B's k-bounce under multi_backend="fused".  Binned scenes
@@ -1103,7 +1130,8 @@ def render_image_persistent(scene: Scene, cam, cfg: RenderConfig,
                 st = routes.fused(hit_scene, cam_rows, st, salt, step, dims,
                                   cfg=cfg, lean=lean)
             else:
-                st = split_bounce(st, salt, step, dims)
+                st = split_bounce(routes, hit_scene, hit_fn, cam, cam_rows,
+                                  st, salt, step, dims, cfg=cfg, lean=lean)
         return st, step
 
     def compact_fn(st, accum, ph, *, k_new, tail_sorted=False,
@@ -1212,25 +1240,6 @@ def render_image_persistent(scene: Scene, cam, cfg: RenderConfig,
         return st, accum
 
     i32 = dict(dtype=torch.int32, device=device)
-
-    def fresh_state(pixel, s_base, s_quota):
-        n = pixel.shape[1]
-        direction = torch.zeros((3, n), dtype=torch.float32, device=device)
-        direction[2] = 1.0
-        return PathState(
-            origin=torch.zeros((3, n), dtype=torch.float32, device=device),
-            direction=direction,
-            time=torch.zeros((1, n), dtype=torch.float32, device=device),
-            throughput=torch.ones((3, n), dtype=torch.float32, device=device),
-            radiance_sum=torch.zeros((3, n), dtype=torch.float32,
-                                     device=device),
-            depth=torch.zeros((1, n), **i32),
-            sample=torch.full((1, n), -1, **i32),
-            pixel=pixel,
-            path_alive=torch.zeros((1, n), dtype=torch.bool, device=device),
-            s_base=s_base,
-            s_quota=s_quota,
-        )
 
     # Binning breaks the pixel order the argsort-free flush needs.
     state_sorted = bin_box is None and h_virt * w * kpp < _SORT_PIX_LIM

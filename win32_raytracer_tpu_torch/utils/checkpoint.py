@@ -15,6 +15,9 @@ granularities here:
   (seed, y0) and every flush adds in an order fixed by its stream
   (``persistent._flush``), so the resume is bit-exact on a card too.
 
+A render over a mesh of ranks (``mesh=``) checkpoints at pass level;
+rank 0 of the mesh writes the file.
+
 The file has the JAX package's keys and format 3, and is written through
 a ``.tmp.npz`` and ``os.replace``: a checkpoint written by either package
 loads in the other.
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from ..config import RenderConfig, resolve_scheduler
+from ..parallel.shard import barrier, is_writer
 
 # 3: + rays_per_chunk / lanes_per_pixel (chunk boundaries and the lane
 # encoding feed the per-chunk draw salts).
@@ -102,16 +106,17 @@ def render_with_checkpoints(
     the persistent scheduler, and ``max_chunks_per_run`` bounds the chunks
     of this call (and implies ``chunk_checkpoints``).  ``hit_fn`` is a
     column hit function, run on the persistent scheduler through
-    ``ops/rows.hit_rows_adapter``.  ``mesh`` (a multi-device render) is not
-    ported yet."""
-    from ..api import resolve_device
+    ``ops/rows.hit_rows_adapter``.
+
+    ``mesh`` (parallel/shard.make_mesh): every rank calls this; each pass
+    renders through the persistent scheduler over the mesh, checkpointed
+    at pass level only (the sharded render has no row-chunk cut points);
+    rank 0 of the mesh writes the file, and every rank waits for it before
+    going on.  Pass seeds are those of one card."""
+    from ..api import mesh_device
     from ..render import render_image, tonemap
     from ..scene.camera import default_camera
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "checkpointing a multi-device render (mesh=) is not ported yet: "
-            "ROADMAP Queue 1 item 11")
     if cfg.samples % passes:
         raise ValueError(f"samples ({cfg.samples}) must divide into "
                          f"passes ({passes})")
@@ -119,13 +124,25 @@ def render_with_checkpoints(
         chunk_checkpoints = True
     spp_pass = cfg.samples // passes
     scheduler = resolve_scheduler(cfg, spp_pass)
-    if chunk_checkpoints and scheduler != "persistent":
+    if mesh is not None:
+        if scheduler != "persistent":
+            raise ValueError(
+                "mesh checkpointing runs through the sharded persistent "
+                f"scheduler; got scheduler {scheduler!r} (per-pass spp "
+                f"{spp_pass} resolves wavefront under 8: use more samples "
+                "or fewer passes)")
+        if chunk_checkpoints:
+            raise ValueError(
+                "chunk_checkpoints is single-card only (the sharded scheduler "
+                "has no row-chunk cut points); mesh renders checkpoint at "
+                "pass granularity")
+    elif chunk_checkpoints and scheduler != "persistent":
         raise ValueError(
             "chunk_checkpoints/max_chunks_per_run need the persistent "
             f"scheduler; per-pass spp {spp_pass} resolves "
             f"{scheduler!r} — use more samples, fewer passes, or "
             "scheduler='persistent'")
-    dev = resolve_device(device)
+    dev = mesh_device(mesh, device)
     if hasattr(scene, "to"):
         scene = scene.to(dev)
     cam = (default_camera(cfg.width, cfg.height, device=dev) if cam is None
@@ -164,7 +181,12 @@ def render_with_checkpoints(
 
     for p in range(done, end):
         pass_cfg = cfg.replace(samples=spp_pass, seed=cfg.seed * 1000003 + p)
-        if scheduler == "persistent":
+        if mesh is not None:
+            from ..parallel.persistent_shard import (
+                render_image_persistent_sharded)
+            linear = render_image_persistent_sharded(scene, cam, pass_cfg,
+                                                     mesh, hit_fn=hit_fn)
+        elif scheduler == "persistent":
             from ..persistent import render_image_persistent
             resume_kw = {}
             if chunk_accum is not None:
@@ -192,7 +214,11 @@ def render_with_checkpoints(
         else:
             linear = render_image(scene, cam, pass_cfg, hit_fn=hit_fn)
         accum += linear.cpu().numpy().astype(np.float64) * spp_pass
-        _save(checkpoint_path, accum, p + 1, cfg, passes)
+        if is_writer(mesh):
+            _save(checkpoint_path, accum, p + 1, cfg, passes)
+        if mesh is not None:
+            # Every rank reads the file on its next call: it must be there.
+            barrier(mesh)
     if end < passes:
         return None  # the pass budget is spent; call again to resume
 
