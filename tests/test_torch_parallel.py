@@ -216,26 +216,34 @@ def test_dryrun_multichip():
 
 
 def test_phase_timer_and_trace(tmp_path):
-    """utils/profiling.py: PhaseTimer (tests/test_utils.py's twin), the
-    torch.profiler trace written as a Chrome trace, and mrays."""
+    """utils/profiling.py: the recorder's span and counter calls are no-ops
+    outside a recorded render and record inside one (``recording()``), the
+    torch.profiler trace written as a Chrome trace holds the render's
+    spans, and mrays.  (The name is the test's from before the recorder
+    replaced ``PhaseTimer``.)"""
     import json
 
-    from win32_raytracer_tpu_torch.utils.profiling import (PhaseTimer, mrays,
+    from win32_raytracer_tpu_torch.config import RenderConfig
+    from win32_raytracer_tpu_torch.persistent import render_image_persistent
+    from win32_raytracer_tpu_torch.scene.builders import get_scene
+    from win32_raytracer_tpu_torch.utils.profiling import (count, log, mrays,
+                                                           recording, span,
                                                            trace)
-    pt = PhaseTimer(device="cpu")
-    with pt.phase("a"):
-        torch.ones(64).sum().item()
-    with pt.phase("a"):
-        pass
-    with pt.phase("b"):
-        pass
-    assert pt.counts["a"] == 2 and pt.counts["b"] == 1
-    assert pt.totals["a"] > 0
-    rep = pt.report()
-    assert "a" in rep and "%" in rep
+    assert span("a") is span("b")
+    with span("a"):
+        count("a", 3)
+    cfg = RenderConfig(width=16, height=8, samples=8, seed=1)
+    scene = get_scene("test")
+    with recording():
+        render_image_persistent(scene, None, cfg)
+    got = log()
+    assert [s["name"] for s in got["spans"] if s["parent"] is None] == [
+        "persistent.render"]
+    assert all("a" not in c for c in got["counters"].values())
     assert abs(mrays(2_000_000, 2.0) - 1.0) < 1e-9
     with trace(str(tmp_path), "t") as prof:
-        torch.ones(256).cumsum(0)
+        render_image_persistent(scene, None, cfg)
     assert prof.key_averages()
     with open(tmp_path / "t.json") as f:
-        assert "traceEvents" in json.load(f)
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"persistent.render", "persistent.chunk"} <= names

@@ -46,6 +46,8 @@ CASES = {
                                             else {})))
         for s in ("final", "test") for m in ("one-shot", "compaction")]
     + [("final-compaction-again", "persistent",
+        dict(scene="final", **R, **COMPACT)),
+       ("final-compaction-traced", "traced",
         dict(scene="final", **R, **COMPACT))],
     4: [(f"{s}-{m}", "persistent", dict(scene=s, **R,
                                          **(COMPACT if m == "compaction"
@@ -268,6 +270,38 @@ def test_sharded_render_matches_reference(ranks, scene, mode, d,
 def test_sharded_render_repeats_bit_for_bit(ranks):
     np.testing.assert_array_equal(ranks[2]["final-compaction"],
                                   ranks[2]["final-compaction-again"])
+
+
+def test_sharded_recorder_lockstep_table(ranks):
+    """2 gloo ranks with the recorder on (``recording()``): the image is
+    bit-equal to the recorder off and to the untraced case; every rank
+    timed the same lockstep collectives, one per ``shard.lockstep`` span,
+    and rank 0's log holds the [ranks, collectives] table, which the
+    benchmark parts into transfer and wait."""
+    from port_bench import spans
+    got = ranks[2]["final-compaction-traced"]
+    assert got["equal"]
+    np.testing.assert_array_equal(got["image"], ranks[2]["final-compaction"])
+    log = got["log"]
+    names = [s["name"] for s in log["spans"]]
+    assert [n for n, s in zip(names, log["spans"]) if s["parent"] is None] == [
+        "shard.render"]
+    for name in ("persistent.chunk", "persistent.respawn",
+                 "persistent.bounce_kernel", "persistent.count_read",
+                 "persistent.compact", "persistent.flush", "shard.reduce"):
+        assert name in names, name
+    (table,) = [t for t in log["tables"] if t["name"] == "shard.lockstep_ms"]
+    rows = table["rows"]
+    n = names.count("shard.lockstep")
+    assert n > 0 and len(rows) == 2 and all(len(r) == n for r in rows)
+    assert all(v >= 0 for r in rows for v in r)
+    transfer, wait = spans.lockstep_ms(log)
+    least = sum(min(c) for c in zip(*rows))
+    assert transfer == pytest.approx(least) and wait >= 0
+    assert wait == pytest.approx((sum(map(sum, rows)) - 2 * least) / 2)
+    (c,) = log["counters"].values()
+    assert c["persistent.steps_kernel"] > 0
+    assert 0 < c["persistent.alive_at_reads"] <= c["persistent.width_at_reads"]
 
 
 # (case) -> (max mean |diff| of u8, min pearson r) against JAX at D = 4,

@@ -62,6 +62,17 @@ def persistent(mesh, scene, cam=None, patches=None, **cfg):
     return out.numpy()
 
 
+def traced(mesh, scene, patches=None, **cfg):
+    """The sharded persistent render with the recorder off, then on
+    (``recording()``): whether the two images are bit-equal, the image,
+    and this rank's log."""
+    from win32_raytracer_tpu_torch.utils import profiling
+    off = persistent(mesh, scene, patches=patches, **cfg)
+    with profiling.recording():
+        on = persistent(mesh, scene, patches=patches, **cfg)
+    return dict(equal=bool((off == on).all()), image=on, log=profiling.log())
+
+
 def sharded(mesh, scene, mode, **cfg):
     """render_image_sharded's linear image (numpy) in ``mode``."""
     return S.render_image_sharded(scene_of(scene), None, RenderConfig(**cfg),
@@ -163,9 +174,9 @@ def one_rank(tmp_dir):
         torch.distributed.destroy_process_group()
 
 
-CASES = dict(persistent=persistent, sharded=sharded, raises=raises,
-             meshes=meshes, api_render=api_render, animation=animation,
-             checkpoint=checkpoint)
+CASES = dict(persistent=persistent, traced=traced, sharded=sharded,
+             raises=raises, meshes=meshes, api_render=api_render,
+             animation=animation, checkpoint=checkpoint)
 
 
 def run_cases(mesh, cases) -> dict:

@@ -26,6 +26,7 @@ import torch
 
 from .config import RenderConfig, resolve_scheduler
 from .scene.camera import Camera, make_camera
+from .utils import profiling
 
 
 def orbit_path(
@@ -75,6 +76,7 @@ def _auto_batch_frames(cfg: RenderConfig, n_frames: int = 0) -> int:
     return bf
 
 
+@profiling.render_entry("animation.render_animation")
 def render_animation(
     scene,
     cameras: Sequence[Camera],

@@ -23,6 +23,7 @@ from .persistent import Scene
 from .render import render as _render_single
 from .scene.builders import get_scene
 from .scene.camera import Camera, default_camera
+from .utils import profiling
 
 
 @dataclasses.dataclass
@@ -81,6 +82,7 @@ def _resolve(scene, cam, cfg, device):
     return scene.to(device), cam.to(device), cfg
 
 
+@profiling.render_entry("api.render")
 def render(scene: Optional[Scene | str] = None,
            cam: Optional[Camera] = None, cfg: Optional[RenderConfig] = None,
            *, device=None, mesh=None, shard_mode: str = "rows") -> RenderResult:

@@ -59,6 +59,7 @@ from ..tri_accel import (
     DEFAULT_TILE_ROWS, DEFAULT_TRI_GRID_RAY_BLOCK, build_tri_grid,
     hit_triangles_grid_rows_plain,
 )
+from ..utils import profiling
 from .hit import hit_spheres_rows, hit_spheres_rows_plain
 from .hit_cols import hit_spheres_cols
 from .hit_grid import hit_spheres_grid_rows
@@ -183,8 +184,9 @@ def _make_tri_pass(kernel, rebin: str = "off", dda_k: int = 0, **kernel_kw):
     """Triangle pass ``(tris, o, d, t, min_t, t_cap)`` over a hit function
     (the reference's ``_make_tri_pass``).  The brute sweep takes neither
     ``t_cap`` nor knobs.  The grid sweep (``kernel_kw``: its ray block and
-    knobs) runs one of three ways, the same code for kernel D and its plain
-    version: directly, on the working set sorted by capped chord keys
+    knobs, and kernel D's ``stats`` counters while a render records) runs
+    one of three ways, the same code for kernel D and its plain version:
+    directly, on the working set sorted by capped chord keys
     (``rebin="on"``, kernels/tri_rebin.py), or on the DDA pair expansion
     (``"dda"``, kernels/tri_dda.py; ``dda_k`` pairs a lane when non-zero).
     A missing ``t_cap`` (a mesh with no spheres) is 3.4e38 for the last
@@ -279,11 +281,20 @@ def get_hit_fn_rows_accel(cfg: RenderConfig, scene, cam=None):
                 and resolve_backend(cfg, scene.device) == "kernels"):
             raise ValueError(f"n_sub={q} must divide ray_block={rb} into "
                              f"128-lane multiples")
+        kw = {}
+        if resolve_backend(cfg, scene.device) == "kernels":
+            # While the render records, kernel D adds its pair tests and
+            # any-touch tests into one int64 [4] tensor, read at the
+            # render's end; None otherwise (the plain version on the CPU
+            # adds nothing).
+            kw["stats"] = profiling.device_counters(
+                {1: "tri_grid.pair_tests", 2: "tri_grid.touch_tests"}, 4,
+                scene.device)
         tri_pass = _make_tri_pass(
             grid_fn, rebin="off" if cfg.tri_rebin == "auto" else cfg.tri_rebin,
             dda_k=cfg.tri_dda_k, ray_block=rb,
             early_exit=cfg.tri_early_exit in ("auto", "on"),
-            any_skip=cfg.tri_any_skip in ("auto", "on"))
+            any_skip=cfg.tri_any_skip in ("auto", "on"), **kw)
         hit_scene, cap = CompositeScene(spheres, grid), True
     elif cfg.accel == "grid":
         raise ValueError(

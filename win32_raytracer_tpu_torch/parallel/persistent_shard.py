@@ -35,6 +35,7 @@ it never reads ``redistribute`` and refuses ``adaptive_pool="on"``.
 
 from __future__ import annotations
 
+import time
 
 import numpy as np
 import torch
@@ -43,6 +44,8 @@ from .. import persistent as P
 from ..adaptive import alloc_lanes
 from ..config import RenderConfig
 from ..scene.camera import Camera, default_camera
+from ..utils import profiling
+from ..utils.profiling import span
 from .shard import (_on_host, all_gather, gather_ints, mesh_rank,
                     rank_device, sum_in_rank_order)
 
@@ -113,16 +116,70 @@ def phase2_salt(salt: int) -> int:
     return (salt * 0x85EBCA77 + 0x632BE5AB) & 0xFFFFFFFF
 
 
-def _start_counts(alive: torch.Tensor, mesh):
+class LockstepTimes:
+    """Each lockstep collective's elapsed milliseconds on this rank, kept
+    only while the recorder is on (``profiling.on()`` at the render's
+    start): on NCCL a pair of CUDA timing events on the current stream
+    around the gather (no sync), on gloo the host clock around it.
+    :meth:`publish` gathers every rank's times into the recorder's table
+    ``shard.lockstep_ms`` [ranks, collectives]."""
+
+    def __init__(self, mesh, device):
+        self.on = profiling.on()
+        self.events = not _on_host(mesh) and device.type == "cuda"
+        self.device = device
+        self.marks = []
+
+    def gather(self, t: torch.Tensor, mesh) -> list:
+        """``all_gather(t, mesh)``, timed while on."""
+        if not self.on:
+            return all_gather(t, mesh)
+        if self.events:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = all_gather(t, mesh)
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self.marks.append((start, end))
+        else:
+            t0 = time.perf_counter_ns()
+            out = all_gather(t, mesh)
+            self.marks.append((time.perf_counter_ns() - t0) / 1e6)
+        return out
+
+    def publish(self, mesh) -> None:
+        """Every rank's times in rank order, with one all-gather, into the
+        recorder (a no-op while off).  The lockstep makes every rank run
+        the same collectives, so the counts agree."""
+        if not self.on:
+            return
+        if self.events:
+            if self.marks:
+                self.marks[-1][1].synchronize()
+            ms = [a.elapsed_time(b) for a, b in self.marks]
+        else:
+            ms = list(self.marks)
+        mine = torch.tensor([len(ms)] + ms, dtype=torch.float64)
+        if not _on_host(mesh):
+            mine = mine.to(self.device)
+        rows = torch.stack(all_gather(mine, mesh)).cpu()
+        if not bool((rows[:, 0] == len(ms)).all()):
+            raise RuntimeError("ranks ran different numbers of lockstep "
+                               f"collectives: {rows[:, 0].tolist()}")
+        profiling.table("shard.lockstep_ms", rows[:, 1:].tolist())
+
+
+def _start_counts(alive: torch.Tensor, mesh, gather=all_gather):
     """Start reading every rank's alive count; returns a callable that
     waits for them ([D] int64, rank order).  As persistent._alive_count,
     the read waits behind the bounces queued after this call: on a card
     the local count (gloo) or the gathered counts (NCCL, on the card's
-    stream) are copied back behind an event."""
+    stream) are copied back behind an event.  ``gather`` is the
+    all-gather (:meth:`LockstepTimes.gather`)."""
     cnt = alive.sum().reshape(1).to(torch.int64)
     nccl = not _on_host(mesh)
     if nccl:
-        cnt = torch.cat(all_gather(cnt, mesh))
+        cnt = torch.cat(gather(cnt, mesh))
     ready = None
     if cnt.device.type == "cuda":
         cnt = cnt.to("cpu", non_blocking=True)
@@ -131,14 +188,16 @@ def _start_counts(alive: torch.Tensor, mesh):
 
     def read() -> np.ndarray:
         P.HOST_READS += 1
-        if ready is not None:
-            ready.synchronize()
-        if nccl:
-            return cnt.numpy()
-        return torch.cat(all_gather(cnt, mesh)).numpy()
+        with span("shard.lockstep"):
+            if ready is not None:
+                ready.synchronize()
+            if nccl:
+                return cnt.numpy()
+            return torch.cat(gather(cnt, mesh)).numpy()
     return read
 
 
+@profiling.render_entry("shard.render")
 def render_image_persistent_sharded(scene, cam, cfg: RenderConfig, mesh,
                                     hit_fn=None) -> torch.Tensor:
     """Persistent-scheduler render over the mesh; every rank returns linear
@@ -225,6 +284,7 @@ def render_image_persistent_sharded(scene, cam, cfg: RenderConfig, mesh,
     quotas = torch.from_numpy(quotas_np[b]).to(dev)[None]
     salt = device_salts(cfg.seed, d)[b]
     accum = torch.zeros((3, h_virt * w), dtype=torch.float32, device=dev)
+    times = LockstepTimes(mesh, dev)
 
     def make_loop(dims, salt_s):
         """The bounce, compaction and lockstep loop of one lane encoding
@@ -245,8 +305,9 @@ def render_image_persistent_sharded(scene, cam, cfg: RenderConfig, mesh,
             # At or below the floor mk torch bounces at a time; above it,
             # under multi_backend="fused", kernel B's k-bounce.  Binned
             # scenes take single steps (a k-bounce would run on stale bins).
+            # Spans and counters go by route, as on one card.
             cur = st.pixel.shape[1]
-            if bin_box is None:
+            if bin_box is None and k >= mk:
                 multi = None
                 if cur <= floor:
                     def multi(st_, s):
@@ -258,55 +319,74 @@ def render_image_persistent_sharded(scene, cam, cfg: RenderConfig, mesh,
                         return routes.multi(hit_scene, cam_rows, st_, salt_s,
                                             s, dims, cfg=cfg, k=mk,
                                             lean=lean)
-                while multi is not None and k >= mk:
-                    st = multi(st, step + 1)
-                    step += mk
-                    k -= mk
-            for _ in range(k):
-                step += 1
-                if bin_box is not None and (step - 1) % P._BIN_PERIOD == 0:
-                    st = P._bin_sort_core(st, box=bin_box)
-                st = bounce(st, step)
+                if multi is not None:
+                    tail = cur <= floor
+                    with span("persistent.bounce_tail" if tail
+                              else "persistent.bounce_kernel"):
+                        while k >= mk:
+                            st = multi(st, step + 1)
+                            (P.count_tail if tail else P.count_kernel)(mk,
+                                                                       cur)
+                            step += mk
+                            k -= mk
+            if k <= 0:
+                return st, step
+            tail = cur < floor
+            with span("persistent.bounce_tail" if tail
+                      else "persistent.bounce_kernel"):
+                for _ in range(k):
+                    step += 1
+                    if (bin_box is not None
+                            and (step - 1) % P._BIN_PERIOD == 0):
+                        st = P._bin_sort_core(st, box=bin_box)
+                    st = bounce(st, step)
+            (P.count_tail if tail else P.count_kernel)(k, cur)
             return st, step
 
         def compact(st, accum, k_new, tail_sorted=False, split=False):
-            if use_route:
-                st, accum = P._compact_route(st, accum, k_new=k_new,
-                                             lanes_per_pixel=dims.kpp)
-            else:
-                st, accum = P._compact(st, accum, k_new=k_new,
-                                       lanes_per_pixel=dims.kpp,
-                                       tail_sorted=tail_sorted,
-                                       flush=flush_mode)
-            return (P._split(st) if split else st), accum
+            profiling.count("persistent.compactions")
+            with span("persistent.compact"):
+                if use_route:
+                    st, accum = P._compact_route(st, accum, k_new=k_new,
+                                                 lanes_per_pixel=dims.kpp)
+                else:
+                    st, accum = P._compact(st, accum, k_new=k_new,
+                                           lanes_per_pixel=dims.kpp,
+                                           tail_sorted=tail_sorted,
+                                           flush=flush_mode)
+                return (P._split(st) if split else st), accum
 
         def one_shot(st, step, max_s):
-            return P.p_render_oneshot(hit_scene, cam, st, salt_s, step, dims,
-                                      max_s, cfg=cfg, hit_fn=hit_fn,
-                                      lean=lean)
+            with span("persistent.one_shot"):
+                return P.p_render_oneshot(hit_scene, cam, st, salt_s, step,
+                                          dims, max_s, cfg=cfg,
+                                          hit_fn=hit_fn, lean=lean)
 
         def staged_tail(st, accum, step, max_s):
             """Stages of p_render_until per rank, each ending at the alive
             count's halving point; between stages a lockstep compact +
             split sized by the worst rank.  Ranks part within a stage; all
             re-enter at the latest exit step, so no rank repeats a draw."""
-            while step < max_s:
-                cur = st.pixel.shape[1]
-                if cur <= 2 * min_lanes:
-                    st = one_shot(st, step, max_s)
-                    break
-                target = 1 << (max(cur // 2, 1).bit_length() - 1)
-                st, stp, cnt = P.p_render_until(
-                    hit_scene, cam, st, salt_s, step, target, dims, max_s,
-                    cfg=cfg, hit_fn=hit_fn, lean=lean)
-                got = gather_ints([stp, cnt], mesh)    # [D, 2]
-                step, worst = int(got[:, 0].max()), int(got[:, 1].max())
-                if worst == 0 or step >= max_s:
-                    break
-                st, accum = compact(st, accum, max(min_lanes,
-                                                   P._next_pow2(worst)),
-                                    split=True)
-            return st, accum
+            with span("persistent.staged"):
+                while step < max_s:
+                    cur = st.pixel.shape[1]
+                    if cur <= 2 * min_lanes:
+                        st = one_shot(st, step, max_s)
+                        break
+                    target = 1 << (max(cur // 2, 1).bit_length() - 1)
+                    st, stp, cnt = P.p_render_until(
+                        hit_scene, cam, st, salt_s, step, target, dims,
+                        max_s, cfg=cfg, hit_fn=hit_fn, lean=lean)
+                    with span("shard.lockstep"):
+                        got = gather_ints([stp, cnt], mesh,
+                                          gather=times.gather)    # [D, 2]
+                    step, worst = int(got[:, 0].max()), int(got[:, 1].max())
+                    if worst == 0 or step >= max_s:
+                        break
+                    st, accum = compact(st, accum, max(min_lanes,
+                                                       P._next_pow2(worst)),
+                                        split=True)
+                return st, accum
 
         def run_loop(st, accum, first_check, max_s, state_sorted=False):
             step = 0
@@ -326,10 +406,13 @@ def render_image_persistent_sharded(scene, cam, cfg: RenderConfig, mesh,
                 cur = st.pixel.shape[1]
                 # The counts are read behind a few optimistic bounces:
                 # alive only falls, so stale counts are upper bounds.
-                pending = _start_counts(st.path_alive, mesh)
+                pending = _start_counts(st.path_alive, mesh, times.gather)
                 ov = 1 if cur >= (1 << 21) else (2 if cur >= (1 << 20) else 4)
                 st, step = do_steps(st, min(ov, max_s - step), step)
-                counts = pending()
+                with span("persistent.count_read"):
+                    counts = pending()
+                profiling.count("persistent.alive_at_reads", counts[b])
+                profiling.count("persistent.width_at_reads", cur)
                 worst = int(counts.max())
                 if counts.sum() == 0:
                     break
@@ -358,46 +441,56 @@ def render_image_persistent_sharded(scene, cam, cfg: RenderConfig, mesh,
         return do_steps, run_loop
 
     def respawn(st, dims, salt_s):
-        return P.p_respawn_step(cam, st, salt_s, 0, dims, cfg=cfg, lean=lean)
+        with span("persistent.respawn"):
+            return P.p_respawn_step(cam, st, salt_s, 0, dims, cfg=cfg,
+                                    lean=lean)
 
     dims = P.make_dims(cfg, w, h, spp, kpp)
     do_steps, run_loop = make_loop(dims, salt)
-    if adaptive:
-        # Phase 1, the prepass: quota 1 on every fresh lane (0 on the wrap
-        # pads), max_depth + 1 bounces with no count read; the final depth
-        # row, in lane order, is each sample's path length.
-        st = P.fresh_state(lanes, lanes % kpp, (quotas > 0).to(torch.int32))
-        st = respawn(st, dims, salt)
-        st, _ = do_steps(st, cfg.max_depth + 1, 0)
-        P._flush(accum, st.pixel[0] // kpp, st.radiance_sum)
-        # Phase 2: the rank's remaining samples on lanes allocated by
-        # difficulty over its own pixels (wrap pads carry q_rest 0).
-        est = st.depth[0].reshape(n_local // kpp, kpp).sum(
-            1, dtype=torch.int32)
-        pix_ids = lanes[0, ::kpp] // kpp
-        q_rest = (quotas[0, ::kpp] > 0).to(torch.int32) * (spp - kpp)
-        pix2, s_base2, s_quota2 = alloc_lanes(
-            est, n_lanes=n_local, spp_done=kpp, spp=spp, kpp_max=cfg.kpp_max,
-            pixel_ids=pix_ids, q_rest=q_rest)
-        salt2 = phase2_salt(salt)
-        dims2 = P.make_dims(cfg, w, h, spp, 1)
-        _, run_loop2 = make_loop(dims2, salt2)
-        st = respawn(P.fresh_state(pix2, s_base2, s_quota2), dims2, salt2)
-        spp_rest = spp - kpp
-        st, accum = run_loop2(st, accum,
-                              spp_rest // min(cfg.kpp_max, spp_rest) + 2,
-                              (spp_rest + 1) * (cfg.max_depth + 2))
-        P._flush(accum, st.pixel[0], st.radiance_sum)
-    else:
-        st = respawn(P.fresh_state(lanes, (lanes % kpp) * quota, quotas),
-                     dims, salt)
-        # Each rank's lanes start ascending; binning re-permutes them.
-        st, accum = run_loop(
-            st, accum, quota + 2, (quota + 1) * (cfg.max_depth + 2),
-            state_sorted=(bin_box is None
-                          and h_virt * w * kpp < P._SORT_PIX_LIM))
-        P._flush(accum, st.pixel[0] // kpp, st.radiance_sum)
+    # The rank's lanes are its one chunk.
+    with span("persistent.chunk"):
+        if adaptive:
+            # Phase 1, the prepass: quota 1 on every fresh lane (0 on the
+            # wrap pads), max_depth + 1 bounces with no count read; the
+            # final depth row, in lane order, is each sample's path length.
+            with span("persistent.prepass"):
+                st = P.fresh_state(lanes, lanes % kpp,
+                                   (quotas > 0).to(torch.int32))
+                st = respawn(st, dims, salt)
+                st, _ = do_steps(st, cfg.max_depth + 1, 0)
+                P._flush(accum, st.pixel[0] // kpp, st.radiance_sum)
+            # Phase 2: the rank's remaining samples on lanes allocated by
+            # difficulty over its own pixels (wrap pads carry q_rest 0).
+            est = st.depth[0].reshape(n_local // kpp, kpp).sum(
+                1, dtype=torch.int32)
+            pix_ids = lanes[0, ::kpp] // kpp
+            q_rest = (quotas[0, ::kpp] > 0).to(torch.int32) * (spp - kpp)
+            pix2, s_base2, s_quota2 = alloc_lanes(
+                est, n_lanes=n_local, spp_done=kpp, spp=spp,
+                kpp_max=cfg.kpp_max, pixel_ids=pix_ids, q_rest=q_rest)
+            salt2 = phase2_salt(salt)
+            dims2 = P.make_dims(cfg, w, h, spp, 1)
+            _, run_loop2 = make_loop(dims2, salt2)
+            st = respawn(P.fresh_state(pix2, s_base2, s_quota2), dims2, salt2)
+            spp_rest = spp - kpp
+            st, accum = run_loop2(st, accum,
+                                  spp_rest // min(cfg.kpp_max, spp_rest) + 2,
+                                  (spp_rest + 1) * (cfg.max_depth + 2))
+            with span("persistent.flush"):
+                P._flush(accum, st.pixel[0], st.radiance_sum)
+        else:
+            st = respawn(P.fresh_state(lanes, (lanes % kpp) * quota, quotas),
+                         dims, salt)
+            # Each rank's lanes start ascending; binning re-permutes them.
+            st, accum = run_loop(
+                st, accum, quota + 2, (quota + 1) * (cfg.max_depth + 2),
+                state_sorted=(bin_box is None
+                              and h_virt * w * kpp < P._SORT_PIX_LIM))
+            with span("persistent.flush"):
+                P._flush(accum, st.pixel[0] // kpp, st.radiance_sum)
 
-    total = sum_in_rank_order(all_gather(accum, mesh))
+    with span("shard.reduce"):
+        total = sum_in_rank_order(all_gather(accum, mesh))
+    times.publish(mesh)
     out = P._div(total, spp).T.reshape(h_virt, w, 3)
     return out if cams is None else out.reshape(n_frames, h, w, 3)

@@ -161,12 +161,13 @@ def all_gather(t: torch.Tensor, mesh: DeviceMesh) -> list:
     return [y.to(t.device) for y in out]
 
 
-def gather_ints(values, mesh: DeviceMesh) -> np.ndarray:
-    """[D, k] int64: every rank's ``values`` (k Python ints), rank order."""
+def gather_ints(values, mesh: DeviceMesh, gather=all_gather) -> np.ndarray:
+    """[D, k] int64: every rank's ``values`` (k Python ints), rank order,
+    through ``gather`` (an :func:`all_gather`, or a timed one)."""
     t = torch.tensor([int(v) for v in values], dtype=torch.int64)
     if not _on_host(mesh):
         t = t.to(rank_device(mesh))
-    return torch.stack(all_gather(t, mesh)).cpu().numpy()
+    return torch.stack(gather(t, mesh)).cpu().numpy()
 
 
 def sum_in_rank_order(parts: list) -> torch.Tensor:

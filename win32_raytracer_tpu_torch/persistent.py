@@ -81,6 +81,8 @@ from .scene.composite import CompositeScene
 from .scene.spheres import SphereScene
 from .scene.triangles import TriangleScene
 from .tri_accel import TriGridScene
+from .utils import profiling
+from .utils.profiling import count, span
 
 # Any scene the renderer takes, and what a hit function reads
 # (kernels/dispatch.get_hit_fn_rows_accel).
@@ -280,6 +282,19 @@ def p_bounce_multi_step(scene, cam: Camera, st: PathState, salt, step0,
     return st
 
 
+def count_tail(steps: int, width: int) -> None:
+    """Count ``steps`` torch-tail bounces of ``width`` lanes."""
+    count("persistent.steps_tail", steps)
+    count("persistent.lanes_tail", steps * width)
+
+
+def count_kernel(steps: int, width: int) -> None:
+    """Count ``steps`` kernel-route bounces (kernel B, B-multi, the split
+    bounce) of ``width`` lanes."""
+    count("persistent.steps_kernel", steps)
+    count("persistent.lanes_kernel", steps * width)
+
+
 # p_render_oneshot reads the alive flag back once per this many bounces.
 _ONESHOT_SYNC = 8
 
@@ -302,6 +317,7 @@ def p_render_oneshot(scene, cam: Camera, st: PathState, salt,
                                hit_fn=hit_fn, lean=lean)
         if _alive_count(st.path_alive)() == 0:
             break
+    count_tail(step - step0, st.pixel.shape[1])
     return st
 
 
@@ -331,6 +347,7 @@ def p_render_until(scene, cam: Camera, st: PathState, salt, step0: int,
             step += 1
             st = p_bounce_step(scene, cam, st, salt, step, dims, cfg=cfg,
                                hit_fn=hit_fn, lean=lean)
+            count_tail(1, st.pixel.shape[1])
             queue.append((st, step, _alive_count(st.path_alive)))
         st_k, step_k, read = queue.pop(0)
         cnt = read()
@@ -993,6 +1010,7 @@ def _pool_est(est: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return torch.pow(torch.maximum(img, _div(box, 9)), 1.2).reshape(-1)
 
 
+@profiling.render_entry("persistent.render")
 def render_image_persistent(scene: Scene, cam, cfg: RenderConfig,
                             hit_fn=None, resume_accum=None,
                             resume_y0: int = 0,
@@ -1106,46 +1124,75 @@ def render_image_persistent(scene: Scene, cam, cfg: RenderConfig,
         # Below the floor: torch bounces (k at a time when unbinned), or
         # kernel B's k-bounce under multi_backend="fused".  Binned scenes
         # take single steps: a k-bounce would run on stale bins.
+        # Spans and counters go by route: kernel B, B-multi and the split
+        # bounce are "kernel", the torch steps "tail".
         dims = ph.dims
-        tail = st.pixel.shape[1] <= _COMPACT_FLOOR
-        if tail and bin_box is None:
-            while k >= mk:
-                if routes.multi is not None:
-                    st = routes.multi(hit_scene, cam_rows, st, salt, step + 1,
-                                      dims, cfg=cfg, k=mk, lean=lean)
+        width = st.pixel.shape[1]
+        tail = width <= _COMPACT_FLOOR
+        if tail and bin_box is None and k >= mk:
+            fused = routes.multi is not None
+            with span("persistent.bounce_kernel" if fused
+                      else "persistent.bounce_tail"):
+                while k >= mk:
+                    if fused:
+                        st = routes.multi(hit_scene, cam_rows, st, salt,
+                                          step + 1, dims, cfg=cfg, k=mk,
+                                          lean=lean)
+                        count_kernel(mk, width)
+                    else:
+                        st = p_bounce_multi_step(hit_scene, cam, st, salt,
+                                                 step + 1, dims, cfg=cfg,
+                                                 hit_fn=hit_fn, k=mk,
+                                                 lean=lean)
+                        count_tail(mk, width)
+                    step += mk
+                    k -= mk
+        if k <= 0:
+            return st, step
+        with span("persistent.bounce_tail" if tail
+                  else "persistent.bounce_kernel"):
+            for _ in range(k):
+                step += 1
+                if bin_box is not None and (step - 1) % _BIN_PERIOD == 0:
+                    st = _bin_sort_core(st, box=bin_box)
+                if tail:
+                    st = p_bounce_step(hit_scene, cam, st, salt, step, dims,
+                                       cfg=cfg, hit_fn=hit_fn, lean=lean)
+                elif routes.fused is not None:
+                    st = routes.fused(hit_scene, cam_rows, st, salt, step,
+                                      dims, cfg=cfg, lean=lean)
                 else:
-                    st = p_bounce_multi_step(hit_scene, cam, st, salt,
-                                             step + 1, dims, cfg=cfg,
-                                             hit_fn=hit_fn, k=mk, lean=lean)
-                step += mk
-                k -= mk
-        for _ in range(k):
-            step += 1
-            if bin_box is not None and (step - 1) % _BIN_PERIOD == 0:
-                st = _bin_sort_core(st, box=bin_box)
-            if tail:
-                st = p_bounce_step(hit_scene, cam, st, salt, step, dims,
-                                   cfg=cfg, hit_fn=hit_fn, lean=lean)
-            elif routes.fused is not None:
-                st = routes.fused(hit_scene, cam_rows, st, salt, step, dims,
-                                  cfg=cfg, lean=lean)
-            else:
-                st = split_bounce(routes, hit_scene, hit_fn, cam, cam_rows,
-                                  st, salt, step, dims, cfg=cfg, lean=lean)
+                    st = split_bounce(routes, hit_scene, hit_fn, cam,
+                                      cam_rows, st, salt, step, dims,
+                                      cfg=cfg, lean=lean)
+        (count_tail if tail else count_kernel)(k, width)
         return st, step
 
     def compact_fn(st, accum, ph, *, k_new, tail_sorted=False,
-                   n_receivers=0):
+                   n_receivers=0, split=False):
         """The compaction engine (cfg.compactor): the route compactor puts
         the live lanes where the sort compactor does, so it is a cost knob;
-        receiver events keep the sort engine."""
+        receiver events keep the sort engine.  ``split`` then halves the
+        sample tails onto clone lanes (:func:`_split`)."""
         kpp_s = ph.dims.kpp
-        if use_route and n_receivers == 0:
-            return _compact_route(st, accum, k_new=k_new,
-                                  lanes_per_pixel=kpp_s)
-        return _compact(st, accum, k_new=k_new, lanes_per_pixel=kpp_s,
-                        tail_sorted=tail_sorted, n_receivers=n_receivers,
-                        flush=flush_mode)
+        count("persistent.compactions")
+        with span("persistent.compact"):
+            if use_route and n_receivers == 0:
+                st, accum = _compact_route(st, accum, k_new=k_new,
+                                           lanes_per_pixel=kpp_s)
+            else:
+                st, accum = _compact(st, accum, k_new=k_new,
+                                     lanes_per_pixel=kpp_s,
+                                     tail_sorted=tail_sorted,
+                                     n_receivers=n_receivers,
+                                     flush=flush_mode)
+            return (_split(st) if split else st), accum
+
+    def one_shot(st, salt, step, ph):
+        with span("persistent.one_shot"):
+            return p_render_oneshot(hit_scene, cam, st, salt, step, ph.dims,
+                                    ph.max_steps, cfg=cfg, hit_fn=hit_fn,
+                                    lean=lean)
 
     def staged(st, accum, step, salt, ph):
         """The staged tail (one_shot="staged"): p_render_until stages that
@@ -1153,23 +1200,22 @@ def render_image_persistent(scene: Scene, cam, cfg: RenderConfig,
         the batch (where the host loop's compact + split first fires), each
         followed by that compact + split; a batch of 2 * min_lanes or less
         runs to its end as one shot."""
-        while step < ph.max_steps:
-            cur = st.pixel.shape[1]
-            if cur <= 2 * min_lanes:
-                st = p_render_oneshot(hit_scene, cam, st, salt, step,
-                                      ph.dims, ph.max_steps, cfg=cfg,
-                                      hit_fn=hit_fn, lean=lean)
-                break
-            target = 1 << (max(cur // 2, 1).bit_length() - 1)
-            st, step, n_alive = p_render_until(
-                hit_scene, cam, st, salt, step, target, ph.dims,
-                ph.max_steps, cfg=cfg, hit_fn=hit_fn, lean=lean)
-            if n_alive == 0 or step >= ph.max_steps:
-                break
-            st, accum = compact_fn(st, accum, ph,
-                                   k_new=max(min_lanes, _next_pow2(n_alive)))
-            st = _split(st)
-        return st, accum
+        with span("persistent.staged"):
+            while step < ph.max_steps:
+                cur = st.pixel.shape[1]
+                if cur <= 2 * min_lanes:
+                    st = one_shot(st, salt, step, ph)
+                    break
+                target = 1 << (max(cur // 2, 1).bit_length() - 1)
+                st, step, n_alive = p_render_until(
+                    hit_scene, cam, st, salt, step, target, ph.dims,
+                    ph.max_steps, cfg=cfg, hit_fn=hit_fn, lean=lean)
+                if n_alive == 0 or step >= ph.max_steps:
+                    break
+                st, accum = compact_fn(
+                    st, accum, ph, k_new=max(min_lanes, _next_pow2(n_alive)),
+                    split=True)
+            return st, accum
 
     def run_loop(st, accum, salt, ph, state_sorted):
         """The check / compact / split loop for one lane batch; under
@@ -1189,7 +1235,10 @@ def render_image_persistent(scene: Scene, cam, cfg: RenderConfig,
             pending = _alive_count(st.path_alive)
             ov = 1 if cur >= (1 << 21) else (2 if cur >= (1 << 20) else 4)
             st, step = do_steps(st, min(ov, max_steps - step), step, salt, ph)
-            n_alive = pending()
+            with span("persistent.count_read"):
+                n_alive = pending()
+            count("persistent.alive_at_reads", n_alive)
+            count("persistent.width_at_reads", cur)
             if n_alive == 0:
                 break
             # Back off while the alive count plateaus.
@@ -1207,14 +1256,12 @@ def render_image_persistent(scene: Scene, cam, cfg: RenderConfig,
                 # lanes and halve the sequential sample tails instead.
                 k_new = max(min_lanes, _next_pow2(n_alive))
                 if k_new <= cur // 2:
-                    st, accum = compact_fn(st, accum, ph, k_new=k_new)
-                    st = _split(st)
+                    st, accum = compact_fn(st, accum, ph, k_new=k_new,
+                                           split=True)
                 if routes.one_shot == "on":
                     # The tail finisher: the rest of the chunk with no
                     # compaction and no count read but its own.
-                    return p_render_oneshot(
-                        hit_scene, cam, st, salt, step, ph.dims, max_steps,
-                        cfg=cfg, hit_fn=hit_fn, lean=lean), accum
+                    return one_shot(st, salt, step, ph), accum
                 continue
             # Above the floor: compact on a shrink.  Under redistribute
             # "on" the batch overshoots so that its spare dead lanes adopt
@@ -1241,64 +1288,72 @@ def render_image_persistent(scene: Scene, cam, cfg: RenderConfig,
 
     i32 = dict(dtype=torch.int32, device=device)
 
+    def respawn(st, salt, dims):
+        with span("persistent.respawn"):
+            return p_respawn_step(cam, st, salt, 0, dims, cfg=cfg, lean=lean)
+
     # Binning breaks the pixel order the argsort-free flush needs.
     state_sorted = bin_box is None and h_virt * w * kpp < _SORT_PIX_LIM
     for y0 in range(resume_y0, h_virt, rows):
         take = min(rows, h_virt - y0)
-        n_real = take * w * kpp
-        # Pad the chunk onto the size grid with dead zero-quota lanes that
-        # repeat the last pixel id (ascending order survives).
-        n = _grid_size(n_real, min_lanes, cfg.compact_quantum)
-        base = y0 * w * kpp
-        pixel = torch.arange(base, base + n, **i32).clamp_max(
-            base + n_real - 1)[None]
-        s_quota = torch.full((1, n), 1 if adaptive else quota, **i32)
-        s_quota[:, n_real:] = 0
-        lane_rank = torch.arange(n, **i32) % kpp
-        salt = (cfg.seed * 0x9E3779B1 ^ (y0 + 1) * 0x85EBCA77) & 0xFFFFFFFF
-        if adaptive:
-            # Phase 1, the prepass: kpp quota-1 lanes a pixel.  Every path
-            # ends within max_depth + 1 bounces, so they run with no count
-            # read and no compaction; the final depth row, in pixel order,
-            # is each sample's path length.
-            st = fresh_state(pixel, lane_rank[None], s_quota)
-            st = p_respawn_step(cam, st, salt, 0, uniform.dims, cfg=cfg,
-                                lean=lean)
-            st, _ = do_steps(st, cfg.max_depth + 1, 0, salt, uniform)
-            est = st.depth[0, :n_real].reshape(take * w, kpp).sum(
-                1, dtype=torch.int32)
-            if cfg.adaptive_pool == "on":
-                est = _pool_est(est, take, w)
-            _flush(accum, st.pixel[0] // kpp, st.radiance_sum,
-                   ascending=True)
-            # Phase 2: the remaining samples on difficulty-proportional
-            # lanes, the same budget (the filler lanes take real work too),
-            # raw pixel ids.
-            pix2, s_base2, s_quota2 = alloc_lanes(
-                est, n_lanes=n, spp_done=kpp, spp=spp, kpp_max=cfg.kpp_max)
-            salt = (salt * 0x85EBCA77 + 0x632BE5AB) & 0xFFFFFFFF
-            spp_rest = spp - kpp
-            ph = _Phase(make_dims(cfg, w, h, spp, 1),
-                        spp_rest // min(cfg.kpp_max, spp_rest) + 2,
-                        (spp_rest + 1) * (cfg.max_depth + 2))
-            st = fresh_state(pix2 + y0 * w, s_base2, s_quota2)
-            st = p_respawn_step(cam, st, salt, 0, ph.dims, cfg=cfg, lean=lean)
-            # The whole-chunk one shot is skipped here; the tail forms stay.
-            st, accum = run_loop(st, accum, salt, ph, state_sorted)
-        else:
-            ph = uniform
-            st = fresh_state(pixel, (lane_rank * quota)[None], s_quota)
-            st = p_respawn_step(cam, st, salt, 0, ph.dims, cfg=cfg, lean=lean)
-            if routes.one_shot == "staged" and n <= _COMPACT_FLOOR:
-                st, accum = staged(st, accum, 0, salt, ph)
-            elif routes.one_shot in ("chunk", "on") and n <= _COMPACT_FLOOR:
-                st = p_render_oneshot(hit_scene, cam, st, salt, 0, ph.dims,
-                                      ph.max_steps, cfg=cfg, hit_fn=hit_fn,
-                                      lean=lean)
-            else:
+        with span("persistent.chunk"):
+            n_real = take * w * kpp
+            # Pad the chunk onto the size grid with dead zero-quota lanes
+            # that repeat the last pixel id (ascending order survives).
+            n = _grid_size(n_real, min_lanes, cfg.compact_quantum)
+            base = y0 * w * kpp
+            pixel = torch.arange(base, base + n, **i32).clamp_max(
+                base + n_real - 1)[None]
+            s_quota = torch.full((1, n), 1 if adaptive else quota, **i32)
+            s_quota[:, n_real:] = 0
+            lane_rank = torch.arange(n, **i32) % kpp
+            salt = ((cfg.seed * 0x9E3779B1 ^ (y0 + 1) * 0x85EBCA77)
+                    & 0xFFFFFFFF)
+            if adaptive:
+                # Phase 1, the prepass: kpp quota-1 lanes a pixel.  Every
+                # path ends within max_depth + 1 bounces, so they run with
+                # no count read and no compaction; the final depth row, in
+                # pixel order, is each sample's path length.
+                with span("persistent.prepass"):
+                    st = respawn(fresh_state(pixel, lane_rank[None], s_quota),
+                                 salt, uniform.dims)
+                    st, _ = do_steps(st, cfg.max_depth + 1, 0, salt, uniform)
+                    est = st.depth[0, :n_real].reshape(take * w, kpp).sum(
+                        1, dtype=torch.int32)
+                    if cfg.adaptive_pool == "on":
+                        est = _pool_est(est, take, w)
+                    _flush(accum, st.pixel[0] // kpp, st.radiance_sum,
+                           ascending=True)
+                # Phase 2: the remaining samples on difficulty-proportional
+                # lanes, the same budget (the filler lanes take real work
+                # too), raw pixel ids.
+                pix2, s_base2, s_quota2 = alloc_lanes(
+                    est, n_lanes=n, spp_done=kpp, spp=spp,
+                    kpp_max=cfg.kpp_max)
+                salt = (salt * 0x85EBCA77 + 0x632BE5AB) & 0xFFFFFFFF
+                spp_rest = spp - kpp
+                ph = _Phase(make_dims(cfg, w, h, spp, 1),
+                            spp_rest // min(cfg.kpp_max, spp_rest) + 2,
+                            (spp_rest + 1) * (cfg.max_depth + 2))
+                st = respawn(fresh_state(pix2 + y0 * w, s_base2, s_quota2),
+                             salt, ph.dims)
+                # The whole-chunk one shot is skipped here; the tail forms
+                # stay.
                 st, accum = run_loop(st, accum, salt, ph, state_sorted)
-        # Flush this chunk's remaining radiance.
-        _flush(accum, st.pixel[0] // ph.dims.kpp, st.radiance_sum)
+            else:
+                ph = uniform
+                st = respawn(fresh_state(pixel, (lane_rank * quota)[None],
+                                         s_quota), salt, ph.dims)
+                if routes.one_shot == "staged" and n <= _COMPACT_FLOOR:
+                    st, accum = staged(st, accum, 0, salt, ph)
+                elif (routes.one_shot in ("chunk", "on")
+                      and n <= _COMPACT_FLOOR):
+                    st = one_shot(st, salt, 0, ph)
+                else:
+                    st, accum = run_loop(st, accum, salt, ph, state_sorted)
+            # Flush this chunk's remaining radiance.
+            with span("persistent.flush"):
+                _flush(accum, st.pixel[0] // ph.dims.kpp, st.radiance_sum)
         if chunk_callback is not None:
             chunk_callback(accum, y0 + take)
 

@@ -41,6 +41,7 @@ from .core.vec import sqrt_rn
 from .ops.scatter import scatter
 from .persistent import Scene, _div
 from .scene.camera import Camera, camera_rays, default_camera
+from .utils import profiling
 
 HitFn = Callable[..., object]
 
@@ -167,6 +168,7 @@ def trace(scene, origin: torch.Tensor, direction: torch.Tensor,
     return state.radiance
 
 
+@profiling.render_entry("wavefront.render")
 def render_image(scene: Scene, cam: Optional[Camera], cfg: RenderConfig,
                  hit_fn: Optional[HitFn] = None,
                  progress=None) -> torch.Tensor:
