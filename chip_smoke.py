@@ -7,11 +7,12 @@ through both paths, then drives the main paths through the kernels and
 checks that each kernel of a path ran in it:
 
 * phases 2-5: the headline (the RTIOW final scene at 1200x800, 100 spp;
-  kernels A and B), each kernel held exactly to its plain version, kernel
-  A at one and at two rays per thread, on
+  kernel B, and below the floor kernels B-multi and B, or kernels A and B
+  under ``multi_backend="xla"``), each kernel held exactly to its plain
+  version, kernel A at one and at two rays per thread, on
   random inputs, on tables with exact ties, inactive rows and mixed
   shutter intervals, and on the headline's own bounces; kernel A timed at
-  the batch sizes the headline's tail launches;
+  the batch sizes the headline's torch-chain tail launches;
 * phase 6: kernel C (brute triangle sweep) against its plain version,
   bit for bit in each launch form, on the ``mesh`` table and its variants
   (inactive, copied and NaN rows, six stages), on boundary pairs of the
@@ -28,9 +29,10 @@ checks that each kernel of a path ran in it:
   kernel B on the headline's chunk;
 * phase 10: kernel B's k-bounce variant against four launches of kernel B
   and its plain version;
-* phase 11: the headline once per opt-in route (``fuse_bounce="off"``,
-  ``scatter_backend="pallas"``, ``hit_kernel="v4"``,
-  ``multi_backend="fused"``), and config 4 with the pallas scatter;
+* phase 11: the headline once per route (the default, ``fuse_bounce="off"``,
+  ``scatter_backend="pallas"``, ``hit_kernel="v4"``, ``multi_backend``
+  "xla" and "fused"), the default byte-equal to "xla", and config 4 with
+  the pallas scatter;
 * phase 12: BASELINE config 5, an 8-frame flythrough of the final scene at
   640x480, 32 spp, through ``render_animation`` (kernel B on 8 cameras);
 * phase 13: kernels G (column sphere hit) and H (column triangle hit;
@@ -1004,8 +1006,10 @@ class Smoke:
 
     # ---- phase 5 ----------------------------------------------------------
     def headline(self):
-        """The headline twice: a warm run that records the batch sizes the
-        tail hands kernel A, then the counted run."""
+        """The headline twice: a warm run under ``multi_backend="xla"``
+        that records the batch sizes its torch-chain tail hands kernel A,
+        then the counted run on the default route (kernel B, and kernels
+        B-multi and B below the floor: no kernel A)."""
         from win32_raytracer_tpu_torch.api import render
         from win32_raytracer_tpu_torch.config import RenderConfig
         from win32_raytracer_tpu_torch.kernels import dispatch as D
@@ -1020,14 +1024,18 @@ class Smoke:
             sizes[n] = sizes.get(n, 0) + 1
             return real(scene, origin, *a, **k)
         D.hit_spheres_rows = spy
+        reset_launches()
         try:
-            warm = render("final", cfg=cfg, device="cuda")
+            warm = render("final", cfg=cfg.replace(multi_backend="xla"),
+                          device="cuda")
         finally:
             D.hit_spheres_rows = real
+        got_xla = launches()
         self.tail_sizes = dict(sorted(sizes.items(), reverse=True))
         sms = torch.cuda.get_device_properties(0).multi_processor_count
-        self.say("5 headline", f"warm run {warm.duration_ms / 1e3:.3f} s, "
-                 f"mean {warm.image.mean():.3f}; kernel A's batches (rays: "
+        self.say("5 headline", f"warm run (multi_backend=\"xla\") "
+                 f"{warm.duration_ms / 1e3:.3f} s, mean {warm.image.mean():.3f}, "
+                 f"launches {got_xla}; kernel A's batches (rays: "
                  f"launches, rays per thread) " + ", ".join(
                      f"{n}: {c}, {K.rays_per_thread(n, sms)}"
                      for n, c in self.tail_sizes.items()) + f" [{self.card}]")
@@ -1041,11 +1049,12 @@ class Smoke:
                  f"{res.mrays_per_sec:.3f} Mrays/s, image mean {mean:.3f} "
                  f"(170.1 +- 1.5), launches {got} [{self.card}]")
         check(res.image.shape == (800, 1200, 3), f"image shape {res.image.shape}")
-        check_route(got, ("hit", "bounce"), (), "headline")
+        check_route(got, ("bounce", "bounce_multi"), (), "headline")
         check(abs(mean - HEADLINE_MEAN) <= HEADLINE_MEAN_TOL,
               f"headline image mean {mean}")
-        for name in ("hit", "bounce"):
+        for name in ("bounce", "bounce_multi"):
             self.kernels.setdefault(name, {})["launches"] = got[name]
+        self.kernels.setdefault("hit", {})["launches"] = got_xla["hit"]
 
     # ---- kernels at main-path shapes: agreement and times -----------------
     def kernel_main_shapes(self):
@@ -1954,19 +1963,23 @@ class Smoke:
 
     # ---- phase 11 ---------------------------------------------------------
     def routes(self):
-        """The headline once per opt-in route, after small renders of each
-        route (160x120, 16 spp, the compaction floor lowered so the route's
-        kernels run) that must equal the plain path's image exactly; then
-        config 4 with the pallas scatter (kernels A, D and F)."""
+        """The headline once per route, after small renders of each route
+        (160x120, 16 spp, the compaction floor lowered so the route's
+        kernels run) that must equal the plain path's image exactly; the
+        default headline (kernels B-multi and B below the floor) byte-equal
+        to ``multi_backend="xla"``'s (the torch chain there), linear images
+        bit-equal, both walls printed; then config 4 with the pallas
+        scatter (kernels A, D and F)."""
         import win32_raytracer_tpu_torch.persistent as P
         from win32_raytracer_tpu_torch.api import render
         from win32_raytracer_tpu_torch.config import RenderConfig
+        from win32_raytracer_tpu_torch.scene.builders import get_scene
 
         small = RenderConfig(**ROUTE_SMALL)
         saved = P._COMPACT_FLOOR
         P._COMPACT_FLOOR = 1 << 14
         try:
-            for label, knob, ran, _ in ROUTES:
+            for label, knob, ran, allowed, _ in ROUTES:
                 reset_launches()
                 rk = render("final", cfg=small.replace(**knob), device=self.dev)
                 got = launches()
@@ -1979,12 +1992,13 @@ class Smoke:
                          f"{rk.image.mean():.3f}/{rp.image.mean():.3f}, "
                          f"launches {got}")
                 check(d == 0.0, f"route {label}: small render differs from plain")
-                check_route(got, ran, ("hit",), f"small {label}")
+                check_route(got, ran, allowed, f"small {label}")
         finally:
             P._COMPACT_FLOOR = saved
 
         cfg = RenderConfig(**HEADLINE)
-        for label, knob, ran, reports in ROUTES:
+        images, walls = {}, {}
+        for label, knob, ran, allowed, reports in ROUTES:
             c = cfg.replace(**knob)
             warm = render("final", cfg=c, device=self.dev)
             reset_launches()
@@ -1999,11 +2013,33 @@ class Smoke:
                      f"{got} [{self.card}]")
             check(res.image.shape == (c.height, c.width, 3),
                   f"image shape {res.image.shape}")
-            check_route(got, ran, ("hit",), label)
+            check_route(got, ran, allowed, label)
             check(abs(mean - HEADLINE_MEAN) <= HEADLINE_MEAN_TOL,
                   f"{label}: headline image mean {mean}")
             if reports:
                 self.kernels.setdefault(reports, {})["launches"] = got[reports]
+            images[label], walls[label] = res.image, res.duration_ms / 1e3
+
+        # The default tail against the torch chain's, which it must equal.
+        scene = get_scene("final", device=self.dev)
+        lin = {label: P.render_image_persistent(scene, None,
+                                                cfg.replace(**knob))
+               for label, knob in (("default", {}),
+                                   ("multi_backend=xla",
+                                    dict(multi_backend="xla")))}
+        same_u8 = bool(np.array_equal(images["default"],
+                                      images["multi_backend=xla"]))
+        same_lin = bool(torch.equal(lin["default"], lin["multi_backend=xla"]))
+        differ = int((images["default"] != images["multi_backend=xla"])
+                     .any(-1).sum())
+        self.say("11 default vs xla", f"final {cfg.width}x{cfg.height}@"
+                 f"{cfg.samples} spp: u8 image byte-equal {same_u8} ({differ} "
+                 f"pixels differ), linear image bit-equal {same_lin}; walls "
+                 f"default {walls['default']:.4f} s, multi_backend=\"xla\" "
+                 f"{walls['multi_backend=xla']:.4f} s [{self.card}]")
+        check(same_u8 and same_lin,
+              "default headline differs from multi_backend='xla'")
+        del lin
 
         if "mesh20k" not in self.small_mesh_means:
             rp = render("mesh20k", cfg=RenderConfig(**SMALL_MESH, backend="jnp"),
@@ -2110,7 +2146,7 @@ class Smoke:
         check(len(frames) == 8
               and all(f.shape == (cfg.height, cfg.width, 3) for f in frames),
               "config 5 frame shapes")
-        check_route(got, ("bounce",), ("hit",), "config 5")
+        check_route(got, ("bounce",), ("bounce_multi",), "config 5")
         check(set(frames_seen) == {8}, f"kernel B cameras {set(frames_seen)}")
         small_means = fk.reshape(8, -1).mean(1)
         self.fly_small_means = small_means.tolist()
@@ -3389,7 +3425,10 @@ class Smoke:
         stats = torch.zeros(4, dtype=torch.int64, device=self.dev)
 
         def with_stats(*a, **k):
-            return real_kd(*a, stats=stats, **k)
+            # The triangle pass hands kernel D its own stats (None unless a
+            # render records): this one takes their place.
+            k["stats"] = stats
+            return real_kd(*a, **k)
         res = {}
         for label, c in arms:
             render("mesh20k", cfg=c, device=self.dev)
@@ -3476,7 +3515,8 @@ class Smoke:
             torch.cuda.synchronize()
             r = render("final", cfg=c, device=self.dev)
             got, reads = launches(), P.HOST_READS
-            check_route(got, ("bounce", "hit"), (), f"headline, {label}")
+            check_route(got, ("bounce", "bounce_multi"), (),
+                        f"headline, {label}")
             res[label] = dict(mean=float(r.image.mean()), launches=got,
                               reads=reads, walls=[])
         for _ in range(3):
@@ -3829,15 +3869,22 @@ def p21_single(mesh, card: str) -> None:
     check_route(got, ("bounce", "hit"), (), "D=1 sharded headline")
 
 
-# Phase 11's routes: (label, knob, kernels the route must launch, the
-# kernel whose main path it is); kernel A may run below the floor on any.
+# Phase 11's routes: (label, knob, kernels the route must launch, kernels
+# it may launch besides, the kernel whose main path it is).  Where kernel B
+# runs, the tail below the floor is kernels B-multi and B, no kernel A,
+# unless multi_backend="xla"; the other routes' torch tail may launch
+# kernel A.
 ROUTES = (
-    ("fuse_bounce=off", dict(fuse_bounce="off"), ("hit_sky",), "hit_sky"),
+    ("default", {}, ("bounce", "bounce_multi"), (), "bounce_multi"),
+    ("fuse_bounce=off", dict(fuse_bounce="off"), ("hit_sky",), ("hit",),
+     "hit_sky"),
     ("scatter_backend=pallas", dict(scatter_backend="pallas"),
-     ("hit_sky", "scatter"), "scatter"),
-    ("hit_kernel=v4", dict(hit_kernel="v4"), ("hit",), None),
+     ("hit_sky", "scatter"), ("hit",), "scatter"),
+    ("hit_kernel=v4", dict(hit_kernel="v4"), ("hit",), (), None),
+    ("multi_backend=xla", dict(multi_backend="xla"), ("bounce",), ("hit",),
+     None),
     ("multi_backend=fused", dict(multi_backend="fused"),
-     ("bounce", "bounce_multi"), "bounce_multi"),
+     ("bounce", "bounce_multi"), (), None),
 )
 ROUTE_SMALL = dict(width=160, height=120, samples=16, seed=2)
 # Phase 18's knobs of the persistent scheduler, each on the headline.

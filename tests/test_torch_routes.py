@@ -39,19 +39,21 @@ FLOOR = 1 << 12
 # Against the reference's image (as test_torch_render.py's compaction mode).
 MAX_DIFF, MIN_R = 0.06, 0.9999
 
-# (knob, value) -> the route functions that run on the final scene.
+# (knob, value) -> the route functions that run on the final scene.  Where
+# kernel B runs, the tail below the floor takes kernels B-multi and B too,
+# unless multi_backend="xla" keeps the torch chain there.
 ROUTES = {
-    ("fuse_bounce", "auto"): {"bounce"},
-    ("fuse_bounce", "on"): {"bounce"},
+    ("fuse_bounce", "auto"): {"bounce", "bounce_multi"},
+    ("fuse_bounce", "on"): {"bounce", "bounce_multi"},
     ("fuse_bounce", "off"): {"hit_sky"},
-    ("scatter_backend", "auto"): {"bounce"},
+    ("scatter_backend", "auto"): {"bounce", "bounce_multi"},
     ("scatter_backend", "pallas"): {"hit_sky", "scatter"},
     ("scatter_backend", "jnp"): {"hit_sky"},
-    ("hit_kernel", "auto"): {"bounce"},
+    ("hit_kernel", "auto"): {"bounce", "bounce_multi"},
     ("hit_kernel", "v4"): set(),
     ("hit_kernel", "v6"): set(),
-    ("hit_kernel", "v7"): {"bounce"},
-    ("multi_backend", ""): {"bounce"},
+    ("hit_kernel", "v7"): {"bounce", "bounce_multi"},
+    ("multi_backend", ""): {"bounce", "bounce_multi"},
     ("multi_backend", "xla"): {"bounce"},
     ("multi_backend", "fused"): {"bounce", "bounce_multi"},
 }
@@ -129,6 +131,94 @@ def test_binned_and_triangle_scenes_take_no_fused_route():
     routes = TP.resolve_routes(TC(multi_backend="fused"), object(), "cpu",
                                h_virt=32, kpp=1, bin_box=(0.0,) * 6)
     assert routes == TP._Routes(None, None, None, None, "off")
+    assert routes.tail_multi is None
+
+
+def _linear(scene, cam, cfg, spied=()):
+    """(linear image, {spied name: [(width, bounces)]}) of a port render
+    with the floor lowered; ``spied`` names attributes of ``TP`` and ``B``
+    whose calls are recorded, except calls inside a recorded call (the
+    plain kernels' own torch bounces)."""
+    calls, saved, inside = {}, {}, []
+
+    def spy(name, fn):
+        def wrapped(*a, **k):
+            if not inside:
+                st = next(x for x in a if isinstance(x, TP.PathState))
+                calls.setdefault(name, []).append(
+                    (st.pixel.shape[1], k.get("k", 1)))
+            inside.append(name)
+            try:
+                return fn(*a, **k)
+            finally:
+                inside.pop()
+        return wrapped
+    mods = {name: (TP if hasattr(TP, name) else B) for name in spied}
+    for name, mod in mods.items():
+        saved[name] = getattr(mod, name)
+        setattr(mod, name, spy(name, saved[name]))
+    floor, TP._COMPACT_FLOOR = TP._COMPACT_FLOOR, FLOOR
+    try:
+        img = TP.render_image_persistent(get_scene(scene), cam, TC(**cfg))
+    finally:
+        TP._COMPACT_FLOOR = floor
+        for name, mod in mods.items():
+            setattr(mod, name, saved[name])
+    return img, calls
+
+
+# The default tail against the torch chain's: KW on the final scene, a
+# batch of two cameras, a chunk that starts at or below the floor (the
+# whole-chunk one shot), the tail finisher and the staged tail.
+TAIL_CASES = {
+    "headline": (None, {}),
+    "frames": ("orbit", {}),
+    "one_shot_chunk": (None, dict(rays_per_chunk=4096)),
+    "finisher": (None, dict(one_shot="on", check_period=2)),
+    "staged": (None, dict(one_shot="staged")),
+}
+
+
+@pytest.mark.parametrize("case", list(TAIL_CASES))
+def test_default_tail_is_the_torch_chain_bit_for_bit(case):
+    """Under the default ``multi_backend`` every bounce at or below the
+    floor runs on kernels B-multi and B (their plain versions here) and
+    none on the torch chain; the image equals ``multi_backend="xla"``'s,
+    whose tail is that chain, bit for bit."""
+    from win32_raytracer_tpu_torch.animation import orbit_path
+    cams, kw = TAIL_CASES[case]
+    cam = (orbit_path(n_frames=2, aspect_ratio=KW["width"] / KW["height"])
+           if cams else None)
+    cfg = dict(KW, **kw)
+    spied = ("bounce", "bounce_multi", "p_bounce_step")
+    got, ran = _linear("final", cam, cfg, spied)
+    want, ran_x = _linear("final", cam, dict(cfg, multi_backend="xla"),
+                          spied)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    assert "p_bounce_step" not in ran
+    kernels = ran.get("bounce", []) + ran["bounce_multi"]
+    assert "bounce_multi" not in ran_x
+    # The same bounces below the floor on either route.
+    below = sum(n for w, n in kernels if w <= FLOOR)
+    assert below > 0
+    assert below == sum(1 for w, _ in ran_x["p_bounce_step"] if w <= FLOOR)
+
+
+@pytest.mark.parametrize("scene,knobs", [
+    ("mesh", {}),
+    ("final", dict(accel="grid", ray_binning="on")),
+], ids=["mesh", "binned_sphere_grid"])
+def test_scenes_without_kernel_b_keep_the_torch_tail(scene, knobs):
+    """A mesh and a binned sphere-grid render have no kernel B: under the
+    default ``multi_backend`` their tail stays the torch chain, with no
+    kernel B-multi."""
+    cfg = dict(KW, **knobs)
+    if scene == "mesh":
+        cfg.update(width=24, height=16)
+    _, ran = _linear(scene, None, cfg, ("bounce", "bounce_multi",
+                                        "p_bounce_step"))
+    assert "bounce" not in ran and "bounce_multi" not in ran
+    assert any(w <= FLOOR for w, _ in ran["p_bounce_step"])
 
 
 # (scene, config, frames): each raises ValueError in both packages.

@@ -113,9 +113,10 @@ def test_spans_nest_and_stand_in_the_profiler(monkeypatch):
 
 
 def test_counters_equal_the_steps_and_lanes(monkeypatch):
-    """The counters against the bounces that ran: kernel B's calls (its
-    plain version on the CPU) and the torch tail's ``p_bounce_step`` calls,
-    with their widths; compactions against ``_compact``'s calls; the count
+    """The counters against the bounces that ran, with the tail on the
+    torch chain (``multi_backend="xla"``): kernel B's calls (its plain
+    version on the CPU) and the torch tail's ``p_bounce_step`` calls, with
+    their widths; compactions against ``_compact``'s calls; the count
     reads' alive lanes within their widths."""
     monkeypatch.setattr(P, "_COMPACT_FLOOR", FLOOR)
     got = {"kernel": [], "tail": [], "compact": 0}
@@ -136,10 +137,11 @@ def test_counters_equal_the_steps_and_lanes(monkeypatch):
     monkeypatch.setattr(P, "p_bounce_step", tail)
     monkeypatch.setattr(P, "_compact", compact)
     with profiling.recording():
-        _render()
+        _render(dict(CFG, multi_backend="xla"))
     log = profiling.log()
     (c,) = log["counters"].values()
     assert got["kernel"] and got["tail"] and got["compact"]
+    assert "persistent.steps_tail_fused" not in c
     assert c["persistent.steps_kernel"] == len(got["kernel"])
     assert c["persistent.lanes_kernel"] == sum(got["kernel"])
     assert c["persistent.steps_tail"] == len(got["tail"])
@@ -158,8 +160,9 @@ def test_counters_equal_the_steps_and_lanes(monkeypatch):
 
 def test_one_shot_chunks_count_as_tail():
     """A chunk at or below the floor runs whole as one shot: all of it is
-    tail, its steps counted as such."""
-    cfg = dict(CFG, one_shot="auto")
+    tail, its steps counted as such (the torch chain's under
+    ``multi_backend="xla"``)."""
+    cfg = dict(CFG, one_shot="auto", multi_backend="xla")
     with profiling.recording():
         _render(cfg)
     log = profiling.log()
@@ -167,8 +170,69 @@ def test_one_shot_chunks_count_as_tail():
     assert "persistent.one_shot" in _names(log)
     assert c["persistent.steps_tail"] > 0
     assert "persistent.steps_kernel" not in c
+    assert "persistent.steps_tail_fused" not in c
     assert 0.9 < spans.tail_share(log) <= 1.0
     assert spans.lane_occupancy(log) is None
+
+
+def _kernel_spies(monkeypatch):
+    """Record each call of kernel B and B-multi (plain versions here) as
+    (width, bounces, the innermost open span)."""
+    calls = []
+    rec = profiling._REC
+
+    def spy(fn):
+        def wrapped(scene, cam_rows, st, *a, **k):
+            inner = rec.spans[rec.stack[-1]][0] if rec.stack else None
+            calls.append((st.pixel.shape[1], k.get("k", 1), inner))
+            return fn(scene, cam_rows, st, *a, **k)
+        return wrapped
+    monkeypatch.setattr(B, "bounce", spy(B.bounce))
+    monkeypatch.setattr(B, "bounce_multi", spy(B.bounce_multi))
+    return calls
+
+
+@pytest.mark.parametrize("one_shot", ["off", "auto", "on", "staged"])
+def test_default_tail_counts_as_fused(one_shot, monkeypatch):
+    """Under the default route every bounce at or below the floor runs on
+    kernel B-multi or B inside the tail's spans, and
+    ``persistent.steps_tail_fused`` counts them; the torch chain's
+    counters stay absent, above-floor bounces count as "kernel", and the
+    tail's share of the render is read as before."""
+    monkeypatch.setattr(P, "_COMPACT_FLOOR", FLOOR)
+    calls = _kernel_spies(monkeypatch)
+    with profiling.recording():
+        _render(dict(CFG, one_shot=one_shot))
+    log = profiling.log()
+    (c,) = log["counters"].values()
+    below = [(n, inner) for w, n, inner in calls if w <= FLOOR]
+    above = [(w, inner) for w, n, inner in calls if w > FLOOR]
+    assert below and above
+    assert c["persistent.steps_tail_fused"] == sum(n for n, _ in below)
+    assert "persistent.steps_tail" not in c
+    assert "persistent.lanes_tail" not in c
+    assert c["persistent.steps_kernel"] == len(above)
+    assert c["persistent.lanes_kernel"] == sum(w for w, _ in above)
+    tail_spans = {"persistent.bounce_tail", "persistent.one_shot",
+                  "persistent.staged"}
+    assert all(inner in tail_spans for _, inner in below)
+    assert all(inner == "persistent.bounce_kernel" for _, inner in above)
+    assert 0.0 < spans.tail_share(log) < 1.0
+
+
+def test_mesh_counts_no_fused_tail(monkeypatch):
+    """A mesh has no kernel B: its tail is the torch chain under the
+    default route, with no ``persistent.steps_tail_fused``."""
+    monkeypatch.setattr(P, "_COMPACT_FLOOR", FLOOR)
+    calls = _kernel_spies(monkeypatch)
+    with profiling.recording():
+        P.render_image_persistent(mesh_scene(subdivisions=3), None,
+                                  RenderConfig(**dict(CFG, width=32,
+                                                      height=16)))
+    (c,) = profiling.log()["counters"].values()
+    assert not calls
+    assert c["persistent.steps_tail"] > 0
+    assert "persistent.steps_tail_fused" not in c
 
 
 @pytest.mark.parametrize("entry", ["persistent", "wavefront", "api",

@@ -97,8 +97,12 @@ class RenderConfig:
     one_shot: str = "auto"  # "auto" | "on" | "off" | "staged"
     # Bounces per below-floor multi-step (0 = auto, 4).
     multi_k: int = 0
-    # "fused": below the floor, k bounces in one launch of the fused kernel.
-    multi_backend: str = ""         # "" (= "xla") | "xla" | "fused"
+    # At or below the floor of one card: "" and "fused" = k bounces a
+    # launch of the fused kernel and the fused kernel for the rest, where
+    # the render has it (the torch chain elsewhere); "xla" = the torch
+    # chain.  "fused" also runs the k-bounce above the sharded driver's
+    # floor.
+    multi_backend: str = ""         # "" | "xla" | "fused"
     # Split-bf16 limb count of the TPU hit; accepted and ignored (the
     # port's sweep is exact f32).
     hit_terms: int = 0

@@ -5,8 +5,9 @@ variant (``csrc/bounce.cu``).
 (``_bounce_kernel`` via ``p_bounce_fused``), with the pieces it inlines:
 ``hit_pallas_v7.hit_sky_values`` and ``scatter_pallas.kernel_draws`` /
 ``scatter_respawn_values`` / ``pack_camera``.  :func:`bounce_multi`
-replaces ``p_bounce_multi_fused`` (k fused bounces per dispatch, the
-opt-in ``multi_backend="fused"`` tail): one launch runs k bounces with
+replaces ``p_bounce_multi_fused`` (k fused bounces per dispatch; with
+:func:`bounce`, the single-card loop's tail below the floor unless
+``multi_backend="xla"``): one launch runs k bounces with
 each lane's state in registers.  Both are bound by the sphere sweep of the
 live lanes; each lane's state is read once and written once per launch and
 the hit record stays in registers (csrc/bounce.cu has the detail).

@@ -19,17 +19,19 @@ tail below the floor finished by :func:`p_render_oneshot`) and "staged"
 flush adds in an order fixed by its stream (:func:`_flush`), so a render
 repeats bit for bit on a card and a checkpointed one resumes exactly.
 
-Bounces (:func:`resolve_routes`, the reference's resolution): on a plain
-sphere scene, above the floor one call of the fused bounce kernel
-(kernels/bounce.py); at or below it the sphere kernel (kernels/hit.py)
-followed by the torch scatter and respawn here, as the reference runs its
-XLA steps there, or k bounces per launch of the fused kernel under
-``multi_backend="fused"``.  ``fuse_bounce="off"``, an explicit
+Bounces (:func:`resolve_routes`): on a plain sphere scene, above the
+floor one call of the fused bounce kernel (kernels/bounce.py); at or below
+it k bounces per launch of the fused kernel (B-multi) and kernel B for
+the rest, the same bounces as the torch chain's (:func:`p_bounce_step`:
+the sphere kernel of kernels/hit.py followed by the torch scatter and
+respawn here), which ``multi_backend="xla"`` runs there instead, as the
+reference runs its XLA steps there.  ``fuse_bounce="off"``, an explicit
 ``scatter_backend`` or pixel ids of 2^24 and up split the bounce above
 the floor: the hit + sky kernel (kernels/hit_sky.py), then the scatter +
 respawn kernel (kernels/scatter.py) under ``scatter_backend="pallas"`` or
-the torch scatter.  ``hit_kernel`` "v4" and "v6" have neither fused nor
-hit + sky kernel: the sphere kernel plus the scatter.  Kernel B sweeps
+the torch scatter, and the torch chain below it.  ``hit_kernel`` "v4" and
+"v6" have neither fused nor hit + sky kernel: the sphere kernel plus the
+scatter at every size.  Kernel B sweeps
 spheres only, so a scene with triangles, the sphere grid (``accel="grid"``)
 and an explicit ``hit_fn`` take the two-step bounce at every size, as the
 reference does: the hit function of kernels/dispatch.py (sphere kernel,
@@ -288,9 +290,15 @@ def count_tail(steps: int, width: int) -> None:
     count("persistent.lanes_tail", steps * width)
 
 
+def count_tail_fused(steps: int) -> None:
+    """Count ``steps`` bounces at or below the floor on kernels B-multi and
+    B."""
+    count("persistent.steps_tail_fused", steps)
+
+
 def count_kernel(steps: int, width: int) -> None:
-    """Count ``steps`` kernel-route bounces (kernel B, B-multi, the split
-    bounce) of ``width`` lanes."""
+    """Count ``steps`` kernel-route bounces above the floor (kernel B,
+    B-multi, the split bounce) of ``width`` lanes."""
     count("persistent.steps_kernel", steps)
     count("persistent.lanes_kernel", steps * width)
 
@@ -301,23 +309,35 @@ _ONESHOT_SYNC = 8
 
 def p_render_oneshot(scene, cam: Camera, st: PathState, salt,
                      step0: int, dims: Dims, max_steps: int, *,
-                     cfg: RenderConfig, hit_fn,
-                     lean: bool = False) -> PathState:
+                     cfg: RenderConfig, hit_fn, lean: bool = False,
+                     tail=None) -> PathState:
     """A whole lane chunk to completion: bounces step0+1.. until every lane
     is dead or ``max_steps``.  After a bounce a dead lane has spent its
     quota (the bounce's respawn would have revived it otherwise), so the
     bounces after the last lane dies change nothing; the alive flag is
     read only every ``_ONESHOT_SYNC`` bounces.  As the tail finisher
-    (one_shot="on") it takes over a chunk at ``step0`` from the host loop."""
+    (one_shot="on") it takes over a chunk at ``step0`` from the host loop.
+
+    ``tail(st, salt, step0, k, dims)``, where given, runs each group of
+    bounces on the kernels (the single-card loop's kernels B-multi and B);
+    without it the bounces are :func:`p_bounce_step` calls."""
     step = step0
     while step < max_steps:
-        for _ in range(min(_ONESHOT_SYNC, max_steps - step)):
-            step += 1
-            st = p_bounce_step(scene, cam, st, salt, step, dims, cfg=cfg,
-                               hit_fn=hit_fn, lean=lean)
+        n = min(_ONESHOT_SYNC, max_steps - step)
+        if tail is not None:
+            st = tail(st, salt, step + 1, n, dims)
+            step += n
+        else:
+            for _ in range(n):
+                step += 1
+                st = p_bounce_step(scene, cam, st, salt, step, dims, cfg=cfg,
+                                   hit_fn=hit_fn, lean=lean)
         if _alive_count(st.path_alive)() == 0:
             break
-    count_tail(step - step0, st.pixel.shape[1])
+    if tail is not None:
+        count_tail_fused(step - step0)
+    else:
+        count_tail(step - step0, st.pixel.shape[1])
     return st
 
 
@@ -328,7 +348,7 @@ _UNTIL_AHEAD = 2
 
 def p_render_until(scene, cam: Camera, st: PathState, salt, step0: int,
                    alive_target: int, dims: Dims, max_steps: int, *,
-                   cfg: RenderConfig, hit_fn, lean: bool = False):
+                   cfg: RenderConfig, hit_fn, lean: bool = False, tail=None):
     """One stage of the staged tail (one_shot="staged"): bounces step0+1..
     until the alive count after a bounce is <= ``alive_target``, or
     ``max_steps``; returns (state, step, alive count) at that bounce.
@@ -338,16 +358,21 @@ def p_render_until(scene, cam: Camera, st: PathState, salt, step0: int,
     those of successive :func:`p_bounce_step` calls stopped at the first
     bounce whose count reaches the target; each count is read behind the
     next bounce (``_UNTIL_AHEAD``), which is thrown away when the stage
-    ends before it.  One host read per bounce."""
+    ends before it.  One host read per bounce.  ``tail`` runs the bounces
+    on the kernels, as in :func:`p_render_oneshot`."""
     queue = []
     step = step0
     while True:
         while len(queue) < _UNTIL_AHEAD and (step < max_steps or not queue
                                              and step == step0):
             step += 1
-            st = p_bounce_step(scene, cam, st, salt, step, dims, cfg=cfg,
-                               hit_fn=hit_fn, lean=lean)
-            count_tail(1, st.pixel.shape[1])
+            if tail is not None:
+                st = tail(st, salt, step, 1, dims)
+                count_tail_fused(1)
+            else:
+                st = p_bounce_step(scene, cam, st, salt, step, dims, cfg=cfg,
+                                   hit_fn=hit_fn, lean=lean)
+                count_tail(1, st.pixel.shape[1])
             queue.append((st, step, _alive_count(st.path_alive)))
         st_k, step_k, read = queue.pop(0)
         cnt = read()
@@ -869,10 +894,14 @@ class _Routes(NamedTuple):
     render's routes)."""
 
     fused: object        # kernel B, or its plain version
-    multi: object        # kernel B's k-bounce under multi_backend="fused"
+    multi: object        # kernel B's k-bounce above the sharded driver's
+    #                      floor, under multi_backend="fused"
     hit_sky: object      # kernel E, or its plain version
     scatter: object      # kernel F, or its plain version (scatter "pallas")
     one_shot: str        # "chunk", "on", "staged" or "off"
+    # Kernel B's k-bounce at or below the single-card loop's floor, beside
+    # kernel B: wherever kernel B is, unless multi_backend="xla".
+    tail_multi: object = None
 
 
 def resolve_routes(cfg: RenderConfig, hit_scene, device, *, h_virt: int,
@@ -888,7 +917,14 @@ def resolve_routes(cfg: RenderConfig, hit_scene, device, *, h_virt: int,
     ids of 2^24 and up (the reference's ``mosaic_dims_ok``; the CUDA
     kernels divide integers exactly at any size, so here that limit only
     keeps the routes of the two packages the same).  Under the "jnp"
-    backend the same routes run with the plain versions at their ends."""
+    backend the same routes run with the plain versions at their ends.
+
+    At or below the floor the reference resolves ``multi_backend`` "" to
+    "xla", the torch chain.  The single-card loop here runs kernel B's
+    k-bounce and kernel B there instead (``tail_multi``) wherever kernel B
+    is, unless "xla": the same bounces, bit for bit, in a fraction of the
+    launches.  ``multi`` stays the reference's, set under "fused" only: the
+    sharded driver reads it above its floor."""
     from .kernels import bounce as B
     from .kernels import hit_sky as E
     from .kernels import scatter as F
@@ -915,11 +951,14 @@ def resolve_routes(cfg: RenderConfig, hit_scene, device, *, h_virt: int,
             f"{h_virt * w})")
     v7 = (not own_hit_fn and isinstance(hit_scene, SphereTable)
           and cfg.hit_kernel in ("auto", "v7"))
-    fused = multi = None
+    fused = multi = tail_multi = None
     if v7 and fuse_wanted:
         fused = B.bounce if kernels else B.bounce_plain
+        k_bounce = B.bounce_multi if kernels else B.bounce_multi_plain
         if cfg.multi_backend == "fused":
-            multi = B.bounce_multi if kernels else B.bounce_multi_plain
+            multi = k_bounce
+        if cfg.multi_backend != "xla":
+            tail_multi = k_bounce
     elif cfg.fuse_bounce == "on":
         raise ValueError(
             "fuse_bounce='on' requires the fused bounce kernel, which needs "
@@ -945,7 +984,7 @@ def resolve_routes(cfg: RenderConfig, hit_scene, device, *, h_virt: int,
                          + ", ".join(conflicts))
     if one_shot == "auto":
         one_shot = "off" if conflicts else "chunk"
-    return _Routes(fused, multi, hit_sky, scatter, one_shot)
+    return _Routes(fused, multi, hit_sky, scatter, one_shot, tail_multi)
 
 
 def split_bounce(routes: _Routes, hit_scene, hit_fn, cam: Camera, cam_rows,
@@ -1120,52 +1159,66 @@ def render_image_persistent(scene: Scene, cam, cfg: RenderConfig,
     use_route = (cfg.compactor or "sort") == "route"
     flush_mode = cfg.flush_mode or "scatter"
 
+    def fused_tail(st, salt, step0, k, dims):
+        """``k`` bounces at steps step0..step0+k-1 at or below the floor:
+        runs of ``mk`` on kernel B-multi, the rest on kernel B."""
+        while k >= mk:
+            st = routes.tail_multi(hit_scene, cam_rows, st, salt, step0, dims,
+                                   cfg=cfg, k=mk, lean=lean)
+            step0, k = step0 + mk, k - mk
+        for step in range(step0, step0 + k):
+            st = routes.fused(hit_scene, cam_rows, st, salt, step, dims,
+                              cfg=cfg, lean=lean)
+        return st
+
+    tail = fused_tail if routes.tail_multi is not None else None
+
     def do_steps(st, k, step, salt, ph):
-        # Below the floor: torch bounces (k at a time when unbinned), or
-        # kernel B's k-bounce under multi_backend="fused".  Binned scenes
-        # take single steps: a k-bounce would run on stale bins.
-        # Spans and counters go by route: kernel B, B-multi and the split
-        # bounce are "kernel", the torch steps "tail".
-        dims = ph.dims
-        width = st.pixel.shape[1]
-        tail = width <= _COMPACT_FLOOR
-        if tail and bin_box is None and k >= mk:
-            fused = routes.multi is not None
-            with span("persistent.bounce_kernel" if fused
-                      else "persistent.bounce_tail"):
-                while k >= mk:
-                    if fused:
-                        st = routes.multi(hit_scene, cam_rows, st, salt,
-                                          step + 1, dims, cfg=cfg, k=mk,
-                                          lean=lean)
-                        count_kernel(mk, width)
-                    else:
-                        st = p_bounce_multi_step(hit_scene, cam, st, salt,
-                                                 step + 1, dims, cfg=cfg,
-                                                 hit_fn=hit_fn, k=mk,
-                                                 lean=lean)
-                        count_tail(mk, width)
-                    step += mk
-                    k -= mk
+        # Above the floor: kernel B, or the split bounce.  At or below it:
+        # kernels B-multi and B (fused_tail) where the render has them,
+        # else torch bounces, mk at a time when unbinned.  Binned scenes
+        # take single steps: a k-bounce would run on stale bins.  Spans
+        # go by the floor (every bounce at or below it is
+        # "persistent.bounce_tail"), counters by route: kernel B, B-multi
+        # and the split bounce above the floor are "kernel", kernels below
+        # it "tail_fused", the torch steps "tail".
         if k <= 0:
             return st, step
-        with span("persistent.bounce_tail" if tail
-                  else "persistent.bounce_kernel"):
+        dims = ph.dims
+        width = st.pixel.shape[1]
+        if width > _COMPACT_FLOOR:
+            with span("persistent.bounce_kernel"):
+                for _ in range(k):
+                    step += 1
+                    if bin_box is not None and (step - 1) % _BIN_PERIOD == 0:
+                        st = _bin_sort_core(st, box=bin_box)
+                    if routes.fused is not None:
+                        st = routes.fused(hit_scene, cam_rows, st, salt, step,
+                                          dims, cfg=cfg, lean=lean)
+                    else:
+                        st = split_bounce(routes, hit_scene, hit_fn, cam,
+                                          cam_rows, st, salt, step, dims,
+                                          cfg=cfg, lean=lean)
+            count_kernel(k, width)
+            return st, step
+        with span("persistent.bounce_tail"):
+            if tail is not None:
+                st = tail(st, salt, step + 1, k, dims)
+                count_tail_fused(k)
+                return st, step + k
+            count_tail(k, width)
+            if bin_box is None:
+                while k >= mk:
+                    st = p_bounce_multi_step(hit_scene, cam, st, salt,
+                                             step + 1, dims, cfg=cfg,
+                                             hit_fn=hit_fn, k=mk, lean=lean)
+                    step, k = step + mk, k - mk
             for _ in range(k):
                 step += 1
                 if bin_box is not None and (step - 1) % _BIN_PERIOD == 0:
                     st = _bin_sort_core(st, box=bin_box)
-                if tail:
-                    st = p_bounce_step(hit_scene, cam, st, salt, step, dims,
-                                       cfg=cfg, hit_fn=hit_fn, lean=lean)
-                elif routes.fused is not None:
-                    st = routes.fused(hit_scene, cam_rows, st, salt, step,
-                                      dims, cfg=cfg, lean=lean)
-                else:
-                    st = split_bounce(routes, hit_scene, hit_fn, cam,
-                                      cam_rows, st, salt, step, dims,
-                                      cfg=cfg, lean=lean)
-        (count_tail if tail else count_kernel)(k, width)
+                st = p_bounce_step(hit_scene, cam, st, salt, step, dims,
+                                   cfg=cfg, hit_fn=hit_fn, lean=lean)
         return st, step
 
     def compact_fn(st, accum, ph, *, k_new, tail_sorted=False,
@@ -1192,7 +1245,7 @@ def render_image_persistent(scene: Scene, cam, cfg: RenderConfig,
         with span("persistent.one_shot"):
             return p_render_oneshot(hit_scene, cam, st, salt, step, ph.dims,
                                     ph.max_steps, cfg=cfg, hit_fn=hit_fn,
-                                    lean=lean)
+                                    lean=lean, tail=tail)
 
     def staged(st, accum, step, salt, ph):
         """The staged tail (one_shot="staged"): p_render_until stages that
@@ -1209,7 +1262,8 @@ def render_image_persistent(scene: Scene, cam, cfg: RenderConfig,
                 target = 1 << (max(cur // 2, 1).bit_length() - 1)
                 st, step, n_alive = p_render_until(
                     hit_scene, cam, st, salt, step, target, ph.dims,
-                    ph.max_steps, cfg=cfg, hit_fn=hit_fn, lean=lean)
+                    ph.max_steps, cfg=cfg, hit_fn=hit_fn, lean=lean,
+                    tail=tail)
                 if n_alive == 0 or step >= ph.max_steps:
                     break
                 st, accum = compact_fn(
