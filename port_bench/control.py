@@ -5,9 +5,10 @@ size, in one process (its ranks for a several-card cell):
 * ``program``: the port's calls on each of ``--seeds`` (each seed's
   first ``compare.calls`` calls, as a run compares them), against the
   plain reference; the largest of these is a number's lower reading;
-* ``control``: the plain reference computed in bfloat16 (the precision
-  below the float32 the configuration states) put in the port's place, on
-  each of ``--control-seeds``; the smallest is the upper reading;
+* ``control``: the configuration's plain reference computed in bfloat16
+  (the precision below the float32 the configuration states) put in the
+  port's place, on each of ``--control-seeds``; the smallest is the upper
+  reading;
 * ``half_spp``: the port rendering half the samples a call asks for
   (half of the batch left out, the mean taken over the rest), on each of
   ``--control-seeds``;
@@ -76,12 +77,12 @@ def readings(cell_name, seeds, control_seeds, witness_seeds=(),
     import torch
 
     from port_bench import cells, compare
-    from port_bench.reference import render as ref
     from port_bench.run import _mp_context, _watch
     from port_bench.traffic import Traffic
 
     cell = cells.workload(cell_name)
     config = cells.config(cell["config"])
+    ref, kw = cells.reference(config), cells.followed(config)
     world = int(cell["chips"])
     calls = int(cell["compare"]["calls"])
     jobs = ([(s, calls, 1.0) for s in seeds]
@@ -113,8 +114,9 @@ def readings(cell_name, seeds, control_seeds, witness_seeds=(),
     def refs(t, i):
         size = (t.width, t.height, t.spp, t.max_depth)
         cams = t.cameras(i)
-        return (cams, size, ref.render(f32, cams, *size, seed=t.seed(i) * 2 + 1),
-                ref.render(f32, cams, *size, seed=t.seed(i) * 2 + 2))
+        return (cams, size,
+                ref.render(f32, cams, *size, seed=t.seed(i) * 2 + 1, **kw),
+                ref.render(f32, cams, *size, seed=t.seed(i) * 2 + 2, **kw))
 
     kinds = ["program"] * len(seeds) + ["half_spp"] * len(control_seeds)
     for kind, (seed, n, _), got in zip(kinds, jobs, images):
@@ -133,7 +135,8 @@ def readings(cell_name, seeds, control_seeds, witness_seeds=(),
             per = []
             for i in range(calls):
                 cams, size, r1, r2 = refs(t, i)
-                alt = ref.render(scene, cams, *size, seed=t.seed(i) * 2 + 3)
+                alt = ref.render(scene, cams, *size, seed=t.seed(i) * 2 + 3,
+                                 **kw)
                 per.append(compare.worst(compare.image_numbers(p, a, b)
                                          for p, a, b in zip(alt, r1, r2)))
             yield {"cell": cell_name, "kind": kind, "seed": seed,

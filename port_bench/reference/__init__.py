@@ -1,1 +1,2 @@
-"""The plain reference the benchmark holds the port to (``render.py``)."""
+"""The plain references the benchmark holds the port to, one module a
+reference, named by a configuration's ``reference`` (default ``render.py``)."""

@@ -56,6 +56,10 @@ BLOCK = 64              # triangles per box
 SWEEP_RAYS = 1 << 15    # rays per sphere-sweep matrix [rays, spheres]
 PAIR_BATCH = 1 << 15    # (ray, box) pairs per triangle batch
 
+# The port's RenderConfig fields this reference reproduces (keyword
+# arguments of ``render``): none, so it holds the port's defaults.
+FOLLOWS = ()
+
 
 def _morton(p: np.ndarray) -> np.ndarray:
     """30-bit Morton codes of points scaled into their bounding box."""

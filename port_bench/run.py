@@ -15,16 +15,20 @@ From the root of a checkout that holds the port.  A run:
    that started finishes.  With ``--trace 1`` a few whole calls inside it
    run under ``torch.profiler`` (``tracing.py``);
 3. the check: a sample of the window's calls, drawn from the seed, is
-   compared with the plain reference (``reference/``, ``compare.py``);
+   compared with the configuration's plain reference (``reference/``,
+   ``compare.py``);
 4. one JSON line, the last of standard output: ``correct``,
    ``attempted``, ``failed``, ``metrics`` (the cell's end-to-end metrics,
    or with ``--trace 1`` its per-layer ones), ``device``, ``breakdown``
    (traced runs) and ``checks``, each number compared with its limit.
 
 A run needs as many CUDA cards as the cell's ``chips``; it exits with 2
-and prints no result without them.  A four-card cell runs one process a
-card: this process is rank 0 and starts ranks 1-3, which join through a
-file store under ``TMPDIR``; NCCL between them.
+and prints no result without them.  A configuration whose ``render`` map
+names a setting the harness cannot hold to its reference
+(``cells.render_settings``) ends the run first, with 5 and no result.  A
+four-card cell runs one process a card: this process is rank 0 and starts
+ranks 1-3, which join through a file store under ``TMPDIR``; NCCL between
+them.
 """
 
 import time
@@ -91,6 +95,7 @@ class Program:
             src = types.SimpleNamespace(
                 spheres=sp, triangles=types.SimpleNamespace(**self.arrays["triangles"]))
         self.scene = scene_from_numpy(src, device=device)
+        self.settings = cells.render_settings(config)
         want = cell["params"]["scheduler"]
         got = resolve_scheduler(self.render_config(0))
         if got != want:
@@ -101,7 +106,7 @@ class Program:
         t = self.traffic
         return self.RenderConfig(width=t.width, height=t.height,
                                  samples=t.spp, max_depth=t.max_depth,
-                                 seed=t.seed(i))
+                                 seed=t.seed(i), **self.settings)
 
     def call(self, i) -> list:
         """Call ``i`` of the window (``i = -1`` is the warm-up): its u8
@@ -235,10 +240,10 @@ def check(rec, seed, device):
     limits, calls compared, calls failed)."""
     import numpy as np
 
-    from port_bench import compare
-    from port_bench.reference import render as ref
+    from port_bench import cells, compare
 
     cell, traffic = rec["cell"], rec["traffic"]
+    ref, kw = cells.reference(rec["config"]), cells.followed(rec["config"])
     spec = cell["compare"]
     n = len(rec["images"])
     rng = np.random.default_rng([int(seed) & ((1 << 63) - 1), 0xC0FFEE])
@@ -248,8 +253,10 @@ def check(rec, seed, device):
     for i in pick:
         cams = traffic.cameras(int(i))
         size = (traffic.width, traffic.height, traffic.spp, traffic.max_depth)
-        r1 = ref.render(scene, cams, *size, seed=traffic.seed(int(i)) * 2 + 1)
-        r2 = ref.render(scene, cams, *size, seed=traffic.seed(int(i)) * 2 + 2)
+        r1 = ref.render(scene, cams, *size, seed=traffic.seed(int(i)) * 2 + 1,
+                        **kw)
+        r2 = ref.render(scene, cams, *size, seed=traffic.seed(int(i)) * 2 + 2,
+                        **kw)
         got = rec["images"][int(i)]
         if len(got) == len(cams):
             per = compare.worst(compare.image_numbers(p, a, b)
@@ -348,6 +355,11 @@ def main(argv=None, device_type="cuda", plant=None) -> int:
     from port_bench import cells
     cell = cells.workload(args.workload)
     world = int(cell["chips"])
+    try:
+        cells.render_settings(cells.config(cell["config"]))
+    except cells.SettingRefused as e:
+        print(f"refused: {e}", file=sys.stderr)
+        return 5
     import torch
     if device_type == "cuda":
         if not torch.cuda.is_available():

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Mean segments per primary ray of a cell, by the plain reference: rays
+"""Mean segments per primary ray of a cell, by its plain reference: rays
 traced (primary ones included) over primary rays, at the cell's size and
 cameras, one render per seed.  The sphere-sweep rooflines count their work
 from it (``roofline.py``); it is a property of the scene, the materials,
@@ -25,18 +25,18 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def measure(cell_name: str, seeds, device: str) -> dict:
     from port_bench import cells
-    from port_bench.reference import render as ref
     from port_bench.traffic import Traffic
 
     cell = cells.workload(cell_name)
     config = cells.config(cell["config"])
+    ref, kw = cells.reference(config), cells.followed(config)
     scene = ref.RefScene(cells.scene(config["scene"]), device)
     values = []
     for s in seeds:
         t = Traffic(cell["params"], config, s)
         stats = {}
         ref.render(scene, t.cameras(0), t.width, t.height, t.spp, t.max_depth,
-                   seed=t.seed(0), stats=stats)
+                   seed=t.seed(0), stats=stats, **kw)
         values.append(stats["segments"] / stats["primary"])
     mean = sum(values) / len(values)
     return {"mean": mean, "spread": (max(values) - min(values)) / mean,

@@ -66,6 +66,30 @@ def write_json(path, obj):
         json.dump(obj, f, indent=1)
 
 
+def add_config(checkout, name, config):
+    """``configs/<name>.json`` in a copy, a new file."""
+    write_json(checkout / "port_bench" / "configs" / f"{name}.json", config)
+
+
+def add_cell(checkout, name, cell):
+    """``workloads/<name>.json`` and its BENCHMARK.json entry in a copy."""
+    write_json(checkout / "port_bench" / "workloads" / f"{name}.json", cell)
+    bench = json.loads((checkout / "BENCHMARK.json").read_text())
+    bench["workloads"].append({k: cell[k] for k in
+                               ("config", "traffic", "chips", "why")}
+                              | {"name": name})
+    write_json(checkout / "BENCHMARK.json", bench)
+
+
+def tiny_variant(checkout, name, **keys):
+    """A config ``name``: ``tiny`` with ``keys`` added, and its cell
+    ``<name>.finished``: ``tiny.finished`` on it.  Returns the cell."""
+    add_config(checkout, name, TINY["tiny"] | keys)
+    add_cell(checkout, f"{name}.finished",
+             TINY_CELLS["tiny.finished"] | {"config": name})
+    return f"{name}.finished"
+
+
 @pytest.fixture
 def bench_copy(tmp_path):
     """A copy of BENCHMARK.json and port_bench/ with the tiny cells added
@@ -75,14 +99,9 @@ def bench_copy(tmp_path):
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), dst / "BENCHMARK.json")
     for name, cfg in TINY.items():
-        write_json(dst / "port_bench" / "configs" / f"{name}.json", cfg)
-    bench = json.loads((dst / "BENCHMARK.json").read_text())
+        add_config(dst, name, cfg)
     for name, cell in TINY_CELLS.items():
-        write_json(dst / "port_bench" / "workloads" / f"{name}.json", cell)
-        bench["workloads"].append({k: cell[k] for k in
-                                   ("config", "traffic", "chips", "why")}
-                                  | {"name": name})
-    write_json(dst / "BENCHMARK.json", bench)
+        add_cell(dst, name, cell)
     return dst
 
 

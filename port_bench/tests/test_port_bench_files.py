@@ -11,7 +11,7 @@ import pytest
 
 from port_bench import cells
 
-from .conftest import BENCH, ROOT, run_cpu, write_json
+from .conftest import BENCH, ROOT, run_cpu, tiny_variant, write_json
 
 BENCHMARK = cells.benchmark()
 CELLS = [w["name"] for w in BENCHMARK["workloads"]]
@@ -41,6 +41,13 @@ def test_config_file(name):
     for key in ("scene", "width", "height", "spp", "max_depth", "ranks"):
         assert key in config, key
     assert any(w["config"] == name for w in BENCHMARK["workloads"])
+    # Its render settings pass the harness's rule, and its reference has
+    # the interface every call goes through.
+    settings = cells.render_settings(config)
+    ref = cells.reference(config)
+    assert isinstance(ref.FOLLOWS, tuple)
+    assert callable(ref.render) and callable(ref.RefScene)
+    assert set(cells.followed(config)) == set(settings) & set(ref.FOLLOWS)
 
 
 @pytest.mark.parametrize("name", METRICS)
@@ -83,6 +90,67 @@ def test_added_cell_config_and_metric_run(bench_copy):
     assert out["metrics"]["calls_traced"]["value"] == 1
     after = {p: open(p, "rb").read() for p in before}
     assert before == after
+
+
+def test_added_config_with_render_settings_runs(bench_copy):
+    """A config ``tiny_grid``, ``tiny`` with ``"render": {"accel": "grid"}``,
+    and its cell, added as new files and entries in a copy: the port builds
+    the sphere grid and sweeps it in the window, and the run is correct."""
+    from .probes import SPHERE_GRID
+    before = {p: open(p, "rb").read() for p in _files(bench_copy / "port_bench")}
+    cell = tiny_variant(bench_copy, "tiny_grid", render={"accel": "grid"})
+    rc, out, err = run_cpu(bench_copy, cell,
+                           plant="port_bench.tests.probes:sphere_grid")
+    assert rc == 0, err[-3000:]
+    assert out["correct"] is True, out["checks"]
+    marks = (bench_copy / SPHERE_GRID).read_text().split("\n")
+    assert "build GridScene" in marks
+    assert marks.count("sweep") >= 2 * 10
+    after = {p: open(p, "rb").read() for p in before}
+    assert before == after
+
+
+# A reference added as a new file: the float32 reference with its normal
+# offset set from the port's ``epsilon``, which it therefore follows; each
+# call leaves the value it was handed in a file of the run's directory.
+FOLLOWING_REFERENCE = """
+import json
+
+from port_bench.reference import render as base
+
+RefScene = base.RefScene
+FOLLOWS = ("epsilon",)
+
+
+def render(scene, cams, width, height, spp, max_depth, seed, *, epsilon,
+           **kw):
+    with open("followed.jsonl", "a") as f:
+        f.write(json.dumps({"epsilon": epsilon}) + "\\n")
+    eps, base.EPS = base.EPS, epsilon
+    try:
+        return base.render(scene, cams, width, height, spp, max_depth, seed,
+                           **kw)
+    finally:
+        base.EPS = eps
+"""
+
+
+def test_added_reference_follows_its_setting(bench_copy):
+    """A config names a reference added as a new file, whose ``FOLLOWS``
+    holds ``epsilon``, and sets ``epsilon`` (which the default reference
+    does not follow): the run checks with that module, which is handed the
+    setting on every call, and is correct."""
+    (bench_copy / "port_bench" / "reference" / "follows_epsilon.py").write_text(
+        FOLLOWING_REFERENCE)
+    cell = tiny_variant(bench_copy, "tiny_eps", render={"epsilon": 2e-5},
+                        reference="follows_epsilon")
+    rc, out, err = run_cpu(bench_copy, cell)
+    assert rc == 0, err[-3000:]
+    assert out["correct"] is True, out["checks"]
+    calls = [json.loads(ln) for ln in
+             (bench_copy / "followed.jsonl").read_text().splitlines()]
+    # Two reference images for each call compared.
+    assert calls == [{"epsilon": 2e-5}] * 2
 
 
 def test_no_program_no_result(tmp_path):
