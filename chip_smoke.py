@@ -2577,7 +2577,7 @@ class Smoke:
                                    hit_fn=plain_fn, lean=True)
         del st
         pair_ops = sphere_ops(table) / int(table.active.sum())   # per pair test
-        n_glob = int((gscene.glob_attrs[:, 8] != 0).sum())
+        n_glob = gscene.glob_active
         fn_bytes = (lanes * (28 + RECORD_BYTES) + gscene.tile_attrs.numel() * 4
                     + gscene.glob_attrs.numel() * 4 + gscene.tile_boxes.numel() * 4)
         sched_bytes = (lanes * (28 + RECORD_BYTES) + gscene.glob_attrs.numel() * 4

@@ -155,15 +155,17 @@ def test_cli_accel_grid(tmp_path):
 
 def test_grid_routes():
     """The grid route resolves to kernel I's wrapper ("auto"; its plain
-    version on the CPU) or its plain sweep ("jnp"); a GridScene takes the
-    split bounce, so fuse_bounce="on" raises as in the reference; a scene
-    that does not qualify raises the reference's ValueError; "auto" never
-    picks the sphere grid."""
+    version on the CPU) or its plain sweep ("jnp"), each under the thin
+    pass that counts and spans it while a render records; a GridScene
+    takes the split bounce, so fuse_bounce="on" raises as in the
+    reference; a scene that does not qualify raises the reference's
+    ValueError; "auto" never picks the sphere grid."""
     scene = tb.get_scene("final")
     g, fn = D.get_hit_fn_rows_accel(TC(accel="grid"), scene)
-    assert isinstance(g, GridScene) and fn is KI.hit_spheres_grid_rows
+    assert isinstance(g, GridScene)
+    assert fn.__wrapped__ is KI.hit_spheres_grid_rows
     _, fn = D.get_hit_fn_rows_accel(TC(accel="grid", backend="jnp"), scene)
-    assert fn is hit_spheres_grid_rows_plain
+    assert fn.__wrapped__ is hit_spheres_grid_rows_plain
     assert not isinstance(D.get_hit_fn_rows_accel(TC(), scene)[0], GridScene)
     routes = TP.resolve_routes(TC(accel="grid"), g, "cpu", h_virt=8, kpp=1,
                                bin_box=None)

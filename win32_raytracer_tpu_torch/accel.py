@@ -46,6 +46,7 @@ from .ops.hit import (
 from .ops.rows import HitRecordRows
 from .scene.spheres import SphereScene, scene_from_numpy
 from .tri_accel import pad_rays
+from .utils import profiling
 
 # Tile rows carry one more, all-ones column, as in the reference (its
 # winner flag through the MXU; read by nothing here).
@@ -73,6 +74,7 @@ class GridScene(NamedTuple):
     tile_attrs: torch.Tensor   # [T * St, GRID_ATTR_COLS] tiles, row-major
     tile_boxes: torch.Tensor   # [T, 4] f32: x_lo, x_hi, z_lo, z_hi
     y_slab: torch.Tensor       # [2] f32: y_lo, y_hi over all gridded spheres
+    glob_active: int           # globals with r != 0: pass A's rows (host)
 
     @property
     def padded_size(self) -> int:
@@ -97,9 +99,10 @@ def grid_from_numpy(src, device="cpu") -> GridScene:
     def f32(x):
         return torch.as_tensor(np.array(x), dtype=torch.float32,
                                device=device)
-    return GridScene(scene_from_numpy(src.base, device), f32(src.glob_attrs),
+    glob = np.asarray(src.glob_attrs)
+    return GridScene(scene_from_numpy(src.base, device), f32(glob),
                      f32(src.tile_attrs), f32(src.tile_boxes),
-                     f32(src.y_slab))
+                     f32(src.y_slab), int((glob[:, _A_RADIUS] != 0).sum()))
 
 
 def glob_table(gscene: GridScene) -> SphereTable:
@@ -159,12 +162,27 @@ def build_grid_accel(scene: SphereScene, time_hi: float = 1.0,
     does not benefit (fewer than ``min_gridded`` small spheres, or a tile
     would need more than ``max_tile_rows`` rows).  ``time_hi`` bounds the
     shutter window sampled (pass the camera's shutter_close): motion
-    extents are evaluated over [0, time_hi]."""
+    extents are evaluated over [0, time_hi].  A build (not a cache hit)
+    is span ``accel.grid_build`` while a render records."""
     key = (id(scene), time_hi, target_per_tile, global_radius_factor,
            max_tile_rows, min_gridded)
     cached = _SGRID_CACHE.get(key)
     if cached is not None and cached.base is scene:
         return cached
+    with profiling.span("accel.grid_build"):
+        out = _build_grid(scene, time_hi, target_per_tile,
+                          global_radius_factor, max_tile_rows, min_gridded)
+    if out is not None:
+        if len(_SGRID_CACHE) >= _SGRID_CACHE_MAX:
+            _SGRID_CACHE.pop(next(iter(_SGRID_CACHE)))
+        _SGRID_CACHE[key] = out
+    return out
+
+
+def _build_grid(scene: SphereScene, time_hi: float, target_per_tile: int,
+                global_radius_factor: float, max_tile_rows: int,
+                min_gridded: int) -> Optional[GridScene]:
+    """:func:`build_grid_accel`'s build, uncached."""
     sc = {f: getattr(scene, f).cpu().numpy() for f in SphereScene._fields}
     active = np.flatnonzero(sc["active"])
     if len(active) == 0:
@@ -228,17 +246,14 @@ def build_grid_accel(scene: SphereScene, time_hi: float = 1.0,
     gl = _pad_rows(_attr_rows(sc, globals_, ATTR_COLS), sg)
 
     dev = scene.device
-    out = GridScene(
+    return GridScene(
         base=scene,
         glob_attrs=torch.from_numpy(gl).to(dev),
         tile_attrs=torch.from_numpy(
             tiles.reshape(n_t * st, GRID_ATTR_COLS)).to(dev),
         tile_boxes=torch.from_numpy(boxes).to(dev),
-        y_slab=torch.tensor([y_lo, y_hi], dtype=torch.float32, device=dev))
-    if len(_SGRID_CACHE) >= _SGRID_CACHE_MAX:
-        _SGRID_CACHE.pop(next(iter(_SGRID_CACHE)))
-    _SGRID_CACHE[key] = out
-    return out
+        y_slab=torch.tensor([y_lo, y_hi], dtype=torch.float32, device=dev),
+        glob_active=len(globals_))
 
 
 def _footprint_mask(gscene: GridScene, o, d, t_cap, min_t: float,

@@ -16,10 +16,11 @@ Pallas backend:
   ``hit_kernel`` (:func:`validate_hit_kernel`); under ``accel="grid"``,
   when ``accel.build_grid_accel`` qualifies it (built for the camera's
   shutter window), the sphere grid, kernel I's schedule kernel (pass A over
-  the globals) then its sweep (``kernels/hit_grid.py``); "auto" never picks
-  the sphere grid, as in the reference.  Under "jnp" the grid runs its
-  plain sweep (kernel I's plain version); the reference raises there
-  instead;
+  the globals) then its sweep (``kernels/hit_grid.py``), with its counters
+  and span while a render records (:func:`_sphere_grid_pass`); "auto"
+  never picks the sphere grid, as in the reference.  Under "jnp" the grid
+  runs its plain sweep (kernel I's plain version); the reference raises
+  there instead;
 * a triangle mesh with at least ``tri_accel.build_tri_grid``'s
   ``min_tris`` (512) active triangles, under ``accel`` "auto" or "grid":
   the Morton-tile grid, kernel D (``kernels/tri_grid.py``);
@@ -44,6 +45,8 @@ no grid, as in the reference: spheres go to kernel G
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -211,6 +214,21 @@ def _make_tri_pass(kernel, rebin: str = "off", dda_k: int = 0, **kernel_kw):
     return tri_pass
 
 
+def _sphere_grid_pass(grid_fn, **kernel_kw):
+    """The sphere grid's rows hit function: ``grid_fn`` with ``kernel_kw``
+    (kernel I's ``stats`` while a render records).  While the render
+    records, each call is span ``sphere_grid.hit`` and counts pass A's
+    pair tests, ``sphere_grid.pass_a_tests``: the call's lanes x the
+    active globals, both known on the host (off, both are no-ops)."""
+    @functools.wraps(grid_fn)
+    def grid_pass(gscene, o, d, t, min_t=MIN_HIT_T):
+        profiling.count("sphere_grid.pass_a_tests",
+                        o.shape[1] * gscene.glob_active)
+        with profiling.span("sphere_grid.hit"):
+            return grid_fn(gscene, o, d, t, min_t=min_t, **kernel_kw)
+    return grid_pass
+
+
 def _make_composite(sphere_fn, tri_pass, cap: bool = False):
     """Rows hit function over a composite (spheres or None, triangles or
     None).  With ``cap`` the sphere pass's nearest t caps the triangle
@@ -254,7 +272,16 @@ def get_hit_fn_rows_accel(cfg: RenderConfig, scene, cam=None):
                 "accel='grid' requested but the scene does not qualify "
                 "(sphere grids need enough small spheres — "
                 "accel.build_grid_accel)")
-        return gscene, sgrid_fn
+        kw = {}
+        if resolve_backend(cfg, scene.device) == "kernels":
+            # While the render records, kernel I adds its CTA tiles and
+            # pair tests into one int64 [2] tensor, read at the render's
+            # end; None otherwise (the plain version on the CPU adds
+            # nothing).
+            kw["stats"] = profiling.device_counters(
+                {0: "sphere_grid.cta_tiles", 1: "sphere_grid.pair_tests"}, 2,
+                scene.device)
+        return gscene, _sphere_grid_pass(sgrid_fn, **kw)
     if isinstance(scene, TriangleScene):
         scene = CompositeScene(None, scene)
     if not isinstance(scene, CompositeScene):
