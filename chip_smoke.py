@@ -100,9 +100,12 @@ checks that each kernel of a path ran in it:
   sharded scheduler's overhead, not scaling.  Small sharded renders
   (``final``, ``test``, ``mesh`` at 160x120@16; persistent, rows and spp
   modes) bit-equal to their plain renders and to a second run, with each
-  route's kernels; the headline over the 2 ranks (mean, launches per
-  rank, median wall of 3); ``multi_backend="fused"`` against the default
-  over the ranks (bit-equal); BASELINE config 5 through
+  route's kernels, ``final`` and ``test`` also under
+  ``multi_backend="xla"`` (bit-equal to the default, whose tail below the
+  floor is kernels B-multi and B); the headline over the 2 ranks (mean,
+  launches per rank, median wall of 3); ``multi_backend`` "xla" and
+  "fused" against the default over the ranks (bit-equal, launches per
+  rank); BASELINE config 5 through
   ``render_animation(mesh=, shard_mode="rows")``; a pass-level sharded
   checkpoint resumed byte-equal; the headline over 1 rank under NCCL;
   and what NCCL does with 2 ranks on one card (a subprocess).
@@ -3699,9 +3702,12 @@ def p21_ranks(mesh, card: str, small_means: list) -> None:
     say21(mesh, "mesh", f"{d} ranks on {torch.cuda.device_count()} card(s), "
           f"backend {dist.get_backend()}, rank 0 on {dev}")
 
-    # Small renders: kernels bit-equal to plain, twice; each route's kernels.
-    routes = {("final", "persistent"): ("bounce", "hit"),
-              ("test", "persistent"): ("bounce", "hit"),
+    # Small renders: kernels bit-equal to plain, twice; each route's kernels
+    # (with kernel B, the tail below the floor on B-multi and B: no kernel
+    # A); where kernel B runs, the default bit-equal to multi_backend="xla"
+    # (the torch chain below the floor).
+    routes = {("final", "persistent"): ("bounce",),
+              ("test", "persistent"): ("bounce",),
               ("mesh", "persistent"): ("hit", "tri"),
               ("mesh", "rows"): ("hit_cols", "tri_cols"),
               ("mesh", "spp"): ("hit_cols", "tri_cols")}
@@ -3728,8 +3734,8 @@ def p21_ranks(mesh, card: str, small_means: list) -> None:
                 k2, _ = run(cfg)
                 pl, tp = run(cfg.replace(backend="jnp"))
                 same = bool(torch.equal(k1, pl)) and bool(torch.equal(k1, k2))
-                check_route(got, routes.get((name, mode), ("hit_cols",) if mode != "persistent"
-                                            else ("bounce", "hit")), (),
+                ran = routes.get((name, mode), ("hit_cols",))
+                check_route(got, ran, ("bounce_multi",) if "bounce" in ran else (),
                             f"{name} {mode} on {d} ranks")
                 say21(mesh, "small", f"{name} {cfg.width}x{cfg.height}@{cfg.samples} "
                       f"{mode}: kernels bit-equal to plain and to a second run "
@@ -3738,11 +3744,25 @@ def p21_ranks(mesh, card: str, small_means: list) -> None:
                       f"{p21_launches(mesh, got)}")
                 check(same, f"{name} {mode}: sharded kernel render differs "
                       "from plain or from its second run")
+                if "bounce" not in ran:
+                    continue
+                reset_launches()
+                kx, tx = run(cfg.replace(multi_backend="xla"))
+                got_x = launches()
+                same = bool(torch.equal(k1, kx))
+                say21(mesh, "small xla", f"{name} {mode} under multi_backend="
+                      f"\"xla\": bit-equal to the default {same}, {tx:.3f} s "
+                      f"(default {t1:.3f} s); launches {p21_launches(mesh, got_x)}")
+                check_route(got_x, ("bounce",), ("hit",),
+                            f"{name} {mode} xla on {d} ranks")
+                check(same, f"{name} {mode}: sharded default differs from "
+                      "multi_backend='xla'")
     finally:
         P._COMPACT_FLOOR = saved
 
     # The headline over the ranks: mean, launches, median wall of 3; then
-    # multi_backend="fused" against the default, which it must equal.
+    # multi_backend "xla" and "fused" against the default, which each must
+    # equal.
     cfg = RenderConfig(**HEADLINE)
     scene = get_scene("final", device=dev)
 
@@ -3765,9 +3785,22 @@ def p21_ranks(mesh, card: str, small_means: list) -> None:
           f"spp over {d} ranks on one card: walls {[round(w, 4) for w in walls]} s (median "
           f"{np.median(walls):.4f}), image mean {mean:.3f} (170.1 +- 1.5), "
           f"launches {p21_launches(mesh, got)} [{card}]")
-    check_route(got, ("bounce", "hit"), (), "sharded headline")
+    check_route(got, ("bounce", "bounce_multi"), (), "sharded headline")
     check(abs(mean - HEADLINE_MEAN) <= HEADLINE_MEAN_TOL,
           f"sharded headline mean {mean}")
+    headline(cfg.replace(multi_backend="xla"))
+    reset_launches()
+    xla, _, t_x = headline(cfg.replace(multi_backend="xla"))
+    got = launches()
+    same = bool(torch.equal(xla, lin))
+    say21(mesh, "xla", f"the headline under multi_backend=\"xla\" (the torch "
+          f"chain below the per-rank floor): {t_x:.4f} s (default median "
+          f"{np.median(walls):.4f}), linear image bit-equal to the default's "
+          f"{same} ({int((xla != lin).any(-1).sum())} pixels differ), launches "
+          f"{p21_launches(mesh, got)} [{card}]")
+    check_route(got, ("bounce", "hit"), (), "sharded multi_backend=xla")
+    check(same, "sharded default differs from multi_backend='xla'")
+    del xla
     reset_launches()
     fused, _, t_f = headline(cfg.replace(multi_backend="fused"))
     got = launches()
@@ -3777,9 +3810,9 @@ def p21_ranks(mesh, card: str, small_means: list) -> None:
           f"bit-equal to the default's {same} "
           f"({int((fused != lin).any(-1).sum())} pixels differ), launches "
           f"{p21_launches(mesh, got)} [{card}]")
-    check_route(got, ("bounce", "bounce_multi", "hit"), (),
+    check_route(got, ("bounce", "bounce_multi"), (),
                 "sharded multi_backend=fused")
-    check(same, "sharded multi_backend='fused' differs from 'xla'")
+    check(same, "sharded multi_backend='fused' differs from the default")
     del lin, fused
 
     # BASELINE config 5 over the ranks (bench/configs.py:84-110: the
@@ -3807,7 +3840,7 @@ def p21_ranks(mesh, card: str, small_means: list) -> None:
           f"launches {p21_launches(mesh, got)} [{card}]")
     check(len(frames) == 8 and all(f.shape == (cfg5.height, cfg5.width, 3)
                                    for f in frames), "sharded config 5 shapes")
-    check_route(got, ("bounce",), ("hit",), "sharded config 5")
+    check_route(got, ("bounce", "bounce_multi"), (), "sharded config 5")
     check(all(abs(x - y) <= FLY_MEAN_TOL for x, y in zip(fmeans, small_means)),
           f"sharded config 5 frame means {fmeans}")
 
@@ -3866,7 +3899,7 @@ def p21_single(mesh, card: str) -> None:
           f"launches {p21_launches(mesh, got)} [{card}]")
     check(abs(mean - HEADLINE_MEAN) <= HEADLINE_MEAN_TOL,
           f"D=1 sharded headline mean {mean}")
-    check_route(got, ("bounce", "hit"), (), "D=1 sharded headline")
+    check_route(got, ("bounce", "bounce_multi"), (), "D=1 sharded headline")
 
 
 # Phase 11's routes: (label, knob, kernels the route must launch, kernels

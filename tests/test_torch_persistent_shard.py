@@ -48,7 +48,11 @@ CASES = {
     + [("final-compaction-again", "persistent",
         dict(scene="final", **R, **COMPACT)),
        ("final-compaction-traced", "traced",
-        dict(scene="final", **R, **COMPACT))],
+        dict(scene="final", **R, **COMPACT)),
+       ("final-compaction-calls", "calls",
+        dict(scene="final", **R, **COMPACT)),
+       ("final-compaction-xla", "calls",
+        dict(scene="final", **R, **COMPACT, multi_backend="xla"))],
     4: [(f"{s}-{m}", "persistent", dict(scene=s, **R,
                                          **(COMPACT if m == "compaction"
                                             else {})))
@@ -103,6 +107,15 @@ CASES = {
                                      **ROUTE)),
     ],
 }
+# The twins under multi_backend="xla" (the torch chain at or below the
+# floor) of cases whose default runs kernels B-multi and B there (D = 2's
+# is a "calls" case above), and a mesh (no kernel B) with its calls spied.
+XLA_TWINS = {2: ("final-compaction",),
+             4: ("final-compaction", "multiframe", "staged", "one-shot-on")}
+CASES[4] += [(f"{n}-xla", "persistent", dict(kw, multi_backend="xla"))
+             for n, _, kw in list(CASES[4]) if n in XLA_TWINS[4]]
+CASES[4].append(("composite-calls", "calls",
+                 dict(scene="mesh", width=32, height=16, samples=8, seed=3)))
 
 
 @pytest.fixture(scope="module")
@@ -386,3 +399,61 @@ def test_sharded_route_compactor_matches_sort(ranks):
     base, routed = ranks[4]["sort"], ranks[4]["route"]
     assert np.isfinite(routed).all()
     np.testing.assert_allclose(routed, base, rtol=2e-5, atol=2e-6)
+
+
+def _image(got):
+    return got["image"] if isinstance(got, dict) else got
+
+
+@pytest.mark.parametrize("d,name", [(d, n) for d, names in XLA_TWINS.items()
+                                    for n in names])
+def test_sharded_fused_tail_bit_equal_to_xla(ranks, d, name):
+    """At or below the per-rank floor the default route runs kernels
+    B-multi and B (their plain versions here) where the torch chain ran:
+    in the host loop (the floor patched to 1,024 lanes a rank), the
+    one-shot batches (a multi-frame orbit; one_shot="on") and the staged
+    tail, the image is bit-equal to multi_backend="xla"'s."""
+    np.testing.assert_array_equal(_image(ranks[d][name]),
+                                  _image(ranks[d][f"{name}-xla"]))
+
+
+TAIL_SPANS = {"persistent.bounce_tail", "persistent.one_shot",
+              "persistent.staged"}
+
+
+@pytest.mark.parametrize("name", ["final-compaction-calls",
+                                  "final-compaction-xla"])
+def test_sharded_tail_counts_by_route(ranks, name):
+    """Rank 0's counters and kernel calls at D = 2 with the floor patched:
+    under the default route every bounce at or below the per-rank floor
+    is a kernel B-multi or B call inside a tail span, counted by
+    ``persistent.steps_tail_fused`` and never by ``steps_tail``; under
+    "xla" the reverse, and every kernel call is kernel B above the floor
+    (or at it, after the torch k-bounce) inside
+    ``persistent.bounce_kernel``."""
+    got = ranks[2][name]
+    c, floor = got["counters"], got["floor"]
+    np.testing.assert_array_equal(got["image"], ranks[2]["final-compaction"])
+    below = [(n, inner) for w, n, inner in got["calls"] if w <= floor]
+    above = [inner for w, _, inner in got["calls"] if w > floor]
+    assert above and all(inner == "persistent.bounce_kernel"
+                         for inner in above)
+    if name.endswith("xla"):
+        assert c["persistent.steps_tail"] > 0
+        assert "persistent.steps_tail_fused" not in c
+        assert all(inner == "persistent.bounce_kernel" for _, inner in below)
+        return
+    assert below and all(inner in TAIL_SPANS for _, inner in below)
+    assert c["persistent.steps_tail_fused"] == sum(n for n, _ in below)
+    assert "persistent.steps_tail" not in c
+    assert "persistent.lanes_tail" not in c
+
+
+def test_sharded_mesh_keeps_torch_tail(ranks):
+    """A mesh has no kernel B: below the floor the sharded driver keeps
+    the torch chain under the default route."""
+    got = ranks[4]["composite-calls"]
+    assert not got["calls"]
+    assert got["counters"]["persistent.steps_tail"] > 0
+    assert "persistent.steps_tail_fused" not in got["counters"]
+    np.testing.assert_array_equal(got["image"], ranks[4]["composite"])

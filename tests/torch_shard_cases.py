@@ -19,7 +19,7 @@ from win32_raytracer_tpu_torch import persistent as P
 from win32_raytracer_tpu_torch.config import RenderConfig
 from win32_raytracer_tpu_torch.parallel import shard as S
 from win32_raytracer_tpu_torch.parallel.persistent_shard import (
-    render_image_persistent_sharded)
+    _MIN_LANES, render_image_persistent_sharded)
 from win32_raytracer_tpu_torch.scene.builders import get_scene, mesh_scene
 from win32_raytracer_tpu_torch.scene.camera import make_camera
 
@@ -71,6 +71,35 @@ def traced(mesh, scene, patches=None, **cfg):
     with profiling.recording():
         on = persistent(mesh, scene, patches=patches, **cfg)
     return dict(equal=bool((off == on).all()), image=on, log=profiling.log())
+
+
+def calls(mesh, scene, patches=None, **cfg):
+    """The sharded persistent render with the recorder on and kernels B and
+    B-multi (their plain versions here) spied: the image, this rank's
+    counters, the per-rank floor, and each kernel call as (width, bounces,
+    the innermost open span)."""
+    from win32_raytracer_tpu_torch.kernels import bounce as B
+    from win32_raytracer_tpu_torch.utils import profiling
+    rec = profiling._REC
+    got = []
+
+    def spy(fn):
+        def wrapped(scene, cam_rows, st, *a, **k):
+            inner = rec.spans[rec.stack[-1]][0] if rec.stack else None
+            got.append((st.pixel.shape[1], k.get("k", 1), inner))
+            return fn(scene, cam_rows, st, *a, **k)
+        return wrapped
+    real = B.bounce, B.bounce_multi
+    B.bounce, B.bounce_multi = spy(B.bounce), spy(B.bounce_multi)
+    try:
+        with profiling.recording():
+            image = persistent(mesh, scene, patches=patches, **cfg)
+    finally:
+        B.bounce, B.bounce_multi = real
+    (counters,) = profiling.log()["counters"].values()
+    with patched(patches or {}):
+        floor = max(P._COMPACT_FLOOR // mesh.size(), _MIN_LANES)
+    return dict(image=image, counters=counters, calls=got, floor=floor)
 
 
 def sharded(mesh, scene, mode, **cfg):
@@ -174,9 +203,10 @@ def one_rank(tmp_dir):
         torch.distributed.destroy_process_group()
 
 
-CASES = dict(persistent=persistent, traced=traced, sharded=sharded,
-             raises=raises, meshes=meshes, api_render=api_render,
-             animation=animation, checkpoint=checkpoint)
+CASES = dict(persistent=persistent, traced=traced, calls=calls,
+             sharded=sharded, raises=raises, meshes=meshes,
+             api_render=api_render, animation=animation,
+             checkpoint=checkpoint)
 
 
 def run_cases(mesh, cases) -> dict:

@@ -25,11 +25,15 @@ The only traffic between ranks:
 Where the sharded loop differs from the single-card one, it follows the
 reference's sharded scheduler: the per-rank floor
 ``max(_COMPACT_FLOOR // D, 1024)`` with 1024 lanes as the smallest batch;
-the fused bounce (kernel B) only at or above the floor and, under
-``multi_backend="fused"``, k bounces per launch of kernel B above it (the
-tail below the floor takes the torch k-bounce); a batch that starts at or
-below the floor runs whole in the one-shot forms, also in the adaptive
-second phase; per-rank draw salts.  Like the reference's sharded scheduler
+the fused bounce (kernel B) above the floor and, under
+``multi_backend="fused"``, k bounces per launch of kernel B above it; a
+batch that starts at or below the floor runs whole in the one-shot forms,
+also in the adaptive second phase; per-rank draw salts.  At or below the
+floor the reference takes the torch k-bounce; here, as in the single-card
+loop, every bounce there runs on kernels B-multi and B wherever the render
+has kernel B (``routes.tail_multi``: not under ``multi_backend="xla"``),
+the same bounces bit for bit in a fraction of the launches, and on the
+torch chain otherwise.  Like the reference's sharded scheduler
 it never reads ``redistribute`` and refuses ``adaptive_pool="on"``.
 """
 
@@ -276,6 +280,20 @@ def render_image_persistent_sharded(scene, cam, cfg: RenderConfig, mesh,
     use_route = (cfg.compactor or "sort") == "route"
     flush_mode = cfg.flush_mode or "scatter"
 
+    def fused_tail(st, salt_s, step0, k, dims):
+        """``k`` bounces at steps step0..step0+k-1 at or below the floor:
+        runs of ``mk`` on kernel B-multi, the rest on kernel B."""
+        while k >= mk:
+            st = routes.tail_multi(hit_scene, cam_rows, st, salt_s, step0,
+                                   dims, cfg=cfg, k=mk, lean=lean)
+            step0, k = step0 + mk, k - mk
+        for step in range(step0, step0 + k):
+            st = routes.fused(hit_scene, cam_rows, st, salt_s, step, dims,
+                              cfg=cfg, lean=lean)
+        return st
+
+    kernel_tail = fused_tail if routes.tail_multi is not None else None
+
     lanes_np, quotas_np = shard_layout(h_virt, w, kpp, quota, d,
                                        quantum=cfg.compact_quantum,
                                        pad=not adaptive)
@@ -291,6 +309,8 @@ def render_image_persistent_sharded(scene, cam, cfg: RenderConfig, mesh,
         (``dims``) and salt."""
 
         def bounce(st, step):
+            # Below the floor only without ``kernel_tail``: do_steps sends
+            # every bounce at or below it there when the render has one.
             if st.pixel.shape[1] >= floor:
                 if routes.fused is not None:
                     return routes.fused(hit_scene, cam_rows, st, salt_s, step,
@@ -302,11 +322,19 @@ def render_image_persistent_sharded(scene, cam, cfg: RenderConfig, mesh,
                                    cfg=cfg, hit_fn=hit_fn, lean=lean)
 
         def do_steps(st, k, step):
-            # At or below the floor mk torch bounces at a time; above it,
-            # under multi_backend="fused", kernel B's k-bounce.  Binned
-            # scenes take single steps (a k-bounce would run on stale bins).
-            # Spans and counters go by route, as on one card.
+            # At or below the floor kernels B-multi and B (``kernel_tail``)
+            # where the render has them, else mk torch bounces at a time;
+            # above it, under multi_backend="fused", kernel B's k-bounce.
+            # Binned scenes take single steps (a k-bounce would run on stale
+            # bins).  Spans and counters go by route, as on one card.
             cur = st.pixel.shape[1]
+            if kernel_tail is not None and cur <= floor:
+                if k <= 0:
+                    return st, step
+                with span("persistent.bounce_tail"):
+                    st = kernel_tail(st, salt_s, step + 1, k, dims)
+                P.count_tail_fused(k)
+                return st, step + k
             if bin_box is None and k >= mk:
                 multi = None
                 if cur <= floor:
@@ -360,7 +388,8 @@ def render_image_persistent_sharded(scene, cam, cfg: RenderConfig, mesh,
             with span("persistent.one_shot"):
                 return P.p_render_oneshot(hit_scene, cam, st, salt_s, step,
                                           dims, max_s, cfg=cfg,
-                                          hit_fn=hit_fn, lean=lean)
+                                          hit_fn=hit_fn, lean=lean,
+                                          tail=kernel_tail)
 
         def staged_tail(st, accum, step, max_s):
             """Stages of p_render_until per rank, each ending at the alive
@@ -376,7 +405,8 @@ def render_image_persistent_sharded(scene, cam, cfg: RenderConfig, mesh,
                     target = 1 << (max(cur // 2, 1).bit_length() - 1)
                     st, stp, cnt = P.p_render_until(
                         hit_scene, cam, st, salt_s, step, target, dims,
-                        max_s, cfg=cfg, hit_fn=hit_fn, lean=lean)
+                        max_s, cfg=cfg, hit_fn=hit_fn, lean=lean,
+                        tail=kernel_tail)
                     with span("shard.lockstep"):
                         got = gather_ints([stp, cnt], mesh,
                                           gather=times.gather)    # [D, 2]

@@ -899,8 +899,9 @@ class _Routes(NamedTuple):
     hit_sky: object      # kernel E, or its plain version
     scatter: object      # kernel F, or its plain version (scatter "pallas")
     one_shot: str        # "chunk", "on", "staged" or "off"
-    # Kernel B's k-bounce at or below the single-card loop's floor, beside
-    # kernel B: wherever kernel B is, unless multi_backend="xla".
+    # Kernel B's k-bounce at or below the floor (the single-card loop's
+    # and the sharded driver's), beside kernel B: wherever kernel B is,
+    # unless multi_backend="xla".
     tail_multi: object = None
 
 
@@ -920,11 +921,12 @@ def resolve_routes(cfg: RenderConfig, hit_scene, device, *, h_virt: int,
     backend the same routes run with the plain versions at their ends.
 
     At or below the floor the reference resolves ``multi_backend`` "" to
-    "xla", the torch chain.  The single-card loop here runs kernel B's
-    k-bounce and kernel B there instead (``tail_multi``) wherever kernel B
-    is, unless "xla": the same bounces, bit for bit, in a fraction of the
-    launches.  ``multi`` stays the reference's, set under "fused" only: the
-    sharded driver reads it above its floor."""
+    "xla", the torch chain.  The single-card loop and the sharded driver
+    here run kernel B's k-bounce and kernel B there instead
+    (``tail_multi``) wherever kernel B is, unless "xla": the same bounces,
+    bit for bit, in a fraction of the launches.  ``multi`` stays the
+    reference's, set under "fused" only: the sharded driver reads it above
+    its floor."""
     from .kernels import bounce as B
     from .kernels import hit_sky as E
     from .kernels import scatter as F
