@@ -131,7 +131,7 @@ def test_binned_and_triangle_scenes_take_no_fused_route():
     routes = TP.resolve_routes(TC(multi_backend="fused"), object(), "cpu",
                                h_virt=32, kpp=1, bin_box=(0.0,) * 6)
     assert routes == TP._Routes(None, None, None, None, "off")
-    assert routes.tail_multi is None
+    assert routes.multi is None
 
 
 def _linear(scene, cam, cfg, spied=()):

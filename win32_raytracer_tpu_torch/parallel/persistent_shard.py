@@ -1,11 +1,11 @@
 """The persistent scheduler over a mesh of ranks
 (``win32_raytracer_tpu.parallel.persistent_shard``).
 
-Each rank runs the single-card scheduler's steps (persistent.py: the
-bounces of :func:`persistent.resolve_routes`, the compactors, the split,
-the bin sort, the one-shot and staged tails, the run-sum flush) on its
-own lanes; the host loop around them is the reference's sharded loop, in
-lockstep over the ranks.
+Each rank runs the single-card batch loop (``persistent._Loop``: the
+bounce routes, the compactors, the split, the bin sort, the one-shot and
+staged tails, the run-sum flush) on its own lanes.  This module owns what
+exists across ranks: the layout, the per-rank salts, floor and smallest
+batch, the lockstep reads and the rank-order reduce.
 
 Work assignment mirrors the reference's interleaved-block thread scheduler
 (win32-raytracer/RayTracer.cpp:973-978): rank b owns image row blocks b,
@@ -22,19 +22,13 @@ The only traffic between ranks:
   order on every rank (never an ``all_reduce``, whose order of f32 adds is
   the backend's), so a sharded render repeats bit for bit.
 
-Where the sharded loop differs from the single-card one, it follows the
-reference's sharded scheduler: the per-rank floor
-``max(_COMPACT_FLOOR // D, 1024)`` with 1024 lanes as the smallest batch;
-the fused bounce (kernel B) above the floor and, under
-``multi_backend="fused"``, k bounces per launch of kernel B above it; a
-batch that starts at or below the floor runs whole in the one-shot forms,
-also in the adaptive second phase; per-rank draw salts.  At or below the
-floor the reference takes the torch k-bounce; here, as in the single-card
-loop, every bounce there runs on kernels B-multi and B wherever the render
-has kernel B (``routes.tail_multi``: not under ``multi_backend="xla"``),
-the same bounces bit for bit in a fraction of the launches, and on the
-torch chain otherwise.  Like the reference's sharded scheduler
-it never reads ``redistribute`` and refuses ``adaptive_pool="on"``.
+Where the sharded loop differs from the single-card one (the arguments
+of ``persistent._Loop``), it follows the reference's sharded scheduler:
+the per-rank floor ``max(_COMPACT_FLOOR // D, 1024)`` with 1024 lanes as
+the smallest batch, kernel B-multi above the floor under "fused", kernel B
+for the single steps at the floor, and whole batches also in the adaptive
+second phase.  It never reads ``redistribute`` and refuses
+``adaptive_pool="on"``.
 """
 
 from __future__ import annotations
@@ -47,7 +41,7 @@ import torch
 from .. import persistent as P
 from ..adaptive import alloc_lanes
 from ..config import RenderConfig
-from ..scene.camera import Camera, default_camera
+from ..persistent import phase2_salt
 from ..utils import profiling
 from ..utils.profiling import span
 from .shard import (_on_host, all_gather, gather_ints, mesh_rank,
@@ -111,13 +105,7 @@ def shard_layout(h_virt: int, w: int, kpp: int, quota: int, d: int, *,
 def device_salts(seed: int, d: int) -> list:
     """Each rank's draw salt (the single-card chunk salt with the rank in
     place of the chunk's row)."""
-    return [(seed * 0x9E3779B1 ^ (b + 1) * 0x85EBCA77) & 0xFFFFFFFF
-            for b in range(d)]
-
-
-def phase2_salt(salt: int) -> int:
-    """The adaptive second phase's salt of a rank."""
-    return (salt * 0x85EBCA77 + 0x632BE5AB) & 0xFFFFFFFF
+    return [P.chunk_salt(seed, b) for b in range(d)]
 
 
 class LockstepTimes:
@@ -175,13 +163,13 @@ class LockstepTimes:
 
 def _start_counts(alive: torch.Tensor, mesh, gather=all_gather):
     """Start reading every rank's alive count; returns a callable that
-    waits for them ([D] int64, rank order).  As persistent._alive_count,
-    the read waits behind the bounces queued after this call: on a card
-    the local count (gloo) or the gathered counts (NCCL, on the card's
-    stream) are copied back behind an event.  ``gather`` is the
-    all-gather (:meth:`LockstepTimes.gather`)."""
+    waits for them: (this rank's count, the worst rank's).  As
+    persistent._alive_count, the read waits behind the bounces queued
+    after this call: on a card the local count (gloo) or the gathered
+    counts (NCCL, on the card's stream) are copied back behind an event.
+    ``gather`` is the all-gather (:meth:`LockstepTimes.gather`)."""
     cnt = alive.sum().reshape(1).to(torch.int64)
-    nccl = not _on_host(mesh)
+    nccl, b = not _on_host(mesh), mesh_rank(mesh)
     if nccl:
         cnt = torch.cat(gather(cnt, mesh))
     ready = None
@@ -190,14 +178,13 @@ def _start_counts(alive: torch.Tensor, mesh, gather=all_gather):
         ready = torch.cuda.Event()
         ready.record()
 
-    def read() -> np.ndarray:
+    def read():
         P.HOST_READS += 1
         with span("shard.lockstep"):
             if ready is not None:
                 ready.synchronize()
-            if nccl:
-                return cnt.numpy()
-            return torch.cat(gather(cnt, mesh)).numpy()
+            counts = (cnt if nccl else torch.cat(gather(cnt, mesh))).numpy()
+        return int(counts[b]), int(counts.max())
     return read
 
 
@@ -212,283 +199,41 @@ def render_image_persistent_sharded(scene, cam, cfg: RenderConfig, mesh,
     interleaved row blocks shard over the mesh; returns [F, H, W, 3].  An
     explicit rows ``hit_fn`` is called on ``scene`` as passed, as on one
     card."""
-    from ..kernels.bounce import pack_camera, pack_cameras, unpack_camera
-    from ..kernels.dispatch import get_hit_fn_rows_accel
-
-    P.check_supported(cfg, scene)
-    dev = rank_device(mesh)
-    d, b = mesh.size(), mesh_rank(mesh)
-    scene = scene.to(dev)
-    cams, n_frames = None, 1
-    if isinstance(cam, (list, tuple)) and not isinstance(cam, Camera):
-        cams = [c.to(dev) for c in cam]
-        n_frames = len(cams)
-        if n_frames == 0:
-            raise ValueError("empty camera list")
-        if n_frames == 1:
-            cam = cams[0]
-    if cam is None:
-        cam = default_camera(cfg.width, cfg.height, device=dev)
-    w, h, spp = cfg.width, cfg.height, cfg.samples
-    h_virt = h * n_frames
-    if n_frames > 1:
-        cam_rows = pack_cameras(cams)
-        cam = unpack_camera(cam_rows)
-    else:
-        cam = cam.to(dev)
-        cam_rows = pack_camera(cam)
-    own_hit_fn = hit_fn is not None
-    if own_hit_fn:
-        hit_scene = scene
-    else:
-        hit_scene, hit_fn = get_hit_fn_rows_accel(
-            cfg, scene, cams[0] if cams else cam)
-    bin_box = P._derive_bin_box(cfg, hit_scene)
-    if cfg.compact_quantum < 0:
-        raise ValueError(f"compact_quantum must be >= 0 (0 = auto), got "
-                         f"{cfg.compact_quantum}")
-    if not (cfg.compact_shrink == 0.0 or 0.0 < cfg.compact_shrink < 1.0):
-        raise ValueError(f"compact_shrink must be 0 (auto) or in (0, 1), "
-                         f"got {cfg.compact_shrink}")
-    shrink = cfg.compact_shrink or P._COMPACT_SHRINK
-    kpp = P._resolve_kpp(cfg, spp, n_frames, w * h)
-    quota = spp // kpp
-    adaptive = cfg.adaptive_alloc == "on"
-    if adaptive and not (kpp > 1 and spp > kpp and bin_box is None):
-        raise ValueError(
-            "adaptive_alloc='on' needs an unbinned render with "
-            "lanes_per_pixel > 1 and samples > lanes_per_pixel "
-            f"(got kpp={kpp}, samples={spp}, "
-            f"ray_binning={'active' if bin_box else 'off'})")
     if cfg.adaptive_pool == "on":
         # The pooled estimate needs a chunk's contiguous rows; a rank's
         # interleaved row blocks would pool across rows 8 apart.
         raise ValueError("adaptive_pool='on' is single-chip only")
-    if h_virt * w * kpp >= (1 << 29):
-        raise ValueError(
-            f"pixel-lane ids must stay below 2^29 "
-            f"(width*height*frames*lanes_per_pixel = {h_virt * w * kpp})")
-    # The bounce routes of one card (kernels B, E, F, B-multi and the hit
-    # functions), and the one-shot form ("auto": "chunk" unless a conflict).
-    routes = P.resolve_routes(cfg, hit_scene, dev, h_virt=h_virt, kpp=kpp,
-                              bin_box=bin_box, own_hit_fn=own_hit_fn)
-    lean = not (cfg.stratify and spp > 1) and not cfg.russian_roulette
-    mk = cfg.multi_k or P._MULTI_K
-    check_period = cfg.check_period or 8
-    min_lanes = _MIN_LANES
-    floor = max(P._COMPACT_FLOOR // d, min_lanes)
-    use_route = (cfg.compactor or "sort") == "route"
-    flush_mode = cfg.flush_mode or "scatter"
-
-    def fused_tail(st, salt_s, step0, k, dims):
-        """``k`` bounces at steps step0..step0+k-1 at or below the floor:
-        runs of ``mk`` on kernel B-multi, the rest on kernel B."""
-        while k >= mk:
-            st = routes.tail_multi(hit_scene, cam_rows, st, salt_s, step0,
-                                   dims, cfg=cfg, k=mk, lean=lean)
-            step0, k = step0 + mk, k - mk
-        for step in range(step0, step0 + k):
-            st = routes.fused(hit_scene, cam_rows, st, salt_s, step, dims,
-                              cfg=cfg, lean=lean)
-        return st
-
-    kernel_tail = fused_tail if routes.tail_multi is not None else None
-
-    lanes_np, quotas_np = shard_layout(h_virt, w, kpp, quota, d,
+    dev = rank_device(mesh)
+    d, b = mesh.size(), mesh_rank(mesh)
+    r = P._prepare(scene.to(dev), cam, cfg, hit_fn, dev)
+    w, h, spp, kpp = cfg.width, cfg.height, cfg.samples, r.kpp
+    lanes_np, quotas_np = shard_layout(r.h_virt, w, kpp, r.quota, d,
                                        quantum=cfg.compact_quantum,
-                                       pad=not adaptive)
+                                       pad=not r.adaptive)
     n_local = lanes_np.shape[1]
     lanes = torch.from_numpy(lanes_np[b]).to(dev)[None]
     quotas = torch.from_numpy(quotas_np[b]).to(dev)[None]
     salt = device_salts(cfg.seed, d)[b]
-    accum = torch.zeros((3, h_virt * w), dtype=torch.float32, device=dev)
+    accum = torch.zeros((3, r.h_virt * w), dtype=torch.float32, device=dev)
     times = LockstepTimes(mesh, dev)
 
-    def make_loop(dims, salt_s):
-        """The bounce, compaction and lockstep loop of one lane encoding
-        (``dims``) and salt."""
+    def stage_sync(step, cnt):
+        with span("shard.lockstep"):
+            got = gather_ints([step, cnt], mesh, gather=times.gather)
+        return int(got[:, 0].max()), int(got[:, 1].max())
 
-        def bounce(st, step):
-            # Below the floor only without ``kernel_tail``: do_steps sends
-            # every bounce at or below it there when the render has one.
-            if st.pixel.shape[1] >= floor:
-                if routes.fused is not None:
-                    return routes.fused(hit_scene, cam_rows, st, salt_s, step,
-                                        dims, cfg=cfg, lean=lean)
-                return P.split_bounce(routes, hit_scene, hit_fn, cam,
-                                      cam_rows, st, salt_s, step, dims,
-                                      cfg=cfg, lean=lean)
-            return P.p_bounce_step(hit_scene, cam, st, salt_s, step, dims,
-                                   cfg=cfg, hit_fn=hit_fn, lean=lean)
-
-        def do_steps(st, k, step):
-            # At or below the floor kernels B-multi and B (``kernel_tail``)
-            # where the render has them, else mk torch bounces at a time;
-            # above it, under multi_backend="fused", kernel B's k-bounce.
-            # Binned scenes take single steps (a k-bounce would run on stale
-            # bins).  Spans and counters go by route, as on one card.
-            cur = st.pixel.shape[1]
-            if kernel_tail is not None and cur <= floor:
-                if k <= 0:
-                    return st, step
-                with span("persistent.bounce_tail"):
-                    st = kernel_tail(st, salt_s, step + 1, k, dims)
-                P.count_tail_fused(k)
-                return st, step + k
-            if bin_box is None and k >= mk:
-                multi = None
-                if cur <= floor:
-                    def multi(st_, s):
-                        return P.p_bounce_multi_step(
-                            hit_scene, cam, st_, salt_s, s, dims, cfg=cfg,
-                            hit_fn=hit_fn, k=mk, lean=lean)
-                elif routes.multi is not None:
-                    def multi(st_, s):
-                        return routes.multi(hit_scene, cam_rows, st_, salt_s,
-                                            s, dims, cfg=cfg, k=mk,
-                                            lean=lean)
-                if multi is not None:
-                    tail = cur <= floor
-                    with span("persistent.bounce_tail" if tail
-                              else "persistent.bounce_kernel"):
-                        while k >= mk:
-                            st = multi(st, step + 1)
-                            (P.count_tail if tail else P.count_kernel)(mk,
-                                                                       cur)
-                            step += mk
-                            k -= mk
-            if k <= 0:
-                return st, step
-            tail = cur < floor
-            with span("persistent.bounce_tail" if tail
-                      else "persistent.bounce_kernel"):
-                for _ in range(k):
-                    step += 1
-                    if (bin_box is not None
-                            and (step - 1) % P._BIN_PERIOD == 0):
-                        st = P._bin_sort_core(st, box=bin_box)
-                    st = bounce(st, step)
-            (P.count_tail if tail else P.count_kernel)(k, cur)
-            return st, step
-
-        def compact(st, accum, k_new, tail_sorted=False, split=False):
-            profiling.count("persistent.compactions")
-            with span("persistent.compact"):
-                if use_route:
-                    st, accum = P._compact_route(st, accum, k_new=k_new,
-                                                 lanes_per_pixel=dims.kpp)
-                else:
-                    st, accum = P._compact(st, accum, k_new=k_new,
-                                           lanes_per_pixel=dims.kpp,
-                                           tail_sorted=tail_sorted,
-                                           flush=flush_mode)
-                return (P._split(st) if split else st), accum
-
-        def one_shot(st, step, max_s):
-            with span("persistent.one_shot"):
-                return P.p_render_oneshot(hit_scene, cam, st, salt_s, step,
-                                          dims, max_s, cfg=cfg,
-                                          hit_fn=hit_fn, lean=lean,
-                                          tail=kernel_tail)
-
-        def staged_tail(st, accum, step, max_s):
-            """Stages of p_render_until per rank, each ending at the alive
-            count's halving point; between stages a lockstep compact +
-            split sized by the worst rank.  Ranks part within a stage; all
-            re-enter at the latest exit step, so no rank repeats a draw."""
-            with span("persistent.staged"):
-                while step < max_s:
-                    cur = st.pixel.shape[1]
-                    if cur <= 2 * min_lanes:
-                        st = one_shot(st, step, max_s)
-                        break
-                    target = 1 << (max(cur // 2, 1).bit_length() - 1)
-                    st, stp, cnt = P.p_render_until(
-                        hit_scene, cam, st, salt_s, step, target, dims,
-                        max_s, cfg=cfg, hit_fn=hit_fn, lean=lean,
-                        tail=kernel_tail)
-                    with span("shard.lockstep"):
-                        got = gather_ints([stp, cnt], mesh,
-                                          gather=times.gather)    # [D, 2]
-                    step, worst = int(got[:, 0].max()), int(got[:, 1].max())
-                    if worst == 0 or step >= max_s:
-                        break
-                    st, accum = compact(st, accum, max(min_lanes,
-                                                       P._next_pow2(worst)),
-                                        split=True)
-                return st, accum
-
-        def run_loop(st, accum, first_check, max_s, state_sorted=False):
-            step = 0
-            cur = st.pixel.shape[1]
-            # A batch that starts at or below the floor never compacts:
-            # it runs whole (every rank on its own, no lockstep checks).
-            if routes.one_shot == "staged" and cur <= floor:
-                return staged_tail(st, accum, 0, max_s)
-            if routes.one_shot in ("on", "chunk") and cur <= floor:
-                return one_shot(st, 0, max_s), accum
-            period = check_period
-            last_alive = d * cur
-            while step < max_s:
-                next_check = (first_check if step < first_check
-                              else step + period)
-                st, step = do_steps(st, min(next_check, max_s) - step, step)
-                cur = st.pixel.shape[1]
-                # The counts are read behind a few optimistic bounces:
-                # alive only falls, so stale counts are upper bounds.
-                pending = _start_counts(st.path_alive, mesh, times.gather)
-                ov = 1 if cur >= (1 << 21) else (2 if cur >= (1 << 20) else 4)
-                st, step = do_steps(st, min(ov, max_s - step), step)
-                with span("persistent.count_read"):
-                    counts = pending()
-                profiling.count("persistent.alive_at_reads", counts[b])
-                profiling.count("persistent.width_at_reads", cur)
-                worst = int(counts.max())
-                if counts.sum() == 0:
-                    break
-                if cur < floor:
-                    period = max(32, check_period)
-                elif worst > 0.9 * last_alive:
-                    period = min(period * 2, max(32, check_period))
-                else:
-                    period = check_period
-                last_alive = worst
-                if cur <= floor:
-                    if routes.one_shot == "staged":
-                        return staged_tail(st, accum, step, max_s)
-                    k_new = max(min_lanes, P._next_pow2(worst))
-                    if k_new <= cur // 2:
-                        st, accum = compact(st, accum, k_new, split=True)
-                    if routes.one_shot == "on":
-                        return one_shot(st, step, max_s), accum
-                    continue
-                k_new = P._grid_size(worst, min_lanes, cfg.compact_quantum)
-                if k_new <= int(cur * shrink):
-                    st, accum = compact(st, accum, k_new,
-                                        tail_sorted=state_sorted)
-            return st, accum
-
-        return do_steps, run_loop
-
-    def respawn(st, dims, salt_s):
-        with span("persistent.respawn"):
-            return P.p_respawn_step(cam, st, salt_s, 0, dims, cfg=cfg,
-                                    lean=lean)
-
-    dims = P.make_dims(cfg, w, h, spp, kpp)
-    do_steps, run_loop = make_loop(dims, salt)
+    loop = P._Loop(
+        r, cfg, floor=max(P._COMPACT_FLOOR // d, _MIN_LANES),
+        min_lanes=_MIN_LANES, ranks=d, stage_sync=stage_sync,
+        start_count=lambda alive: _start_counts(alive, mesh, times.gather),
+        multi_above=cfg.multi_backend == "fused", floor_kernel=True)
     # The rank's lanes are its one chunk.
     with span("persistent.chunk"):
-        if adaptive:
+        if r.adaptive:
             # Phase 1, the prepass: quota 1 on every fresh lane (0 on the
-            # wrap pads), max_depth + 1 bounces with no count read; the
-            # final depth row, in lane order, is each sample's path length.
-            with span("persistent.prepass"):
-                st = P.fresh_state(lanes, lanes % kpp,
-                                   (quotas > 0).to(torch.int32))
-                st = respawn(st, dims, salt)
-                st, _ = do_steps(st, cfg.max_depth + 1, 0)
-                P._flush(accum, st.pixel[0] // kpp, st.radiance_sum)
+            # wrap pads).
+            st = loop.prepass((lanes, lanes % kpp,
+                               (quotas > 0).to(torch.int32)), accum, salt)
             # Phase 2: the rank's remaining samples on lanes allocated by
             # difficulty over its own pixels (wrap pads carry q_rest 0).
             est = st.depth[0].reshape(n_local // kpp, kpp).sum(
@@ -498,29 +243,18 @@ def render_image_persistent_sharded(scene, cam, cfg: RenderConfig, mesh,
             pix2, s_base2, s_quota2 = alloc_lanes(
                 est, n_lanes=n_local, spp_done=kpp, spp=spp,
                 kpp_max=cfg.kpp_max, pixel_ids=pix_ids, q_rest=q_rest)
-            salt2 = phase2_salt(salt)
-            dims2 = P.make_dims(cfg, w, h, spp, 1)
-            _, run_loop2 = make_loop(dims2, salt2)
-            st = respawn(P.fresh_state(pix2, s_base2, s_quota2), dims2, salt2)
-            spp_rest = spp - kpp
-            st, accum = run_loop2(st, accum,
-                                  spp_rest // min(cfg.kpp_max, spp_rest) + 2,
-                                  (spp_rest + 1) * (cfg.max_depth + 2))
-            with span("persistent.flush"):
-                P._flush(accum, st.pixel[0], st.radiance_sum)
+            salt = phase2_salt(salt)
+            accum = loop.run_batch((pix2, s_base2, s_quota2), accum, salt,
+                                   P._adaptive_phase(cfg, kpp), False,
+                                   whole=True)
         else:
-            st = respawn(P.fresh_state(lanes, (lanes % kpp) * quota, quotas),
-                         dims, salt)
             # Each rank's lanes start ascending; binning re-permutes them.
-            st, accum = run_loop(
-                st, accum, quota + 2, (quota + 1) * (cfg.max_depth + 2),
-                state_sorted=(bin_box is None
-                              and h_virt * w * kpp < P._SORT_PIX_LIM))
-            with span("persistent.flush"):
-                P._flush(accum, st.pixel[0] // kpp, st.radiance_sum)
+            accum = loop.run_batch((lanes, (lanes % kpp) * r.quota, quotas),
+                                   accum, salt, r.uniform, r.state_sorted,
+                                   whole=True)
 
     with span("shard.reduce"):
         total = sum_in_rank_order(all_gather(accum, mesh))
     times.publish(mesh)
-    out = P._div(total, spp).T.reshape(h_virt, w, 3)
-    return out if cams is None else out.reshape(n_frames, h, w, 3)
+    out = P._div(total, spp).T.reshape(r.h_virt, w, 3)
+    return out if r.cams is None else out.reshape(len(r.cams), h, w, 3)

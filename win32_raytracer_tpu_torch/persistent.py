@@ -10,6 +10,13 @@ the (dead, pixel) key onto the mantissa size grid, the dropped tail's
 radiance added into ``accum``), and below it splits unstarted samples onto
 clone lanes.
 
+This module holds the steps, the compactors and flushes, the route
+resolution, the render prelude (:func:`_prepare`) and the batch loop
+(:class:`_Loop`) of both entry points: the single-card one here, by rows
+(:func:`render_image_persistent`), and the sharded one over a mesh of
+ranks (parallel/persistent_shard.py), which passes its floor and lockstep
+in as data.
+
 The reference's opt-in knobs: ``compactor="route"`` (a stable partition
 by the alive bit, :func:`_route_partition`), ``flush_mode="window"``
 (:func:`_window_flush`), ``redistribute="on"`` (receiver lanes at
@@ -290,19 +297,6 @@ def count_tail(steps: int, width: int) -> None:
     count("persistent.lanes_tail", steps * width)
 
 
-def count_tail_fused(steps: int) -> None:
-    """Count ``steps`` bounces at or below the floor on kernels B-multi and
-    B."""
-    count("persistent.steps_tail_fused", steps)
-
-
-def count_kernel(steps: int, width: int) -> None:
-    """Count ``steps`` kernel-route bounces above the floor (kernel B,
-    B-multi, the split bounce) of ``width`` lanes."""
-    count("persistent.steps_kernel", steps)
-    count("persistent.lanes_kernel", steps * width)
-
-
 # p_render_oneshot reads the alive flag back once per this many bounces.
 _ONESHOT_SYNC = 8
 
@@ -319,7 +313,7 @@ def p_render_oneshot(scene, cam: Camera, st: PathState, salt,
     (one_shot="on") it takes over a chunk at ``step0`` from the host loop.
 
     ``tail(st, salt, step0, k, dims)``, where given, runs each group of
-    bounces on the kernels (the single-card loop's kernels B-multi and B);
+    bounces on the kernels (the batch loop's kernels B-multi and B);
     without it the bounces are :func:`p_bounce_step` calls."""
     step = step0
     while step < max_steps:
@@ -335,7 +329,7 @@ def p_render_oneshot(scene, cam: Camera, st: PathState, salt,
         if _alive_count(st.path_alive)() == 0:
             break
     if tail is not None:
-        count_tail_fused(step - step0)
+        count("persistent.steps_tail_fused", step - step0)
     else:
         count_tail(step - step0, st.pixel.shape[1])
     return st
@@ -368,7 +362,7 @@ def p_render_until(scene, cam: Camera, st: PathState, salt, step0: int,
             step += 1
             if tail is not None:
                 st = tail(st, salt, step, 1, dims)
-                count_tail_fused(1)
+                count("persistent.steps_tail_fused", 1)
             else:
                 st = p_bounce_step(scene, cam, st, salt, step, dims, cfg=cfg,
                                    hit_fn=hit_fn, lean=lean)
@@ -418,6 +412,8 @@ def _resolve_kpp(cfg: RenderConfig, spp: int, n_frames: int = 1,
 _GRID_STEPS_LOG2 = 4
 _COMPACT_SHRINK = 0.90       # compact when the grid size <= this x batch
 _COMPACT_FLOOR = 1 << 19     # at/below: never compact above-floor style
+# The smallest batch one card compacts to (a rank's: persistent_shard.py).
+_MIN_LANES = 1 << 12
 # The dead bit rides at this weight in the int32 (dead, pixel) sort key.
 _SORT_PIX_LIM = 1 << 30
 
@@ -894,15 +890,10 @@ class _Routes(NamedTuple):
     render's routes)."""
 
     fused: object        # kernel B, or its plain version
-    multi: object        # kernel B's k-bounce above the sharded driver's
-    #                      floor, under multi_backend="fused"
+    multi: object        # kernel B-multi, k bounces per launch
     hit_sky: object      # kernel E, or its plain version
     scatter: object      # kernel F, or its plain version (scatter "pallas")
     one_shot: str        # "chunk", "on", "staged" or "off"
-    # Kernel B's k-bounce at or below the floor (the single-card loop's
-    # and the sharded driver's), beside kernel B: wherever kernel B is,
-    # unless multi_backend="xla".
-    tail_multi: object = None
 
 
 def resolve_routes(cfg: RenderConfig, hit_scene, device, *, h_virt: int,
@@ -920,13 +911,12 @@ def resolve_routes(cfg: RenderConfig, hit_scene, device, *, h_virt: int,
     keeps the routes of the two packages the same).  Under the "jnp"
     backend the same routes run with the plain versions at their ends.
 
-    At or below the floor the reference resolves ``multi_backend`` "" to
-    "xla", the torch chain.  The single-card loop and the sharded driver
-    here run kernel B's k-bounce and kernel B there instead
-    (``tail_multi``) wherever kernel B is, unless "xla": the same bounces,
-    bit for bit, in a fraction of the launches.  ``multi`` stays the
-    reference's, set under "fused" only: the sharded driver reads it above
-    its floor."""
+    Kernel B-multi (``multi``) is set wherever kernel B is, unless
+    ``multi_backend="xla"``.  At or below the floor the reference resolves
+    "" to "xla", the torch chain; the batch loop (:class:`_Loop`) runs
+    kernels B-multi and B there instead: the same bounces, bit for bit, in
+    a fraction of the launches.  Above the floor only the sharded scheduler
+    runs it, under "fused", as the reference's sharded scheduler does."""
     from .kernels import bounce as B
     from .kernels import hit_sky as E
     from .kernels import scatter as F
@@ -953,14 +943,11 @@ def resolve_routes(cfg: RenderConfig, hit_scene, device, *, h_virt: int,
             f"{h_virt * w})")
     v7 = (not own_hit_fn and isinstance(hit_scene, SphereTable)
           and cfg.hit_kernel in ("auto", "v7"))
-    fused = multi = tail_multi = None
+    fused = multi = None
     if v7 and fuse_wanted:
         fused = B.bounce if kernels else B.bounce_plain
-        k_bounce = B.bounce_multi if kernels else B.bounce_multi_plain
-        if cfg.multi_backend == "fused":
-            multi = k_bounce
         if cfg.multi_backend != "xla":
-            tail_multi = k_bounce
+            multi = B.bounce_multi if kernels else B.bounce_multi_plain
     elif cfg.fuse_bounce == "on":
         raise ValueError(
             "fuse_bounce='on' requires the fused bounce kernel, which needs "
@@ -986,23 +973,7 @@ def resolve_routes(cfg: RenderConfig, hit_scene, device, *, h_virt: int,
                          + ", ".join(conflicts))
     if one_shot == "auto":
         one_shot = "off" if conflicts else "chunk"
-    return _Routes(fused, multi, hit_sky, scatter, one_shot, tail_multi)
-
-
-def split_bounce(routes: _Routes, hit_scene, hit_fn, cam: Camera, cam_rows,
-                 st: PathState, salt, step, dims: Dims, *, cfg: RenderConfig,
-                 lean: bool = False) -> PathState:
-    """An above-floor bounce with no fused kernel: hit (+ sky: kernel E,
-    or the hit function), then scatter + respawn (kernel F, or torch)."""
-    if routes.hit_sky is not None:
-        rec, st = routes.hit_sky(hit_scene, st, cfg=cfg)
-    else:
-        rec, st = p_hit_step(hit_scene, st, cfg=cfg, hit_fn=hit_fn)
-    if routes.scatter is not None:
-        return routes.scatter(cam_rows, st, rec, salt, step, dims, cfg=cfg,
-                              lean=lean)
-    return p_scatter_respawn_step(cam, st, rec, salt, step, dims, cfg=cfg,
-                                  lean=lean)
+    return _Routes(fused, multi, hit_sky, scatter, one_shot)
 
 
 def fresh_state(pixel: torch.Tensor, s_base: torch.Tensor,
@@ -1038,6 +1009,26 @@ class _Phase(NamedTuple):
     max_steps: int
 
 
+def _adaptive_phase(cfg: RenderConfig, kpp: int) -> _Phase:
+    """The adaptive second phase's batch: the samples left after the
+    prepass's ``kpp``, on raw pixel ids."""
+    rest = cfg.samples - kpp
+    return _Phase(make_dims(cfg, cfg.width, cfg.height, cfg.samples, 1),
+                  rest // min(cfg.kpp_max, rest) + 2,
+                  (rest + 1) * (cfg.max_depth + 2))
+
+
+def chunk_salt(seed: int, y0: int) -> int:
+    """The draw salt of the chunk that starts at row ``y0`` (a rank's: its
+    rank in place of ``y0``)."""
+    return (seed * 0x9E3779B1 ^ (y0 + 1) * 0x85EBCA77) & 0xFFFFFFFF
+
+
+def phase2_salt(salt: int) -> int:
+    """The adaptive second phase's salt of a chunk or rank."""
+    return (salt * 0x85EBCA77 + 0x632BE5AB) & 0xFFFFFFFF
+
+
 def _pool_est(est: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """``adaptive_pool="on"``'s transform of the prepass estimate over the
     chunk's (rows, width): max(raw, 3x3 box mean)^1.2, the box over an edge
@@ -1049,6 +1040,414 @@ def _pool_est(est: torch.Tensor, h: int, w: int) -> torch.Tensor:
                                   mode="replicate")[0, 0]
     box = sum(pad[dy:dy + h, dx:dx + w] for dy in range(3) for dx in range(3))
     return torch.pow(torch.maximum(img, _div(box, 9)), 1.2).reshape(-1)
+
+
+class _Render(NamedTuple):
+    """What :func:`_prepare` resolved for one render, for either entry."""
+
+    cam: Camera             # frame-stacked for a list of cameras
+    cams: Optional[list]    # the list of cameras, or None
+    cam_rows: torch.Tensor  # ``cam`` packed for the kernels
+    h_virt: int             # height * frames
+    hit_scene: object
+    hit_fn: object
+    bin_box: Optional[tuple]
+    kpp: int
+    quota: int
+    adaptive: bool
+    routes: _Routes
+    uniform: _Phase         # the uniform layout's encoding and limits
+    state_sorted: bool      # lanes stay in ascending pixel order
+
+
+def _prepare(scene, cam, cfg: RenderConfig, hit_fn, device) -> _Render:
+    """Resolve a render of ``scene`` (on ``device``) for either entry: the
+    cameras (a LIST renders its frames as one virtual image of F * height
+    rows, :func:`render_image_persistent`), the hit scene, the bin box,
+    the lanes per pixel, the routes, and the checks on ``cfg``."""
+    from .kernels.bounce import pack_camera, pack_cameras, unpack_camera
+    from .kernels.dispatch import get_hit_fn_rows_accel
+
+    check_supported(cfg, scene)
+    cams, n_frames = None, 1
+    if isinstance(cam, (list, tuple)) and not isinstance(cam, Camera):
+        cams = [c.to(device) for c in cam]
+        n_frames = len(cams)
+        if n_frames == 0:
+            raise ValueError("empty camera list")
+        if n_frames == 1:
+            cam = cams[0]
+    if cam is None:
+        cam = default_camera(cfg.width, cfg.height)
+    w, h, spp = cfg.width, cfg.height, cfg.samples
+    h_virt = h * n_frames   # frames stack as a taller image
+    if n_frames > 1:
+        cam_rows = pack_cameras(cams)
+        cam = unpack_camera(cam_rows)
+    else:
+        cam = cam.to(device)
+        cam_rows = pack_camera(cam)
+    # The hit scene: the sphere table or grid, the triangle table or grid,
+    # or a composite of those (kernels/dispatch.py).  A caller's hit
+    # function is called on ``scene`` as passed.
+    own_hit_fn = hit_fn is not None
+    if own_hit_fn:
+        hit_scene = scene
+    else:
+        hit_scene, hit_fn = get_hit_fn_rows_accel(
+            cfg, scene, cams[0] if cams else cam)
+    bin_box = _derive_bin_box(cfg, hit_scene)
+
+    if cfg.compact_quantum < 0:
+        raise ValueError(f"compact_quantum must be >= 0 (0 = auto), got "
+                         f"{cfg.compact_quantum}")
+    if not (cfg.compact_shrink == 0.0 or 0.0 < cfg.compact_shrink < 1.0):
+        raise ValueError(f"compact_shrink must be 0 (auto) or in (0, 1), "
+                         f"got {cfg.compact_shrink}")
+    kpp = _resolve_kpp(cfg, spp, n_frames, w * h)
+    if h_virt * w * kpp >= (1 << 29):
+        raise ValueError(
+            f"pixel-lane ids must stay below 2^29 "
+            f"(width*height*frames*lanes_per_pixel = {h_virt * w * kpp})")
+    # Difficulty-adaptive allocation (adaptive.py): a quota-1 prepass
+    # measures each pixel's path length, then the remaining samples run on
+    # lanes allocated by it, raw pixel ids (the replicas live in s_base and
+    # s_quota).
+    adaptive = (cfg.adaptive_alloc == "on" and kpp > 1 and spp > kpp
+                and bin_box is None)
+    if cfg.adaptive_alloc == "on" and not adaptive:
+        raise ValueError(
+            "adaptive_alloc='on' needs an unbinned render with "
+            "lanes_per_pixel > 1 and samples > lanes_per_pixel "
+            f"(got kpp={kpp}, samples={spp}, "
+            f"ray_binning={'active' if bin_box else 'off'})")
+    if cfg.adaptive_pool not in ("auto", "on", "off"):
+        raise ValueError(
+            f"adaptive_pool must be auto|on|off, got {cfg.adaptive_pool!r}")
+    routes = resolve_routes(cfg, hit_scene, device, h_virt=h_virt, kpp=kpp,
+                            bin_box=bin_box, own_hit_fn=own_hit_fn)
+    quota = spp // kpp
+    return _Render(
+        cam, cams, cam_rows, h_virt, hit_scene, hit_fn, bin_box, kpp, quota,
+        adaptive, routes,
+        uniform=_Phase(make_dims(cfg, w, h, spp, kpp), quota + 2,
+                       (quota + 1) * (cfg.max_depth + 2)),
+        # Binning breaks the pixel order the argsort-free flush needs.
+        state_sorted=bin_box is None and h_virt * w * kpp < _SORT_PIX_LIM)
+
+
+def _count_one(alive: torch.Tensor):
+    """One card's alive-count read (:func:`_alive_count`): a callable that
+    waits for (the batch's count, the worst count), the same number."""
+    read = _alive_count(alive)
+    return lambda: (read(),) * 2
+
+
+class _Loop:
+    """The persistent batch loop of one render, for either entry: the
+    bounce stepper (the route rule and the bin sort), the compaction
+    engine, the one-shot and staged tails, and the check / compact / split
+    loop.  The sharded entry passes what differs across ranks: its
+    ``floor`` and ``min_lanes`` (one card's: ``_COMPACT_FLOOR`` and
+    ``_MIN_LANES``); the ``ranks`` in lockstep (the first plateau test
+    reads ``ranks`` times the batch); ``start_count(alive)``, which starts
+    the count read and returns a callable that waits for (this rank's
+    count, the worst rank's); ``stage_sync(step, count)``, (the latest
+    step, the worst count) after a stage of the staged tail;
+    ``multi_above``, kernel B-multi above the floor too (under
+    ``multi_backend="fused"``); and ``floor_kernel``, the reference's rule
+    that a batch of exactly ``floor`` lanes with no kernel tail takes
+    kernel B or the split bounce for the single steps after its torch
+    k-bounces.  ``receivers`` (redistribute="on") is one card's."""
+
+    def __init__(self, r: _Render, cfg: RenderConfig, *, floor: int,
+                 min_lanes: int, ranks: int = 1, start_count=_count_one,
+                 stage_sync=None, receivers: bool = False,
+                 multi_above: bool = False, floor_kernel: bool = False):
+        self.r, self.cfg = r, cfg
+        self.floor, self.min_lanes, self.ranks = floor, min_lanes, ranks
+        self.start_count = start_count
+        self.stage_sync = stage_sync or (lambda step, cnt: (step, cnt))
+        self.receivers = receivers
+        self.multi_above, self.floor_kernel = multi_above, floor_kernel
+        # A flag: the bound method kept here would be a reference cycle.
+        self.has_tail = r.routes.multi is not None
+        self.use_route = (cfg.compactor or "sort") == "route"
+        self.flush_mode = cfg.flush_mode or "scatter"
+        self.check_period = cfg.check_period or 8
+        self.mk = cfg.multi_k or _MULTI_K
+        self.shrink = cfg.compact_shrink or _COMPACT_SHRINK
+        # Stratify off and roulette off are identities the steps can drop.
+        self.lean = (not (cfg.stratify and cfg.samples > 1)
+                     and not cfg.russian_roulette)
+
+    def fused_tail(self, st, salt, step0, k, dims):
+        """``k`` bounces at steps step0..step0+k-1: runs of ``mk`` on kernel
+        B-multi, the rest on kernel B."""
+        r, cfg = self.r, self.cfg
+        while k >= self.mk:
+            st = r.routes.multi(r.hit_scene, r.cam_rows, st, salt, step0, dims,
+                                cfg=cfg, k=self.mk, lean=self.lean)
+            step0, k = step0 + self.mk, k - self.mk
+        for step in range(step0, step0 + k):
+            st = r.routes.fused(r.hit_scene, r.cam_rows, st, salt, step, dims,
+                                cfg=cfg, lean=self.lean)
+        return st
+
+    def do_steps(self, st, k, step, salt, dims):
+        """``k`` bounces after ``step``; returns (state, step).  Above the
+        floor: kernel B or the split bounce (:meth:`_kernel_steps`).  At or
+        below it: kernels B-multi and B (:meth:`fused_tail`) where the
+        render has them, else the torch chain (:meth:`_torch_steps`), which
+        ``floor_kernel`` parts at the floor.  Spans go by the floor (every
+        bounce at or below it is "persistent.bounce_tail"), counters by
+        route: kernel B, B-multi and the split bounce above the floor are
+        "kernel", kernels below it "tail_fused", the torch steps "tail"."""
+        if k <= 0:
+            return st, step
+        width = st.pixel.shape[1]
+        if width > self.floor:
+            return self._kernel_steps(st, k, step, salt, dims)
+        if self.has_tail:
+            with span("persistent.bounce_tail"):
+                st = self.fused_tail(st, salt, step + 1, k, dims)
+                count("persistent.steps_tail_fused", k)
+            return st, step + k
+        if self.floor_kernel and width == self.floor:
+            n = 0 if self.r.bin_box is not None else k - k % self.mk
+            if n:
+                st, step = self._torch_steps(st, n, step, salt, dims)
+            if n == k:
+                return st, step
+            return self._kernel_steps(st, k - n, step, salt, dims)
+        return self._torch_steps(st, k, step, salt, dims)
+
+    def _bin(self, st, step):
+        """The bin sort before bounce ``step`` of a binned render."""
+        box = self.r.bin_box
+        if box is not None and (step - 1) % _BIN_PERIOD == 0:
+            st = _bin_sort_core(st, box=box)
+        return st
+
+    def _kernel_steps(self, st, k, step, salt, dims):
+        """``k`` single steps of kernel B, or the split bounce; under
+        ``multi_above`` kernels B-multi and B."""
+        r, cfg, width = self.r, self.cfg, st.pixel.shape[1]
+        with span("persistent.bounce_kernel"):
+            if self.multi_above and self.has_tail:
+                st = self.fused_tail(st, salt, step + 1, k, dims)
+            else:
+                for s in range(step + 1, step + k + 1):
+                    st = self._bin(st, s)
+                    if r.routes.fused is not None:
+                        st = r.routes.fused(r.hit_scene, r.cam_rows, st, salt,
+                                            s, dims, cfg=cfg, lean=self.lean)
+                    else:
+                        st = self._split_bounce(st, salt, s, dims)
+        count("persistent.steps_kernel", k)
+        count("persistent.lanes_kernel", k * width)
+        return st, step + k
+
+    def _split_bounce(self, st, salt, step, dims):
+        """An above-floor bounce with no fused kernel: hit (+ sky: kernel
+        E, or the hit function), then scatter + respawn (kernel F, or
+        torch)."""
+        r, cfg = self.r, self.cfg
+        if r.routes.hit_sky is not None:
+            rec, st = r.routes.hit_sky(r.hit_scene, st, cfg=cfg)
+        else:
+            rec, st = p_hit_step(r.hit_scene, st, cfg=cfg, hit_fn=r.hit_fn)
+        if r.routes.scatter is not None:
+            return r.routes.scatter(r.cam_rows, st, rec, salt, step, dims,
+                                    cfg=cfg, lean=self.lean)
+        return p_scatter_respawn_step(r.cam, st, rec, salt, step, dims,
+                                      cfg=cfg, lean=self.lean)
+
+    def _torch_steps(self, st, k, step, salt, dims):
+        """``k`` bounces of the torch chain: ``mk`` at a time when unbinned
+        (a k-bounce would run on stale bins), then single steps."""
+        r, cfg = self.r, self.cfg
+        with span("persistent.bounce_tail"):
+            count_tail(k, st.pixel.shape[1])
+            if r.bin_box is None:
+                while k >= self.mk:
+                    st = p_bounce_multi_step(r.hit_scene, r.cam, st, salt,
+                                             step + 1, dims, cfg=cfg,
+                                             hit_fn=r.hit_fn, k=self.mk,
+                                             lean=self.lean)
+                    step, k = step + self.mk, k - self.mk
+            for _ in range(k):
+                step += 1
+                st = p_bounce_step(r.hit_scene, r.cam, self._bin(st, step),
+                                   salt, step, dims, cfg=cfg, hit_fn=r.hit_fn,
+                                   lean=self.lean)
+        return st, step
+
+    def respawn(self, st, salt, dims):
+        with span("persistent.respawn"):
+            return p_respawn_step(self.r.cam, st, salt, 0, dims, cfg=self.cfg,
+                                  lean=self.lean)
+
+    def compact(self, st, accum, ph, *, k_new, tail_sorted=False,
+                n_receivers=0, split=False):
+        """The compaction engine (cfg.compactor): the route compactor puts
+        the live lanes where the sort compactor does, so it is a cost knob;
+        receiver events keep the sort engine.  ``split`` then halves the
+        sample tails onto clone lanes (:func:`_split`)."""
+        kpp = ph.dims.kpp
+        count("persistent.compactions")
+        with span("persistent.compact"):
+            if self.use_route and n_receivers == 0:
+                st, accum = _compact_route(st, accum, k_new=k_new,
+                                           lanes_per_pixel=kpp)
+            else:
+                st, accum = _compact(st, accum, k_new=k_new,
+                                     lanes_per_pixel=kpp,
+                                     tail_sorted=tail_sorted,
+                                     n_receivers=n_receivers,
+                                     flush=self.flush_mode)
+            return (_split(st) if split else st), accum
+
+    def _tail(self):
+        return self.fused_tail if self.has_tail else None
+
+    def one_shot(self, st, salt, step, ph):
+        r = self.r
+        with span("persistent.one_shot"):
+            return p_render_oneshot(r.hit_scene, r.cam, st, salt, step,
+                                    ph.dims, ph.max_steps, cfg=self.cfg,
+                                    hit_fn=r.hit_fn, lean=self.lean,
+                                    tail=self._tail())
+
+    def staged(self, st, accum, step, salt, ph):
+        """The staged tail (one_shot="staged"): p_render_until stages that
+        end when the alive count reaches the power of two at or below half
+        the batch (where the host loop's compact + split first fires), each
+        followed by that compact + split, sized by the worst rank; a batch
+        of 2 * min_lanes or less runs to its end as one shot.  Ranks part
+        within a stage; all re-enter at the latest exit step
+        (``stage_sync``), so no rank repeats a draw."""
+        r = self.r
+        with span("persistent.staged"):
+            while step < ph.max_steps:
+                cur = st.pixel.shape[1]
+                if cur <= 2 * self.min_lanes:
+                    st = self.one_shot(st, salt, step, ph)
+                    break
+                target = 1 << (max(cur // 2, 1).bit_length() - 1)
+                st, step, n_alive = p_render_until(
+                    r.hit_scene, r.cam, st, salt, step, target, ph.dims,
+                    ph.max_steps, cfg=self.cfg, hit_fn=r.hit_fn,
+                    lean=self.lean, tail=self._tail())
+                step, worst = self.stage_sync(step, n_alive)
+                if worst == 0 or step >= ph.max_steps:
+                    break
+                k_new = max(self.min_lanes, _next_pow2(worst))
+                st, accum = self.compact(st, accum, ph, k_new=k_new,
+                                         split=True)
+            return st, accum
+
+    def prepass(self, lanes, accum, salt, ascending=False):
+        """The adaptive prepass: quota-1 ``lanes`` (pixel, s_base and
+        s_quota rows) run max_depth + 1 bounces, within which every path
+        ends, with no count read and no compaction, and their radiance is
+        flushed into ``accum``.  Returns the final state: its depth row, in
+        lane order, is each sample's path length."""
+        dims = self.r.uniform.dims
+        with span("persistent.prepass"):
+            st = self.respawn(fresh_state(*lanes), salt, dims)
+            st, _ = self.do_steps(st, self.cfg.max_depth + 1, 0, salt, dims)
+            _flush(accum, st.pixel[0] // dims.kpp, st.radiance_sum,
+                   ascending=ascending)
+        return st
+
+    def run_batch(self, lanes, accum, salt, ph, state_sorted, whole):
+        """One lane batch from fresh ``lanes`` (pixel, s_base and s_quota
+        rows) to its end (:meth:`run_loop`); returns ``accum`` with the
+        batch's radiance flushed into it."""
+        st = self.respawn(fresh_state(*lanes), salt, ph.dims)
+        st, accum = self.run_loop(st, accum, salt, ph, state_sorted, whole)
+        with span("persistent.flush"):
+            return _flush(accum, st.pixel[0] // ph.dims.kpp, st.radiance_sum)
+
+    def run_loop(self, st, accum, salt, ph, state_sorted, whole):
+        """The check / compact / split loop for one lane batch.  ``whole``:
+        a batch that starts at or below the floor runs whole in the one-shot
+        forms.  Under one_shot "on" or "staged" the batch's tail below the
+        floor goes to the finisher or the stages."""
+        r, cfg, floor = self.r, self.cfg, self.floor
+        one_shot = r.routes.one_shot
+        cur = st.pixel.shape[1]
+        if whole and cur <= floor:
+            if one_shot == "staged":
+                return self.staged(st, accum, 0, salt, ph)
+            if one_shot in ("chunk", "on"):
+                return self.one_shot(st, salt, 0, ph), accum
+        step = 0
+        period = self.check_period
+        last_alive = self.ranks * cur
+        first_check, max_steps = ph.first_check, ph.max_steps
+        while step < max_steps:
+            next_check = first_check if step < first_check else step + period
+            st, step = self.do_steps(st, min(next_check, max_steps) - step,
+                                     step, salt, ph.dims)
+            cur = st.pixel.shape[1]
+            # Read the counts behind a few optimistic bounces: alive is
+            # monotone within a batch, so stale counts are upper bounds.
+            pending = self.start_count(st.path_alive)
+            ov = 1 if cur >= (1 << 21) else (2 if cur >= (1 << 20) else 4)
+            st, step = self.do_steps(st, min(ov, max_steps - step), step,
+                                     salt, ph.dims)
+            with span("persistent.count_read"):
+                n_alive, worst = pending()
+            count("persistent.alive_at_reads", n_alive)
+            count("persistent.width_at_reads", cur)
+            if worst == 0:
+                break
+            # Back off while the alive count plateaus.
+            if cur < floor:
+                period = max(32, self.check_period)
+            elif worst > 0.9 * last_alive:
+                period = min(period * 2, max(32, self.check_period))
+            else:
+                period = self.check_period
+            last_alive = worst
+            if cur <= floor:
+                if one_shot == "staged":
+                    return self.staged(st, accum, step, salt, ph)
+                # Bounce cost no longer shrinks with the batch: drop dead
+                # lanes and halve the sequential sample tails instead.
+                k_new = max(self.min_lanes, _next_pow2(worst))
+                if k_new <= cur // 2:
+                    st, accum = self.compact(st, accum, ph, k_new=k_new,
+                                             split=True)
+                if one_shot == "on":
+                    # The tail finisher: the rest of the batch with no
+                    # compaction and no count read but its own.
+                    return self.one_shot(st, salt, step, ph), accum
+                continue
+            # Above the floor: compact on a shrink.  Under redistribute
+            # "on" the batch overshoots so that its spare dead lanes adopt
+            # donors' unstarted samples (after which the pixel order is
+            # gone).
+            k_base = _grid_size(worst, self.min_lanes, cfg.compact_quantum)
+            if k_base <= int(cur * self.shrink):
+                k_new, n_recv = k_base, 0
+                if self.receivers:
+                    k_new = min(_grid_size(int(worst * _RECV_OVERSHOOT),
+                                           self.min_lanes,
+                                           cfg.compact_quantum), cur)
+                    spare = k_new - worst
+                    if spare >= _RECV_MIN:
+                        n_recv = min(1 << (spare.bit_length() - 1), k_new // 2)
+                    else:
+                        k_new = k_base
+                st, accum = self.compact(st, accum, ph, k_new=k_new,
+                                         tail_sorted=state_sorted,
+                                         n_receivers=n_recv)
+                if n_recv:
+                    state_sorted = False
+        return st, accum
 
 
 @profiling.render_entry("persistent.render")
@@ -1075,80 +1474,13 @@ def render_image_persistent(scene: Scene, cam, cfg: RenderConfig,
     Multi-frame batches: a LIST of cameras renders len(cam) frames in one
     batch, a virtual image of F * height rows with one camera per frame;
     returns [F, H, W, 3].  A list of one camera renders as that camera."""
-    from .kernels.bounce import pack_camera, pack_cameras, unpack_camera
-    from .kernels.dispatch import get_hit_fn_rows_accel
-
-    check_supported(cfg, scene)
     device = scene.device
-    cams, n_frames = None, 1
-    if isinstance(cam, (list, tuple)) and not isinstance(cam, Camera):
-        cams = [c.to(device) for c in cam]
-        n_frames = len(cams)
-        if n_frames == 0:
-            raise ValueError("empty camera list")
-        if n_frames == 1:
-            cam = cams[0]
-    if cam is None:
-        cam = default_camera(cfg.width, cfg.height)
+    r = _prepare(scene, cam, cfg, hit_fn, device)
     w, h, spp = cfg.width, cfg.height, cfg.samples
-    h_virt = h * n_frames   # frames stack as a taller image
-    if n_frames > 1:
-        cam_rows = pack_cameras(cams)
-        cam = unpack_camera(cam_rows)
-    else:
-        cam = cam.to(device)
-        cam_rows = pack_camera(cam)
-    # The hit scene: the sphere table or grid, the triangle table or grid,
-    # or a composite of those (kernels/dispatch.py).
-    own_hit_fn = hit_fn is not None
-    if own_hit_fn:
-        hit_scene = scene
-    else:
-        hit_scene, hit_fn = get_hit_fn_rows_accel(
-            cfg, scene, cams[0] if cams else cam)
-    bin_box = _derive_bin_box(cfg, hit_scene)
-
-    if cfg.compact_quantum < 0:
-        raise ValueError(f"compact_quantum must be >= 0 (0 = auto), got "
-                         f"{cfg.compact_quantum}")
-    if not (cfg.compact_shrink == 0.0 or 0.0 < cfg.compact_shrink < 1.0):
-        raise ValueError(f"compact_shrink must be 0 (auto) or in (0, 1), "
-                         f"got {cfg.compact_shrink}")
-    shrink = cfg.compact_shrink or _COMPACT_SHRINK
-    kpp = _resolve_kpp(cfg, spp, n_frames, w * h)
+    kpp, h_virt = r.kpp, r.h_virt
+    loop = _Loop(r, cfg, floor=_COMPACT_FLOOR, min_lanes=_MIN_LANES,
+                 receivers=cfg.redistribute == "on")
     rows = max(1, min(h_virt, cfg.rays_per_chunk // max(1, w * kpp)))
-    # Stratify off and roulette off are identities the steps can drop.
-    lean = not (cfg.stratify and spp > 1) and not cfg.russian_roulette
-    if h_virt * w * kpp >= (1 << 29):
-        raise ValueError(
-            f"pixel-lane ids must stay below 2^29 "
-            f"(width*height*frames*lanes_per_pixel = {h_virt * w * kpp})")
-    # Difficulty-adaptive allocation (adaptive.py): a quota-1 prepass
-    # measures each pixel's path length, then the remaining samples run on
-    # lanes allocated by it, raw pixel ids (the replicas live in s_base and
-    # s_quota).
-    adaptive = (cfg.adaptive_alloc == "on" and kpp > 1 and spp > kpp
-                and bin_box is None)
-    if cfg.adaptive_alloc == "on" and not adaptive:
-        raise ValueError(
-            "adaptive_alloc='on' needs an unbinned render with "
-            "lanes_per_pixel > 1 and samples > lanes_per_pixel "
-            f"(got kpp={kpp}, samples={spp}, "
-            f"ray_binning={'active' if bin_box else 'off'})")
-    if cfg.adaptive_pool not in ("auto", "on", "off"):
-        raise ValueError(
-            f"adaptive_pool must be auto|on|off, got {cfg.adaptive_pool!r}")
-    routes = resolve_routes(cfg, hit_scene, device, h_virt=h_virt, kpp=kpp,
-                            bin_box=bin_box, own_hit_fn=own_hit_fn)
-    quota = spp // kpp
-    check_period = cfg.check_period or 8
-    min_lanes = 1 << 12
-    mk = cfg.multi_k or _MULTI_K
-    # The uniform layout's lane encoding and step limits; the adaptive
-    # phase 2 makes its own (_Phase).
-    uniform = _Phase(make_dims(cfg, w, h, spp, kpp), quota + 2,
-                     (quota + 1) * (cfg.max_depth + 2))
-
     if resume_accum is not None:
         accum = torch.as_tensor(resume_accum, dtype=torch.float32,
                                 device=device).clone()
@@ -1158,260 +1490,48 @@ def render_image_persistent(scene: Scene, cam, cfg: RenderConfig,
     else:
         accum = torch.zeros((3, h_virt * w), dtype=torch.float32,
                             device=device)
-    use_route = (cfg.compactor or "sort") == "route"
-    flush_mode = cfg.flush_mode or "scatter"
-
-    def fused_tail(st, salt, step0, k, dims):
-        """``k`` bounces at steps step0..step0+k-1 at or below the floor:
-        runs of ``mk`` on kernel B-multi, the rest on kernel B."""
-        while k >= mk:
-            st = routes.tail_multi(hit_scene, cam_rows, st, salt, step0, dims,
-                                   cfg=cfg, k=mk, lean=lean)
-            step0, k = step0 + mk, k - mk
-        for step in range(step0, step0 + k):
-            st = routes.fused(hit_scene, cam_rows, st, salt, step, dims,
-                              cfg=cfg, lean=lean)
-        return st
-
-    tail = fused_tail if routes.tail_multi is not None else None
-
-    def do_steps(st, k, step, salt, ph):
-        # Above the floor: kernel B, or the split bounce.  At or below it:
-        # kernels B-multi and B (fused_tail) where the render has them,
-        # else torch bounces, mk at a time when unbinned.  Binned scenes
-        # take single steps: a k-bounce would run on stale bins.  Spans
-        # go by the floor (every bounce at or below it is
-        # "persistent.bounce_tail"), counters by route: kernel B, B-multi
-        # and the split bounce above the floor are "kernel", kernels below
-        # it "tail_fused", the torch steps "tail".
-        if k <= 0:
-            return st, step
-        dims = ph.dims
-        width = st.pixel.shape[1]
-        if width > _COMPACT_FLOOR:
-            with span("persistent.bounce_kernel"):
-                for _ in range(k):
-                    step += 1
-                    if bin_box is not None and (step - 1) % _BIN_PERIOD == 0:
-                        st = _bin_sort_core(st, box=bin_box)
-                    if routes.fused is not None:
-                        st = routes.fused(hit_scene, cam_rows, st, salt, step,
-                                          dims, cfg=cfg, lean=lean)
-                    else:
-                        st = split_bounce(routes, hit_scene, hit_fn, cam,
-                                          cam_rows, st, salt, step, dims,
-                                          cfg=cfg, lean=lean)
-            count_kernel(k, width)
-            return st, step
-        with span("persistent.bounce_tail"):
-            if tail is not None:
-                st = tail(st, salt, step + 1, k, dims)
-                count_tail_fused(k)
-                return st, step + k
-            count_tail(k, width)
-            if bin_box is None:
-                while k >= mk:
-                    st = p_bounce_multi_step(hit_scene, cam, st, salt,
-                                             step + 1, dims, cfg=cfg,
-                                             hit_fn=hit_fn, k=mk, lean=lean)
-                    step, k = step + mk, k - mk
-            for _ in range(k):
-                step += 1
-                if bin_box is not None and (step - 1) % _BIN_PERIOD == 0:
-                    st = _bin_sort_core(st, box=bin_box)
-                st = p_bounce_step(hit_scene, cam, st, salt, step, dims,
-                                   cfg=cfg, hit_fn=hit_fn, lean=lean)
-        return st, step
-
-    def compact_fn(st, accum, ph, *, k_new, tail_sorted=False,
-                   n_receivers=0, split=False):
-        """The compaction engine (cfg.compactor): the route compactor puts
-        the live lanes where the sort compactor does, so it is a cost knob;
-        receiver events keep the sort engine.  ``split`` then halves the
-        sample tails onto clone lanes (:func:`_split`)."""
-        kpp_s = ph.dims.kpp
-        count("persistent.compactions")
-        with span("persistent.compact"):
-            if use_route and n_receivers == 0:
-                st, accum = _compact_route(st, accum, k_new=k_new,
-                                           lanes_per_pixel=kpp_s)
-            else:
-                st, accum = _compact(st, accum, k_new=k_new,
-                                     lanes_per_pixel=kpp_s,
-                                     tail_sorted=tail_sorted,
-                                     n_receivers=n_receivers,
-                                     flush=flush_mode)
-            return (_split(st) if split else st), accum
-
-    def one_shot(st, salt, step, ph):
-        with span("persistent.one_shot"):
-            return p_render_oneshot(hit_scene, cam, st, salt, step, ph.dims,
-                                    ph.max_steps, cfg=cfg, hit_fn=hit_fn,
-                                    lean=lean, tail=tail)
-
-    def staged(st, accum, step, salt, ph):
-        """The staged tail (one_shot="staged"): p_render_until stages that
-        end when the alive count reaches the power of two at or below half
-        the batch (where the host loop's compact + split first fires), each
-        followed by that compact + split; a batch of 2 * min_lanes or less
-        runs to its end as one shot."""
-        with span("persistent.staged"):
-            while step < ph.max_steps:
-                cur = st.pixel.shape[1]
-                if cur <= 2 * min_lanes:
-                    st = one_shot(st, salt, step, ph)
-                    break
-                target = 1 << (max(cur // 2, 1).bit_length() - 1)
-                st, step, n_alive = p_render_until(
-                    hit_scene, cam, st, salt, step, target, ph.dims,
-                    ph.max_steps, cfg=cfg, hit_fn=hit_fn, lean=lean,
-                    tail=tail)
-                if n_alive == 0 or step >= ph.max_steps:
-                    break
-                st, accum = compact_fn(
-                    st, accum, ph, k_new=max(min_lanes, _next_pow2(n_alive)),
-                    split=True)
-            return st, accum
-
-    def run_loop(st, accum, salt, ph, state_sorted):
-        """The check / compact / split loop for one lane batch; under
-        one_shot "on" or "staged" the batch's tail below the floor goes to
-        the finisher or the stages."""
-        step = 0
-        period = check_period
-        last_alive = st.pixel.shape[1]
-        first_check, max_steps = ph.first_check, ph.max_steps
-        while step < max_steps:
-            next_check = first_check if step < first_check else step + period
-            st, step = do_steps(st, min(next_check, max_steps) - step, step,
-                                salt, ph)
-            cur = st.pixel.shape[1]
-            # Read the count behind a few optimistic bounces: alive is
-            # monotone within a chunk, so the stale count is an upper bound.
-            pending = _alive_count(st.path_alive)
-            ov = 1 if cur >= (1 << 21) else (2 if cur >= (1 << 20) else 4)
-            st, step = do_steps(st, min(ov, max_steps - step), step, salt, ph)
-            with span("persistent.count_read"):
-                n_alive = pending()
-            count("persistent.alive_at_reads", n_alive)
-            count("persistent.width_at_reads", cur)
-            if n_alive == 0:
-                break
-            # Back off while the alive count plateaus.
-            if cur < _COMPACT_FLOOR:
-                period = max(32, check_period)
-            elif n_alive > 0.9 * last_alive:
-                period = min(period * 2, max(32, check_period))
-            else:
-                period = check_period
-            last_alive = n_alive
-            if cur <= _COMPACT_FLOOR:
-                if routes.one_shot == "staged":
-                    return staged(st, accum, step, salt, ph)
-                # Bounce cost no longer shrinks with the batch: drop dead
-                # lanes and halve the sequential sample tails instead.
-                k_new = max(min_lanes, _next_pow2(n_alive))
-                if k_new <= cur // 2:
-                    st, accum = compact_fn(st, accum, ph, k_new=k_new,
-                                           split=True)
-                if routes.one_shot == "on":
-                    # The tail finisher: the rest of the chunk with no
-                    # compaction and no count read but its own.
-                    return one_shot(st, salt, step, ph), accum
-                continue
-            # Above the floor: compact on a shrink.  Under redistribute
-            # "on" the batch overshoots so that its spare dead lanes adopt
-            # donors' unstarted samples (after which the pixel order is
-            # gone).
-            k_base = _grid_size(n_alive, min_lanes, cfg.compact_quantum)
-            if k_base <= int(cur * shrink):
-                k_new, n_recv = k_base, 0
-                if cfg.redistribute == "on":
-                    k_new = min(_grid_size(int(n_alive * _RECV_OVERSHOOT),
-                                           min_lanes, cfg.compact_quantum),
-                                cur)
-                    spare = k_new - n_alive
-                    if spare >= _RECV_MIN:
-                        n_recv = min(1 << (spare.bit_length() - 1), k_new // 2)
-                    else:
-                        k_new = k_base
-                st, accum = compact_fn(st, accum, ph, k_new=k_new,
-                                       tail_sorted=state_sorted,
-                                       n_receivers=n_recv)
-                if n_recv:
-                    state_sorted = False
-        return st, accum
-
     i32 = dict(dtype=torch.int32, device=device)
-
-    def respawn(st, salt, dims):
-        with span("persistent.respawn"):
-            return p_respawn_step(cam, st, salt, 0, dims, cfg=cfg, lean=lean)
-
-    # Binning breaks the pixel order the argsort-free flush needs.
-    state_sorted = bin_box is None and h_virt * w * kpp < _SORT_PIX_LIM
     for y0 in range(resume_y0, h_virt, rows):
         take = min(rows, h_virt - y0)
         with span("persistent.chunk"):
             n_real = take * w * kpp
             # Pad the chunk onto the size grid with dead zero-quota lanes
             # that repeat the last pixel id (ascending order survives).
-            n = _grid_size(n_real, min_lanes, cfg.compact_quantum)
+            n = _grid_size(n_real, _MIN_LANES, cfg.compact_quantum)
             base = y0 * w * kpp
             pixel = torch.arange(base, base + n, **i32).clamp_max(
                 base + n_real - 1)[None]
-            s_quota = torch.full((1, n), 1 if adaptive else quota, **i32)
+            s_quota = torch.full((1, n), 1 if r.adaptive else r.quota, **i32)
             s_quota[:, n_real:] = 0
             lane_rank = torch.arange(n, **i32) % kpp
-            salt = ((cfg.seed * 0x9E3779B1 ^ (y0 + 1) * 0x85EBCA77)
-                    & 0xFFFFFFFF)
-            if adaptive:
-                # Phase 1, the prepass: kpp quota-1 lanes a pixel.  Every
-                # path ends within max_depth + 1 bounces, so they run with
-                # no count read and no compaction; the final depth row, in
-                # pixel order, is each sample's path length.
-                with span("persistent.prepass"):
-                    st = respawn(fresh_state(pixel, lane_rank[None], s_quota),
-                                 salt, uniform.dims)
-                    st, _ = do_steps(st, cfg.max_depth + 1, 0, salt, uniform)
-                    est = st.depth[0, :n_real].reshape(take * w, kpp).sum(
-                        1, dtype=torch.int32)
-                    if cfg.adaptive_pool == "on":
-                        est = _pool_est(est, take, w)
-                    _flush(accum, st.pixel[0] // kpp, st.radiance_sum,
-                           ascending=True)
+            salt = chunk_salt(cfg.seed, y0)
+            if r.adaptive:
+                # Phase 1, the prepass: kpp quota-1 lanes a pixel, in pixel
+                # order.
+                st = loop.prepass((pixel, lane_rank[None], s_quota), accum,
+                                  salt, ascending=True)
+                est = st.depth[0, :n_real].reshape(take * w, kpp).sum(
+                    1, dtype=torch.int32)
+                if cfg.adaptive_pool == "on":
+                    est = _pool_est(est, take, w)
                 # Phase 2: the remaining samples on difficulty-proportional
                 # lanes, the same budget (the filler lanes take real work
                 # too), raw pixel ids.
                 pix2, s_base2, s_quota2 = alloc_lanes(
                     est, n_lanes=n, spp_done=kpp, spp=spp,
                     kpp_max=cfg.kpp_max)
-                salt = (salt * 0x85EBCA77 + 0x632BE5AB) & 0xFFFFFFFF
-                spp_rest = spp - kpp
-                ph = _Phase(make_dims(cfg, w, h, spp, 1),
-                            spp_rest // min(cfg.kpp_max, spp_rest) + 2,
-                            (spp_rest + 1) * (cfg.max_depth + 2))
-                st = respawn(fresh_state(pix2 + y0 * w, s_base2, s_quota2),
-                             salt, ph.dims)
                 # The whole-chunk one shot is skipped here; the tail forms
                 # stay.
-                st, accum = run_loop(st, accum, salt, ph, state_sorted)
+                salt = phase2_salt(salt)
+                accum = loop.run_batch((pix2 + y0 * w, s_base2, s_quota2),
+                                       accum, salt, _adaptive_phase(cfg, kpp),
+                                       r.state_sorted, whole=False)
             else:
-                ph = uniform
-                st = respawn(fresh_state(pixel, (lane_rank * quota)[None],
-                                         s_quota), salt, ph.dims)
-                if routes.one_shot == "staged" and n <= _COMPACT_FLOOR:
-                    st, accum = staged(st, accum, 0, salt, ph)
-                elif (routes.one_shot in ("chunk", "on")
-                      and n <= _COMPACT_FLOOR):
-                    st = one_shot(st, salt, 0, ph)
-                else:
-                    st, accum = run_loop(st, accum, salt, ph, state_sorted)
-            # Flush this chunk's remaining radiance.
-            with span("persistent.flush"):
-                _flush(accum, st.pixel[0] // ph.dims.kpp, st.radiance_sum)
+                accum = loop.run_batch(
+                    (pixel, (lane_rank * r.quota)[None], s_quota), accum, salt,
+                    r.uniform, r.state_sorted, whole=True)
         if chunk_callback is not None:
             chunk_callback(accum, y0 + take)
 
     out = _div(accum, spp).T.reshape(h_virt, w, 3)
-    return out if cams is None else out.reshape(n_frames, h, w, 3)
+    return out if r.cams is None else out.reshape(len(r.cams), h, w, 3)
