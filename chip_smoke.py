@@ -42,10 +42,12 @@ checks that each kernel of a path ran in it:
   first and second bounce rays of ``final`` (1200x800, 4 spp) and ``mesh``
   (800x450, 4 spp);
 * phase 14: the wavefront scheduler: small renders, kernels against plain;
-  the threefry draws on the card against the CPU's; ``render("final")`` at
-  1200x800, 4 spp (kernel G) and with ``deterministic=True``, each equal
-  to its plain render; ``render("mesh")`` at 800x450, 4 spp (kernels G and
-  H); and one CLI render in a subprocess;
+  the threefry draw kernel bit-equal to the torch version on the card and
+  on the CPU, and timed against its bound and the torch version at the
+  preview's shape; ``render("final")`` at 1200x800, 4 spp (kernel G and
+  the draw kernel) and with ``deterministic=True``, each equal to its
+  plain render; ``render("mesh")`` at 800x450, 4 spp (kernels G and H and
+  the draw kernel); and one CLI render in a subprocess;
 * phase 15: kernel I (the sphere grid: its schedule kernel, pass A and the
   block schedule, then the sweep, pass B and the merge) against its plain
   grid sweep in rows and in columns, on random rays, a scene with inactive
@@ -167,6 +169,9 @@ WAVEFRONT_MESH = dict(width=800, height=450, samples=4)
 # (its wavefront scheduler, on the CPU; the port's plain path on the CPU
 # reads 169.872).
 WAVEFRONT_SMALL = dict(width=300, height=200, samples=4)
+# The preview cell's lanes (port_bench final.preview: 640x480, 4 spp, one
+# chunk), the shape of each of its draws with 5 a lane (phase 14).
+PREVIEW_LANES = 640 * 480 * 4
 WAVEFRONT_SMALL_MEAN = 169.874
 WAVEFRONT_SMALL_TOL = 0.5
 
@@ -175,6 +180,15 @@ WAVEFRONT_SMALL_TOL = 0.5
 # (NVIDIA's H100 SXM data sheet, at the full 700 W limit).
 PEAK_F32 = 67e12        # FLOP/s
 PEAK_BYTES = 3.35e12    # B/s
+# 32-bit integer instructions: 132 SMs x 128 lanes (each of an SM's four
+# schedulers issues one warp instruction a clock; integer adds and
+# multiply-adds run on the FMA pipes beside the INT pipe's logic and
+# shifts) x 1.98 GHz, the H100 SXM's boost clock.  The data sheet gives no
+# integer rate outside the tensor cores.
+PEAK_INT32 = 33.4e12    # op/s
+# Integer operations per threefry uniform draw (csrc/draws.cu): 20 rounds
+# of add, rotate and xor, 12 key adds, 3 for the output bits.
+OPS_THREEFRY = 75
 # f32 operations per pair test, counted from csrc/common.cuh: a sphere
 # (sweep_packed) 23 multiplies, adds and subtractions and the
 # discriminant's compare where its tile of 256 rows shares one (t1, invdt)
@@ -216,6 +230,7 @@ EPS32 = 2.0 ** -24
 def _counters() -> dict:
     """Each kernel's launch counter: (module, attribute)."""
     from win32_raytracer_tpu_torch.kernels import bounce as B
+    from win32_raytracer_tpu_torch.kernels import draws as DR
     from win32_raytracer_tpu_torch.kernels import hit as K
     from win32_raytracer_tpu_torch.kernels import hit_cols as G
     from win32_raytracer_tpu_torch.kernels import hit_grid as KI
@@ -229,7 +244,8 @@ def _counters() -> dict:
             "scatter": (F, "LAUNCHES"), "tri": (KC, "LAUNCHES"),
             "tri_grid": (KD, "LAUNCHES"), "tri_grid_sched": (KD, "SCHED_LAUNCHES"),
             "hit_cols": (G, "LAUNCHES"), "tri_cols": (H, "LAUNCHES"),
-            "hit_grid": (KI, "LAUNCHES"), "hit_grid_sched": (KI, "SCHED_LAUNCHES")}
+            "hit_grid": (KI, "LAUNCHES"), "hit_grid_sched": (KI, "SCHED_LAUNCHES"),
+            "draws": (DR, "LAUNCHES")}
 
 
 def reset_launches() -> None:
@@ -367,9 +383,10 @@ def sphere_ops(table) -> int:
     return ops
 
 
-def bound(ops: float, nbytes: float) -> tuple:
-    """(bound ms, "operations" or "bytes")."""
-    t_ops, t_bytes = ops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(ops: float, nbytes: float, peak_ops: float = PEAK_F32) -> tuple:
+    """(bound ms, "operations" or "bytes"); ``peak_ops`` the operations'
+    rate (f32 by default)."""
+    t_ops, t_bytes = ops / peak_ops * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -714,6 +731,20 @@ def sass_sweep_mix(dump: str, keys: tuple) -> dict:
     return out
 
 
+def sass_opcodes(dump: str, key: str) -> dict:
+    """{opcode: count} over the SASS of the first kernel of a ``cuobjdump
+    -sass`` dump whose name holds ``key``, most frequent first, with the
+    total under "all"."""
+    from collections import Counter
+    for part in re.split(r"\n\s*Function : ", dump)[1:]:
+        name, _, body = part.partition("\n")
+        if key in name:
+            ops = Counter(m.group(1).split(".")[0] for m in re.finditer(
+                r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", body))
+            return {"all": sum(ops.values()), **dict(ops.most_common())}
+    return {}
+
+
 def sass_digests(dump: str) -> dict:
     """{kernel: first 12 hex digits of the sha1 of its SASS instructions}
     (addresses and encodings dropped) for every kernel of a ``cuobjdump
@@ -877,7 +908,7 @@ class Smoke:
         secs = time.perf_counter() - t0
         self.say("1 build", f"{os.path.basename(path)} in {secs:.2f} s "
                  f"(nvcc {_build.build_seconds:.2f} s) from {_build.CSRC}")
-        for ln in ptxas_lines(_build.build_log, SWEEP_KERNELS):
+        for ln in ptxas_lines(_build.build_log, SWEEP_KERNELS + (DRAW_KERNEL,)):
             self.say("1 ptxas", ln)
         try:
             dump = sass_text(path)
@@ -885,6 +916,8 @@ class Smoke:
             self.say("1 sass", f"cuobjdump unavailable ({e})")
             return
         loops = sass_sweep_mix(dump, SWEEP_KERNELS)
+        self.say("1 sass", f"{DRAW_KERNEL}: " + ", ".join(
+            f"{k} {v}" for k, v in sass_opcodes(dump, DRAW_KERNEL).items()))
         self.say("1 sass digest", ", ".join(
             f"{k} {v}" for k, v in sorted(sass_digests(dump).items())))
         for name, mixes in loops.items():
@@ -2326,15 +2359,19 @@ class Smoke:
         """The wavefront scheduler through the entry points: small renders
         (48x32, 4 spp: ``test``, ``mesh``; a deterministic specular scene
         at 1 spp) equal to their ``backend="jnp"`` renders; the threefry
-        draws on the card equal to the CPU's; ``render("final")`` at
-        1200x800, 4 spp through kernel G alone, equal to its plain render,
-        and a 300x200 render's mean against the JAX renderer's;
-        ``render("mesh")`` at 800x450, 4 spp through G and H; the final
-        scene with ``deterministic=True`` equal to its plain render; one
-        CLI render in a subprocess."""
+        draw kernel bit-equal to core/rng.py's int64 torch ops on the card
+        and on the CPU, timed against its bound and those ops at the
+        preview's shape; ``render("final")`` at 1200x800, 4 spp through
+        kernel G and the draw kernel alone, equal to its plain render, and
+        a 300x200 render's mean against the JAX renderer's;
+        ``render("mesh")`` at 800x450, 4 spp through G, H and the draw
+        kernel; the final scene with ``deterministic=True`` (no draws)
+        equal to its plain render; one CLI render in a subprocess."""
         from win32_raytracer_tpu_torch.api import render
         from win32_raytracer_tpu_torch.config import RenderConfig, resolve_scheduler
         from win32_raytracer_tpu_torch.core.rng import fold_in, prng_key, uniform01
+        from win32_raytracer_tpu_torch.kernels import _build
+        from win32_raytracer_tpu_torch.kernels import draws as DR
         from win32_raytracer_tpu_torch.io.image import read_image
         from win32_raytracer_tpu_torch.scene.camera import make_camera
         from win32_raytracer_tpu_torch.scene.spheres import SceneBuilder
@@ -2352,8 +2389,8 @@ class Smoke:
         small = RenderConfig(width=48, height=32, samples=4, seed=2)
         pin = make_camera((0.0, 1.0, 4.0), (0.0, 0.5, 0.0), (0.0, 1.0, 0.0),
                           45.0, 48 / 32, 0.0, 4.0)
-        cases = (("test", "test", None, small, ("hit_cols",)),
-                 ("mesh", "mesh", None, small, ("hit_cols", "tri_cols")),
+        cases = (("test", "test", None, small, ("hit_cols", "draws")),
+                 ("mesh", "mesh", None, small, ("hit_cols", "tri_cols", "draws")),
                  ("specular, deterministic, 1 spp", b.build(), pin,
                   small.replace(samples=1, deterministic=True, reflect_thres=2.0),
                   ("hit_cols",)))
@@ -2369,17 +2406,51 @@ class Smoke:
             check(d == 0.0, f"wavefront small {label}: differs from plain")
             check_route(got, ran, (), f"wavefront small {label}")
 
+        # The draw kernel against the torch version on the card and on the
+        # CPU (int32 views), at odd sizes, 2^20 x 5 and the preview's
+        # [1,228,800, 5]; then once into an output 4 bytes off 16-byte
+        # alignment (the element-wise path of every thread).
         key = fold_in(fold_in(prng_key(7), 480), 2)
-        m = 1 << 20
-        on_card = uniform01(fold_in(key, 3), (m, 5), device=dev)
-        on_cpu = uniform01(fold_in(key, 3), (m, 5), device="cpu")
-        bits_equal = torch.equal(on_card.cpu().view(torch.int32),
-                                 on_cpu.view(torch.int32))
-        lanes = WAVEFRONT["width"] * WAVEFRONT["height"] * WAVEFRONT["samples"]
-        draw_ms = cuda_ms(lambda: uniform01(key, (lanes, 5), device=dev), 5)
-        self.say("14 threefry", f"{m} x 5 draws on the card vs the CPU: bit-equal "
-                 f"{bits_equal}; one [{lanes}, 5] draw {draw_ms:.3f} ms [{self.card}]")
-        check(bits_equal, "threefry draws on the card differ from the CPU's")
+
+        def bits(x):
+            return x.reshape(-1).view(torch.int32)
+        preview = (PREVIEW_LANES, 5)
+        for depth, shape in enumerate(((1,), (7,), (4097,), (5 << 20,), preview)):
+            k = fold_in(key, depth)
+            got = DR.uniform01(k, shape, dev)
+            torch.cuda.synchronize()
+            eq_card = torch.equal(bits(got), bits(uniform01(k, shape, device=dev)))
+            eq_cpu = torch.equal(bits(got).cpu(), bits(uniform01(k, shape, device="cpu")))
+            self.say("14 threefry", f"draw kernel {list(shape)}: bit-equal to the "
+                     f"torch ops on the card {eq_card}, on the CPU {eq_cpu}")
+            check(eq_card and eq_cpu and got.shape == shape,
+                  f"threefry draw kernel {shape} differs from the torch version")
+        k, n = fold_in(key, 9), 4097
+        buf = torch.zeros(n + 1, dtype=torch.float32, device=dev)
+        _build.check(_build.load().wrt_threefry_uniform(
+            k[0], k[1], n, buf.data_ptr() + 4, _build.stream_handle(dev)),
+            "threefry uniform01 (offset)")
+        torch.cuda.synchronize()
+        eq_off = bool(buf[0] == 0) and torch.equal(
+            bits(buf[1:]).cpu(), bits(uniform01(k, (n,), device="cpu")))
+        self.say("14 threefry", f"draw kernel [{n}] into an output 4 bytes off "
+                 f"alignment: bit-equal {eq_off}")
+        check(eq_off, "threefry draw kernel differs on an unaligned output")
+
+        n = PREVIEW_LANES * 5
+        k_ms = cuda_ms(lambda: DR.uniform01(key, preview, dev), 50)
+        g_ms = graph_ms(lambda: DR.uniform01(key, preview, dev), 50)
+        p_ms = cuda_ms(lambda: uniform01(key, preview, device=dev), 5)
+        b_ms, b_by = bound(n * OPS_THREEFRY, n * 4, peak_ops=PEAK_INT32)
+        self.say("14 threefry", f"one {list(preview)} draw (the preview's): kernel "
+                 f"{k_ms:.4f} ms (card time, CUDA graph {g_ms:.4f}), bound "
+                 f"{b_ms:.4f} ms by {b_by} ({OPS_THREEFRY} integer operations an "
+                 f"element at {PEAK_INT32 / 1e12:.1f} T/s; 4 bytes at "
+                 f"{PEAK_BYTES / 1e12:.2f} TB/s), {100 * b_ms / g_ms:.1f}% of it; "
+                 f"the torch int64 ops {p_ms:.3f} ms [{self.card}]")
+        self.kernels.setdefault("draws", {}).update(
+            max_abs_err=0.0, ms=round(g_ms, 4), plain_ms=round(p_ms, 3),
+            bound_ms=round(b_ms, 4), bound_by=b_by)
 
         cfg = RenderConfig(**WAVEFRONT)
         check(resolve_scheduler(cfg) == "wavefront", "final at 4 spp: not the wavefront")
@@ -2399,9 +2470,12 @@ class Smoke:
         check(res.image.shape == (cfg.height, cfg.width, 3), "final image shape")
         check(got["hit_cols"] == cfg.max_depth + 1,
               f"kernel G launches {got['hit_cols']}, expected {cfg.max_depth + 1}")
-        check_route(got, ("hit_cols",), (), "final wavefront")
+        check(got["draws"] == cfg.max_depth + 2,
+              f"draw kernel launches {got['draws']}, expected {cfg.max_depth + 2}")
+        check_route(got, ("hit_cols", "draws"), (), "final wavefront")
         check(d == 0.0, "final wavefront render differs from its plain render")
         self.kernels.setdefault("hit_cols", {})["launches"] = got["hit_cols"]
+        self.kernels.setdefault("draws", {})["launches"] = got["draws"]
 
         small_res = render("final", cfg=RenderConfig(**WAVEFRONT_SMALL), device=dev)
         mean = float(small_res.image.mean())
@@ -2423,16 +2497,20 @@ class Smoke:
                  f"{warm.duration_ms / 1e3:.4f} s), {res.mrays_per_sec:.3f} "
                  f"Mrays/s, image mean {res.image.mean():.3f}, launches {got}; "
                  f"vs plain mean |diff| {d:.4f} (must be 0) [{self.card}]")
-        want = {"hit_cols": cfg.max_depth + 1, "tri_cols": cfg.max_depth + 1}
+        want = {"hit_cols": cfg.max_depth + 1, "tri_cols": cfg.max_depth + 1,
+                "draws": cfg.max_depth + 2}
         check({k: got[k] for k in want} == want, f"mesh launches {got}")
-        check_route(got, ("hit_cols", "tri_cols"), (), "mesh wavefront")
+        check_route(got, ("hit_cols", "tri_cols", "draws"), (), "mesh wavefront")
         check(d == 0.0, "mesh wavefront render differs from its plain render")
         self.kernels.setdefault("tri_cols", {})["launches"] = got["tri_cols"]
 
         cfg = RenderConfig(**WAVEFRONT, deterministic=True)
+        reset_launches()
         rk = render("final", cfg=cfg, device=dev)
+        got = launches()
         rp = render("final", cfg=cfg.replace(backend="jnp"), device=dev)
         d = same(rk.image, rp.image)
+        check_route(got, ("hit_cols",), (), "deterministic final")
         self.say("14 deterministic", f"final {cfg.width}x{cfg.height}@"
                  f"{cfg.samples}, deterministic: {rk.duration_ms / 1e3:.4f} s, "
                  f"mean {rk.image.mean():.3f}; vs plain mean |diff| {d:.4f} "
@@ -3704,13 +3782,14 @@ def p21_ranks(mesh, card: str, small_means: list) -> None:
 
     # Small renders: kernels bit-equal to plain, twice; each route's kernels
     # (with kernel B, the tail below the floor on B-multi and B: no kernel
-    # A); where kernel B runs, the default bit-equal to multi_backend="xla"
-    # (the torch chain below the floor).
+    # A; the wavefront's rows and spp modes: the hit kernels and the draw
+    # kernel); where kernel B runs, the default bit-equal to
+    # multi_backend="xla" (the torch chain below the floor).
     routes = {("final", "persistent"): ("bounce",),
               ("test", "persistent"): ("bounce",),
               ("mesh", "persistent"): ("hit", "tri"),
-              ("mesh", "rows"): ("hit_cols", "tri_cols"),
-              ("mesh", "spp"): ("hit_cols", "tri_cols")}
+              ("mesh", "rows"): ("hit_cols", "tri_cols", "draws"),
+              ("mesh", "spp"): ("hit_cols", "tri_cols", "draws")}
     saved = P._COMPACT_FLOOR
     P._COMPACT_FLOOR = MESH_FLOOR
     try:
@@ -3734,7 +3813,7 @@ def p21_ranks(mesh, card: str, small_means: list) -> None:
                 k2, _ = run(cfg)
                 pl, tp = run(cfg.replace(backend="jnp"))
                 same = bool(torch.equal(k1, pl)) and bool(torch.equal(k1, k2))
-                ran = routes.get((name, mode), ("hit_cols",))
+                ran = routes.get((name, mode), ("hit_cols", "draws"))
                 check_route(got, ran, ("bounce_multi",) if "bounce" in ran else (),
                             f"{name} {mode} on {d} ranks")
                 say21(mesh, "small", f"{name} {cfg.width}x{cfg.height}@{cfg.samples} "
@@ -3961,6 +4040,9 @@ SWEEP_KERNELS = ("hit_kernel", "bounce_kernel", "bounce_multi_kernel",
                  "hit_grid_kernel", "tri_grid_schedule_kernel",
                  "hit_grid_schedule_kernel")
 
+# The draw kernel, whose registers and instruction mix phase 1 prints.
+DRAW_KERNEL = "threefry_uniform_kernel"
+
 KERNEL_META = {
     "hit": ("sphere_hit", "win32_raytracer_tpu_torch/csrc/hit.cu",
             "win32_raytracer_tpu/kernels/hit_pallas_v6.py:181"),
@@ -3989,6 +4071,9 @@ KERNEL_META = {
     "hit_grid_sched": ("sphere_grid_schedule",
                        "win32_raytracer_tpu_torch/csrc/hit_grid.cu",
                        "win32_raytracer_tpu/kernels/hit_grid_rows.py:98"),
+    # Replaces no TPU kernel: the JAX package's draws are XLA's.
+    "draws": ("threefry_uniform", "win32_raytracer_tpu_torch/csrc/draws.cu",
+              "none: jax.random.uniform (XLA)"),
 }
 
 

@@ -25,7 +25,8 @@
    flat index split into (hi, lo) words, xors the two output words and
    keeps 23 mantissa bits.  Keys are Python ints folded on the host; only
    the bulk hash runs as int64 tensor ops (add, xor, shift) masked to
-   32 bits.
+   32 bits: the plain version of the draw kernel (kernels/draws.py),
+   which the wavefront takes on a card.
 """
 
 from __future__ import annotations

@@ -137,6 +137,10 @@ def load() -> ctypes.CDLL:
             lib.wrt_hit_grid_schedule.restype = ctypes.c_int
             lib.wrt_tri_grid_schedule.argtypes = [ctypes.c_void_p]
             lib.wrt_tri_grid_schedule.restype = ctypes.c_int
+            lib.wrt_threefry_uniform.argtypes = [
+                ctypes.c_uint32, ctypes.c_uint32, ctypes.c_longlong,
+                ctypes.c_void_p, ctypes.c_void_p]
+            lib.wrt_threefry_uniform.restype = ctypes.c_int
             lib.wrt_error_string.argtypes = [ctypes.c_int]
             lib.wrt_error_string.restype = ctypes.c_char_p
             _lib = lib

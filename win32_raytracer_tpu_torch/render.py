@@ -18,9 +18,12 @@ compaction (that is the persistent scheduler's).  Each bounce is the hit
 function (kernel G for spheres, kernel H for triangles on a card; their
 plain versions on the CPU; kernels/dispatch.get_hit_fn), then the sky and
 the scatter as torch ops.  Draws are ``jax.random``'s threefry, bit for
-bit (core/rng.py): the key of the seed, folded with the chunk's first row,
-then 1 for the camera draws and 2 for the bounce draws, then the depth.
-``deterministic`` sets every draw to 0.5 (the shutter time to 0).
+bit: the key of the seed, folded with the chunk's first row on the host,
+then 1 for the camera draws and 2 for the bounce draws, then the depth;
+one launch of the draw kernel each where the hit takes the kernels
+(``kernels/draws.py``), core/rng.py's int64 torch ops under
+``backend="jnp"``.  ``deterministic`` sets every draw to 0.5 (the shutter
+time to 0).
 
 The per-tile pixel loop (``generateImage``, RayTracer.cpp:894-959) becomes
 :func:`render_image`: pixel/sample lanes flattened to ``[rows*W*spp]``
@@ -36,8 +39,10 @@ import torch
 
 from .config import RenderConfig, resolve_scheduler
 from .core.materials import sky_color
-from .core.rng import fold_in, prng_key, uniform01
+from .core.rng import fold_in, prng_key
 from .core.vec import sqrt_rn
+from .kernels import draws as draw_kernel
+from .kernels.dispatch import resolve_backend
 from .ops.scatter import scatter
 from .persistent import Scene, _div
 from .scene.camera import Camera, camera_rays, default_camera
@@ -66,6 +71,15 @@ def _fresh_state(origin, direction, time) -> WavefrontState:
         alive=torch.ones((n,), dtype=torch.bool, device=dev))
 
 
+def _uniform01(key: tuple, shape, *, cfg: RenderConfig, device) -> torch.Tensor:
+    """The wavefront's draws, ``jax.random.uniform(key, shape)``: the draw
+    kernel's wrapper where ``resolve_backend`` gives "kernels" (the rule
+    that picks the hit kernels), the plain int64 torch ops otherwise."""
+    if resolve_backend(cfg, device) == "kernels":
+        return draw_kernel.uniform01(key, shape, device)
+    return draw_kernel.uniform01_plain(key, shape, device)
+
+
 def make_primary_rays(cam: Camera, y0: int, key: tuple, *, cfg: RenderConfig,
                       width: int, height: int, spp: int,
                       rows: int) -> WavefrontState:
@@ -82,7 +96,7 @@ def make_primary_rays(cam: Camera, y0: int, key: tuple, *, cfg: RenderConfig,
         draws = torch.full((n, 5), 0.5, dtype=torch.float32, device=dev)
         draws[:, 2] = 0.0   # shutter-open time
     else:
-        draws = uniform01(fold_in(key, 0), (n, 5), device=dev)
+        draws = _uniform01(fold_in(key, 0), (n, 5), cfg=cfg, device=dev)
     u = _div(x.to(torch.float32) + draws[:, 0], width)
     v = _div((height - y).to(torch.float32) + draws[:, 1], height)
     return _fresh_state(*camera_rays(cam, u, v, draws[:, 2:5]))
@@ -109,7 +123,8 @@ def scatter_step(scene, state: WavefrontState, rec, key: tuple, depth: int,
     if cfg.deterministic:
         draws = torch.full((n, 5), 0.5, dtype=torch.float32, device=o.device)
     else:
-        draws = uniform01(fold_in(key, depth), (n, 5), device=o.device)
+        draws = _uniform01(fold_in(key, depth), (n, 5), cfg=cfg,
+                           device=o.device)
     sc = scatter(scene, d, rec, draws, cfg)
 
     live_hit = alive & rec.hit
