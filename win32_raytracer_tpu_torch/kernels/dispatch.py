@@ -25,7 +25,9 @@ Pallas backend:
   ``min_tris`` (512) active triangles, under ``accel`` "auto" or "grid":
   the Morton-tile grid, kernel D (``kernels/tri_grid.py``);
 * a smaller mesh, or any mesh under ``accel="off"``: the brute sweep,
-  kernel C (``kernels/tri.py``);
+  kernel C (``kernels/tri.py``), each call span ``tri_brute.hit`` and its
+  lanes counted in ``tri_brute.lanes`` while a render records
+  (:func:`_tri_brute_pass`);
 * a composite of spheres and a mesh: the sphere pass first, then the
   triangle pass, merged by ``ops/rows.combine_hits_rows`` with triangle
   indices after the spheres'.  On the grid the sphere pass's nearest t
@@ -185,19 +187,17 @@ def validate_tri_knobs(cfg: RenderConfig) -> None:
 
 def _make_tri_pass(kernel, rebin: str = "off", dda_k: int = 0, **kernel_kw):
     """Triangle pass ``(tris, o, d, t, min_t, t_cap)`` over a hit function
-    (the reference's ``_make_tri_pass``).  The brute sweep takes neither
-    ``t_cap`` nor knobs.  The grid sweep (``kernel_kw``: its ray block and
-    knobs, and kernel D's ``stats`` counters while a render records) runs
-    one of three ways, the same code for kernel D and its plain version:
-    directly, on the working set sorted by capped chord keys
-    (``rebin="on"``, kernels/tri_rebin.py), or on the DDA pair expansion
-    (``"dda"``, kernels/tri_dda.py; ``dda_k`` pairs a lane when non-zero).
-    A missing ``t_cap`` (a mesh with no spheres) is 3.4e38 for the last
-    two."""
+    (the reference's ``_make_tri_pass``).  Without ``kernel_kw``, the
+    brute sweep (:func:`_tri_brute_pass`).  The grid sweep (``kernel_kw``:
+    its ray block and knobs, and kernel D's ``stats`` counters while a
+    render records) runs one of three ways, the same code for kernel D and
+    its plain version: directly, on the working set sorted by capped chord
+    keys (``rebin="on"``, kernels/tri_rebin.py), or on the DDA pair
+    expansion (``"dda"``, kernels/tri_dda.py; ``dda_k`` pairs a lane when
+    non-zero).  A missing ``t_cap`` (a mesh with no spheres) is 3.4e38 for
+    the last two."""
     if not kernel_kw:
-        def tri_pass(tris, o, d, t, min_t, t_cap):
-            return kernel(tris, o, d, t, min_t=min_t)
-        return tri_pass
+        return _tri_brute_pass(kernel)
 
     def tf(grid, o, d, t, min_t=MIN_HIT_T, t_cap=None):
         return kernel(grid, o, d, t, min_t=min_t, t_cap=t_cap, **kernel_kw)
@@ -211,6 +211,19 @@ def _make_tri_pass(kernel, rebin: str = "off", dda_k: int = 0, **kernel_kw):
             kw = {"k_max": dda_k} if dda_k else {}
             return dda_tri_pass(tf, grid, o, d, t, t_cap, min_t=min_t, **kw)
         return sorted_tri_pass(tf, grid, o, d, t, t_cap, min_t=min_t)
+    return tri_pass
+
+
+def _tri_brute_pass(tri_fn):
+    """The brute sweep's triangle pass: ``tri_fn`` (kernel C), which takes
+    neither ``t_cap`` nor knobs.  While the render records, each call is
+    span ``tri_brute.hit`` and counts its lanes, ``tri_brute.lanes``, a
+    shape known on the host (off, both are no-ops)."""
+    @functools.wraps(tri_fn)
+    def tri_pass(tris, o, d, t, min_t, t_cap):
+        profiling.count("tri_brute.lanes", o.shape[1])
+        with profiling.span("tri_brute.hit"):
+            return tri_fn(tris, o, d, t, min_t=min_t)
     return tri_pass
 
 
