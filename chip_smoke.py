@@ -22,8 +22,8 @@ checks that each kernel of a path ran in it:
   config 4's chunk, the schedule kernel against the torch prelude; then on
   a grid of 61,440 tiles (491,520 triangles in tiles of 8 rows);
 * phase 8: mesh and mesh20k renders, kernels against plain, then
-  ``render("mesh")`` (kernels A and C) and config 4, ``render("mesh20k")``
-  at 800x450, 50 spp (kernels A and D);
+  ``render("mesh")`` (kernels A, C and F) and config 4, ``render("mesh20k")``
+  at 800x450, 50 spp (kernels A, D and F);
 * phase 9: kernels E (hit + sky; one and two lanes a thread) and F
   (scatter + respawn) against their plain versions, and E then F against
   kernel B on the headline's chunk;
@@ -32,7 +32,12 @@ checks that each kernel of a path ran in it:
 * phase 11: the headline once per route (the default, ``fuse_bounce="off"``,
   ``scatter_backend="pallas"``, ``hit_kernel="v4"``, ``multi_backend``
   "xla" and "fused"), the default byte-equal to "xla", and config 4 with
-  the pallas scatter;
+  the pallas scatter; then the split route's kernel F at every size:
+  ``final`` under ``accel="grid"``, ``mesh`` and ``mesh20k``, small and at
+  their cells' sizes on one seed, by default and under
+  ``scatter_backend="jnp"``: linear images bit-equal, kernel F once a
+  split bounce, the torch draws at each batch's first respawn only, the
+  device launches a render and the walls of both;
 * phase 12: BASELINE config 5, an 8-frame flythrough of the final scene at
   640x480, 32 spp, through ``render_animation`` (kernel B on 8 cameras);
 * phase 13: kernels G (column sphere hit) and H (column triangle hit;
@@ -58,8 +63,8 @@ checks that each kernel of a path ran in it:
   against their plain versions;
 * phase 16: the sphere grid through the entry points: small grid renders
   equal to their plain renders, the headline with ``accel="grid"``
-  (kernel I's two launches on every bounce), and an explicit ``hit_fn`` on
-  the persistent scheduler;
+  (kernel I's two launches and kernel F on every bounce), and an explicit
+  ``hit_fn`` on the persistent scheduler;
 * phase 17: kernels A, B and E timed alone at the headline's shapes, G at
   the wavefront's, the grid wrappers (D at config 4's chunk, I at the
   grid headline's second bounce), C at the ``mesh`` render's bounce-1
@@ -1742,8 +1747,9 @@ class Smoke:
             return real_sort(*a, **k)
         P._bin_sort_core = counted_sort
         try:
-            for name, path in (("mesh", ("hit", "tri")),
-                               ("mesh20k", ("hit", "tri_grid_sched", "tri_grid"))):
+            for name, path in (("mesh", ("hit", "tri", "scatter")),
+                               ("mesh20k", ("hit", "tri_grid_sched", "tri_grid",
+                                            "scatter"))):
                 warm = render(name, cfg=cfg, device=self.dev)
                 reset_launches()
                 sorts.clear()
@@ -1762,7 +1768,7 @@ class Smoke:
                 check_route(got, path, (), name)
                 check(abs(mean - means[name]) <= 3.0,
                       f"{name} image mean {mean} far from the small render's")
-                for k in path[1:]:
+                for k in path[1:-1]:
                     self.kernels.setdefault(k, {})["launches"] = got[k]
         finally:
             P._bin_sort_core = real_sort
@@ -2099,6 +2105,108 @@ class Smoke:
                     "config 4 pallas scatter")
         check(abs(mean - self.small_mesh_means["mesh20k"]) <= 3.0,
               f"config 4 pallas scatter image mean {mean}")
+
+    def split_scatter(self):
+        """Kernel F in every split bounce, above and below the floor:
+        ``final`` under ``accel="grid"``, ``mesh`` and ``mesh20k``, at a
+        small size and at their cells' sizes (``max_depth`` 10) on one
+        shared seed, by default and under ``scatter_backend="jnp"`` (the
+        torch scatter).  The linear images must be bit-equal; by default
+        kernel F must launch once a split bounce (the recorder's steps
+        counters) and ``hash_uniform01`` run only at each batch's first
+        respawn (its ``persistent.respawn`` spans), under "jnp" also twice
+        a bounce.  Prints the device launches of a render (torch.profiler)
+        and the walls of both."""
+        import win32_raytracer_tpu_torch.persistent as P
+        from torch.profiler import ProfilerActivity, profile
+        from win32_raytracer_tpu_torch.config import RenderConfig
+        from win32_raytracer_tpu_torch.scene.builders import get_scene
+        from win32_raytracer_tpu_torch.utils import profiling
+
+        real_hash, draws = P.hash_uniform01, []
+
+        def counted_hash(*a, **k):
+            draws.append(1)
+            return real_hash(*a, **k)
+
+        def run(scene, cfg):
+            """(linear image, what one render did)."""
+            P.render_image_persistent(scene, None, cfg)
+            draws.clear()
+            P.hash_uniform01 = counted_hash
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                img = P.render_image_persistent(scene, None, cfg)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                P.hash_uniform01 = real_hash
+            reset_launches()
+            with profiling.recording():
+                again = P.render_image_persistent(scene, None, cfg)
+            log = profiling.log()
+            (c,) = log["counters"].values()
+            got = launches()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                P.render_image_persistent(scene, None, cfg)
+                torch.cuda.synchronize()
+            cuda = torch.autograd.DeviceType.CUDA
+            return img, dict(
+                wall=wall, draws=len(draws), launches=got,
+                respawns=sum(s["name"] == "persistent.respawn"
+                             for s in log["spans"]),
+                bounces=(c.get("persistent.steps_kernel", 0)
+                         + c.get("persistent.steps_tail", 0)),
+                f_counted=c.get("persistent.scatter_kernel", 0),
+                torch_counted=c.get("persistent.scatter_torch", 0),
+                device=sum(ev.device_type == cuda for ev in prof.events()),
+                repeat=bool(torch.equal(img, again)))
+
+        for label, name, knob in SPLIT_SCENES:
+            scene = get_scene(name, device=self.dev)
+            for size, dims in (("small", SPLIT_SMALL),
+                               ("cell", SPLIT_CELL[name])):
+                cfg = RenderConfig(**dims, max_depth=10, seed=SPLIT_SEED,
+                                   **knob)
+                img, k = run(scene, cfg)
+                ref, j = run(scene, cfg.replace(scatter_backend="jnp"))
+                same = bool(torch.equal(img, ref))
+                self.say("11 split " + label, f"{size} {cfg.width}x{cfg.height}"
+                         f"@{cfg.samples}, seed {SPLIT_SEED}: default vs "
+                         f"scatter_backend=\"jnp\" linear bit-equal {same}; "
+                         f"kernel F launches {k['launches']['scatter']} for "
+                         f"{k['bounces']} split bounces (counted "
+                         f"{k['f_counted']} / {k['torch_counted']}; jnp "
+                         f"{j['launches']['scatter']}, counted {j['f_counted']}"
+                         f" / {j['torch_counted']}); hash_uniform01 calls "
+                         f"{k['draws']} for {k['respawns']} batch respawns "
+                         f"(jnp {j['draws']}); device launches a render "
+                         f"{k['device']} (jnp {j['device']}); walls "
+                         f"{k['wall']:.4f} s (jnp {j['wall']:.4f} s); repeat "
+                         f"bit-equal {k['repeat']}/{j['repeat']} [{self.card}]")
+                check(same, f"split {label} {size}: default differs from "
+                      "scatter_backend='jnp'")
+                check(k["repeat"] and j["repeat"],
+                      f"split {label} {size}: a second render differs")
+                check(k["bounces"] == j["bounces"] > 0,
+                      f"split {label} {size}: bounces {k['bounces']} vs "
+                      f"{j['bounces']}")
+                check(k["launches"]["scatter"] == k["f_counted"]
+                      == k["bounces"] and not k["torch_counted"],
+                      f"split {label} {size}: kernel F launches "
+                      f"{k['launches']['scatter']}, bounces {k['bounces']}")
+                check(j["launches"]["scatter"] == j["f_counted"] == 0
+                      and j["torch_counted"] == j["bounces"],
+                      f"split {label} {size}: jnp ran kernel F")
+                check(k["draws"] == k["respawns"] > 0,
+                      f"split {label} {size}: {k['draws']} torch draws for "
+                      f"{k['respawns']} respawns")
+                check(j["draws"] == j["respawns"] + 2 * j["bounces"],
+                      f"split {label} {size}: jnp draws {j['draws']}")
+                if name == "final" and size == "cell":
+                    self.kernels.setdefault("scatter", {})["launches"] = (
+                        k["launches"]["scatter"])
 
     # ---- phase 12 ---------------------------------------------------------
     def flythrough(self):
@@ -2789,7 +2897,7 @@ class Smoke:
                      f"{cfg.samples} accel=grid vs plain mean |diff| {diff:.4f} "
                      f"(must be 0), mean {rk.image.mean():.3f}, launches {got}")
             check(diff == 0.0, f"{label}: grid render differs from plain")
-            check_route(got, GRID_ROUTE, (), f"grid render, {label}")
+            check_route(got, GRID_SPLIT, (), f"grid render, {label}")
 
     def schedule_i(self, g, o, d, t, min_t, rb, cols, what):
         """Kernel I's schedule kernel integer-equal to its plain version:
@@ -2863,7 +2971,7 @@ class Smoke:
                          f"(must be 0), means {rk.image.mean():.3f}/"
                          f"{rp.image.mean():.3f}, launches {got}")
                 check(d == 0.0, f"grid {label}: small render differs from plain")
-                check_route(got, GRID_ROUTE, (), f"small grid {label}")
+                check_route(got, GRID_SPLIT, (), f"small grid {label}")
                 check(got["hit_grid_sched"] == got["hit_grid"],
                       f"grid {label}: schedule {got['hit_grid_sched']} vs "
                       f"sweep {got['hit_grid']} launches")
@@ -2883,7 +2991,7 @@ class Smoke:
                  f"{res.mrays_per_sec:.3f} Mrays/s, image mean {mean:.3f} "
                  f"(170.1 +- 1.5), launches {got} [{self.card}]")
         check(res.image.shape == (800, 1200, 3), f"image shape {res.image.shape}")
-        check_route(got, GRID_ROUTE, (), "headline grid")
+        check_route(got, GRID_SPLIT, (), "headline grid")
         check(got["hit_grid_sched"] == got["hit_grid"],
               f"headline grid: schedule {got['hit_grid_sched']} vs sweep "
               f"{got['hit_grid']} launches")
@@ -2906,14 +3014,16 @@ class Smoke:
             return tonemap(render_image_persistent(sc, cam, c, hit_fn=fn)).cpu().numpy()
         cases = (
             ("v1", lambda: render_scene(scene, cam, c, hit_fn=hit_spheres_pallas),
-             lambda: render_scene(scene, cam, c, hit_fn=hit_spheres), ("hit_cols",)),
+             lambda: render_scene(scene, cam, c, hit_fn=hit_spheres),
+             ("hit_cols", "scatter")),
             ("v2", lambda: render_scene(scene, cam, c, hit_fn=hit_spheres_pallas_v2),
-             lambda: render_scene(scene, cam, c, hit_fn=hit_spheres), ("hit_cols",)),
+             lambda: render_scene(scene, cam, c, hit_fn=hit_spheres),
+             ("hit_cols", "scatter")),
             ("v5", lambda: rows_render(scene, hit_spheres_pallas_v5),
-             lambda: rows_render(scene, hit_spheres_rows_plain), ("hit",)),
+             lambda: rows_render(scene, hit_spheres_rows_plain), ("hit", "scatter")),
             ("hit_grid", lambda: render_scene(gscene, cam, c, hit_fn=hit_spheres_grid_pallas),
              lambda: render_scene(gscene, cam, c, hit_fn=hit_spheres_grid_plain),
-             GRID_ROUTE))
+             GRID_SPLIT))
         for label, run, plain, ran in cases:
             reset_launches()
             t0 = time.perf_counter()
@@ -3082,16 +3192,18 @@ class Smoke:
 
     def until_vs_steps(self, P, args, kw):
         """p_render_until on the card from the staged headline's first
-        stage state against successive p_bounce_step calls: the same exit
+        stage state (its bounces on the batch loop's kernel tail) against
+        successive p_bounce_step calls (the torch chain): the same exit
         step and count and a bit-equal state."""
         scene, cam, st0, salt, step0, target, dims, max_steps = args
         P.HOST_READS = 0
         st_u, step_u, cnt_u = P.p_render_until(*args, **kw)
         reads = P.HOST_READS
+        step_kw = {k: v for k, v in kw.items() if k != "tail"}
         seq, step = st0, step0
         while True:
             step += 1
-            seq = P.p_bounce_step(scene, cam, seq, salt, step, dims, **kw)
+            seq = P.p_bounce_step(scene, cam, seq, salt, step, dims, **step_kw)
             cnt = int(seq.path_alive.sum())
             if cnt <= target or step >= max_steps:
                 break
@@ -3501,7 +3613,7 @@ class Smoke:
 
         base = RenderConfig(**CONFIG4)
         arms = [(label, base.replace(**kw)) for label, kw in TRI_ARMS]
-        path = ("hit", "tri_grid_sched", "tri_grid")
+        path = ("hit", "tri_grid_sched", "tri_grid", "scatter")
         real_kd = D.hit_triangles_grid_rows
         stats = torch.zeros(4, dtype=torch.int64, device=self.dev)
 
@@ -3787,7 +3899,7 @@ def p21_ranks(mesh, card: str, small_means: list) -> None:
     # multi_backend="xla" (the torch chain below the floor).
     routes = {("final", "persistent"): ("bounce",),
               ("test", "persistent"): ("bounce",),
-              ("mesh", "persistent"): ("hit", "tri"),
+              ("mesh", "persistent"): ("hit", "tri", "scatter"),
               ("mesh", "rows"): ("hit_cols", "tri_cols", "draws"),
               ("mesh", "spp"): ("hit_cols", "tri_cols", "draws")}
     saved = P._COMPACT_FLOOR
@@ -3984,15 +4096,16 @@ def p21_single(mesh, card: str) -> None:
 # Phase 11's routes: (label, knob, kernels the route must launch, kernels
 # it may launch besides, the kernel whose main path it is).  Where kernel B
 # runs, the tail below the floor is kernels B-multi and B, no kernel A,
-# unless multi_backend="xla"; the other routes' torch tail may launch
-# kernel A.
+# unless multi_backend="xla"; where it does not, every bounce is the split
+# bounce with kernel F, unless scatter_backend="pallas" keeps the torch
+# tail below the floor, which may launch kernel A.
 ROUTES = (
     ("default", {}, ("bounce", "bounce_multi"), (), "bounce_multi"),
-    ("fuse_bounce=off", dict(fuse_bounce="off"), ("hit_sky",), ("hit",),
+    ("fuse_bounce=off", dict(fuse_bounce="off"), ("hit_sky", "scatter"), (),
      "hit_sky"),
     ("scatter_backend=pallas", dict(scatter_backend="pallas"),
-     ("hit_sky", "scatter"), ("hit",), "scatter"),
-    ("hit_kernel=v4", dict(hit_kernel="v4"), ("hit",), (), None),
+     ("hit_sky", "scatter"), ("hit",), None),
+    ("hit_kernel=v4", dict(hit_kernel="v4"), ("hit", "scatter"), (), None),
     ("multi_backend=xla", dict(multi_backend="xla"), ("bounce",), ("hit",),
      None),
     ("multi_backend=fused", dict(multi_backend="fused"),
@@ -4014,8 +4127,20 @@ TRI_ARMS = (("default", {}),
             ("tri_rebin=dda", dict(tri_rebin="dda")),
             ("tri_rebin=dda, K=12", dict(tri_rebin="dda", tri_dda_k=12)),
             ("tri_sub_gate=2", dict(tri_sub_gate=2)))
-# Kernel I's launches on the sphere grid: schedule kernel, then the sweep.
+# Kernel I's launches on the sphere grid: schedule kernel, then the sweep;
+# kernel F after it (the split bounce's scatter + respawn).
 GRID_ROUTE = ("hit_grid_sched", "hit_grid")
+GRID_SPLIT = GRID_ROUTE + ("scatter",)
+# Phase 11's scenes with no kernel B (name, scene, settings) and sizes: a
+# small one and each cell's (port_bench/configs), on one shared seed.
+SPLIT_SCENES = (("final accel=grid", "final", dict(accel="grid")),
+                ("mesh", "mesh", {}),
+                ("mesh20k", "mesh20k", {}))
+SPLIT_SMALL = dict(width=160, height=120, samples=16)
+SPLIT_CELL = {"final": dict(width=1200, height=800, samples=100),
+              "mesh": dict(width=800, height=450, samples=50),
+              "mesh20k": dict(width=800, height=450, samples=50)}
+SPLIT_SEED = 3054198966
 CONFIG5 = dict(width=640, height=480, samples=32, seed=3)   # bench/configs.py:85-110
 # The small flythrough: config 5's views at 96x72, 8 spp.  Batched against
 # unbatched frames draw other seeds, so only their statistics agree.
@@ -4127,6 +4252,7 @@ def main() -> int:
         smoke.kernel_b_multi()
     if 11 in phases:
         smoke.routes()
+        smoke.split_scatter()
     if 12 in phases:
         smoke.flythrough()
     if 13 in phases:

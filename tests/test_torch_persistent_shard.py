@@ -450,10 +450,17 @@ def test_sharded_tail_counts_by_route(ranks, name):
 
 
 def test_sharded_mesh_keeps_torch_tail(ranks):
-    """A mesh has no kernel B: below the floor the sharded driver keeps
-    the torch chain under the default route."""
+    """A mesh has no kernel B: below the floor the sharded driver runs
+    the split bounce under the default route, its scatter + respawn on
+    kernel F (its plain version here), as above the floor: counted by
+    ``persistent.steps_tail`` and ``persistent.scatter_kernel``, with no
+    kernel B-multi and no torch scatter."""
     got = ranks[4]["composite-calls"]
+    c = got["counters"]
     assert not got["calls"]
-    assert got["counters"]["persistent.steps_tail"] > 0
-    assert "persistent.steps_tail_fused" not in got["counters"]
+    assert c["persistent.steps_tail"] > 0
+    assert "persistent.steps_tail_fused" not in c
+    assert c["persistent.scatter_kernel"] == (
+        c["persistent.steps_tail"] + c.get("persistent.steps_kernel", 0))
+    assert "persistent.scatter_torch" not in c
     np.testing.assert_array_equal(got["image"], ranks[4]["composite"])

@@ -5,7 +5,8 @@ against the JAX package.
 On the CPU the port's "auto" backend takes the routes of the reference's
 Pallas backend, with the kernels' plain versions at their ends, so every
 route runs here; spies on the four route functions show which ran.  The
-reference renders on its jnp backend on the CPU, where these knobs change
+split routes' images are held to ``scatter_backend="jnp"``'s bit for bit.
+The reference renders on its jnp backend on the CPU, where these knobs change
 nothing, so its one image per scene is what every route must match
 statistically.  Where the reference raises (on its Pallas backend), the
 port raises the same exception type.  On the card, chip_smoke.py phase 11
@@ -41,17 +42,19 @@ MAX_DIFF, MIN_R = 0.06, 0.9999
 
 # (knob, value) -> the route functions that run on the final scene.  Where
 # kernel B runs, the tail below the floor takes kernels B-multi and B too,
-# unless multi_backend="xla" keeps the torch chain there.
+# unless multi_backend="xla" keeps the torch chain there.  Where it does
+# not, the split bounce's scatter + respawn is kernel F, unless an explicit
+# scatter_backend="jnp" keeps the torch scatter.
 ROUTES = {
     ("fuse_bounce", "auto"): {"bounce", "bounce_multi"},
     ("fuse_bounce", "on"): {"bounce", "bounce_multi"},
-    ("fuse_bounce", "off"): {"hit_sky"},
+    ("fuse_bounce", "off"): {"hit_sky", "scatter"},
     ("scatter_backend", "auto"): {"bounce", "bounce_multi"},
     ("scatter_backend", "pallas"): {"hit_sky", "scatter"},
     ("scatter_backend", "jnp"): {"hit_sky"},
     ("hit_kernel", "auto"): {"bounce", "bounce_multi"},
-    ("hit_kernel", "v4"): set(),
-    ("hit_kernel", "v6"): set(),
+    ("hit_kernel", "v4"): {"scatter"},
+    ("hit_kernel", "v6"): {"scatter"},
     ("hit_kernel", "v7"): {"bounce", "bounce_multi"},
     ("multi_backend", ""): {"bounce", "bounce_multi"},
     ("multi_backend", "xla"): {"bounce"},
@@ -127,18 +130,35 @@ def test_pallas_scatter_on_a_mesh():
 
 def test_binned_and_triangle_scenes_take_no_fused_route():
     """The fused bounce, its k-bounce and kernel E need a plain sphere
-    table; a binned render takes single steps and no one-shot chunk."""
+    table; the split bounce then takes kernel F at every size, which is no
+    one-shot conflict; a binned render takes single steps and no one-shot
+    chunk."""
     routes = TP.resolve_routes(TC(multi_backend="fused"), object(), "cpu",
                                h_virt=32, kpp=1, bin_box=(0.0,) * 6)
-    assert routes == TP._Routes(None, None, None, None, "off")
+    assert routes == TP._Routes(None, None, None, F.scatter_respawn, True,
+                                "off")
     assert routes.multi is None
+    unbinned = TP.resolve_routes(TC(), object(), "cpu", h_virt=32, kpp=1,
+                                 bin_box=None)
+    assert unbinned.split_tail and unbinned.one_shot == "chunk"
+    # An explicit backend keeps its route: "pallas" kernel F above the
+    # floor only (a one-shot conflict), "jnp" and the plain backend the
+    # torch scatter; pixel ids of 2^24 and up keep the torch scatter.
+    for cfg, scatter in ((TC(scatter_backend="pallas"), F.scatter_respawn),
+                         (TC(scatter_backend="jnp"), None),
+                         (TC(backend="jnp"), None),
+                         (TC(width=4096, height=4096), None)):
+        got = TP.resolve_routes(cfg, object(), "cpu", h_virt=cfg.height,
+                                kpp=1, bin_box=None)
+        assert got.scatter is scatter and not got.split_tail
+        assert got.one_shot == ("off" if scatter else "chunk")
 
 
 def _linear(scene, cam, cfg, spied=()):
     """(linear image, {spied name: [(width, bounces)]}) of a port render
-    with the floor lowered; ``spied`` names attributes of ``TP`` and ``B``
-    whose calls are recorded, except calls inside a recorded call (the
-    plain kernels' own torch bounces)."""
+    with the floor lowered; ``scene`` is a name or a scene; ``spied`` names
+    attributes of ``TP``, ``B`` and ``F`` whose calls are recorded, except
+    calls inside a recorded call (the plain kernels' own torch bounces)."""
     calls, saved, inside = {}, {}, []
 
     def spy(name, fn):
@@ -153,13 +173,16 @@ def _linear(scene, cam, cfg, spied=()):
             finally:
                 inside.pop()
         return wrapped
-    mods = {name: (TP if hasattr(TP, name) else B) for name in spied}
+    mods = {name: next(m for m in (TP, B, F) if hasattr(m, name))
+            for name in spied}
     for name, mod in mods.items():
         saved[name] = getattr(mod, name)
         setattr(mod, name, spy(name, saved[name]))
     floor, TP._COMPACT_FLOOR = TP._COMPACT_FLOOR, FLOOR
     try:
-        img = TP.render_image_persistent(get_scene(scene), cam, TC(**cfg))
+        if isinstance(scene, str):
+            scene = get_scene(scene)
+        img = TP.render_image_persistent(scene, cam, TC(**cfg))
     finally:
         TP._COMPACT_FLOOR = floor
         for name, mod in mods.items():
@@ -204,21 +227,108 @@ def test_default_tail_is_the_torch_chain_bit_for_bit(case):
     assert below == sum(1 for w, _ in ran_x["p_bounce_step"] if w <= FLOOR)
 
 
-@pytest.mark.parametrize("scene,knobs", [
-    ("mesh", {}),
-    ("final", dict(accel="grid", ray_binning="on")),
-], ids=["mesh", "binned_sphere_grid"])
-def test_scenes_without_kernel_b_keep_the_torch_tail(scene, knobs):
-    """A mesh and a binned sphere-grid render have no kernel B: under the
-    default ``multi_backend`` their tail stays the torch chain, with no
-    kernel B-multi."""
-    cfg = dict(KW, **knobs)
-    if scene == "mesh":
-        cfg.update(width=24, height=16)
-    _, ran = _linear(scene, None, cfg, ("bounce", "bounce_multi",
-                                        "p_bounce_step"))
+def _gridded_mesh():
+    """A mesh of 1,292 active triangles, over the grid threshold of 512:
+    the triangle grid (kernel D's plain version here) and ray binning."""
+    from win32_raytracer_tpu_torch.scene.builders import mesh_scene
+    return mesh_scene(subdivisions=3)
+
+
+# Renders with no kernel B: (scene, knobs, the tail span that must run).
+# The mesh is cut to 32x24 (6,144 lanes: above the floor first); the
+# one-shot forms on it: a chunk that starts at or below the floor, the
+# tail finisher and the staged tail.
+SPLIT_CASES = {
+    "mesh": ("mesh", dict(width=32, height=24), "persistent.bounce_tail"),
+    "binned_sphere_grid": ("final", dict(accel="grid", ray_binning="on"),
+                           "persistent.bounce_tail"),
+    "sphere_grid": ("final", dict(accel="grid"), "persistent.bounce_tail"),
+    "mesh_grid": (_gridded_mesh, dict(width=32, height=24),
+                  "persistent.bounce_tail"),
+    "mesh_one_shot_chunk": ("mesh", dict(width=32, height=24,
+                                         rays_per_chunk=2048),
+                            "persistent.one_shot"),
+    "mesh_finisher": ("mesh", dict(width=32, height=24, one_shot="on",
+                                   check_period=2), "persistent.one_shot"),
+    "mesh_staged": ("mesh", dict(width=32, height=24, one_shot="staged",
+                                 check_period=2),
+                    "persistent.staged"),
+}
+_SPLIT = {}
+
+
+def _split_render(case, scatter_backend="auto"):
+    """(linear image, spied calls, the recorder's log) of a SPLIT_CASES
+    render, cached."""
+    from win32_raytracer_tpu_torch.utils import profiling
+    key = (case, scatter_backend)
+    if key not in _SPLIT:
+        scene, knobs, _ = SPLIT_CASES[case]
+        cfg = dict(KW, **knobs, scatter_backend=scatter_backend)
+        with profiling.recording():
+            img, ran = _linear(scene() if callable(scene) else scene, None,
+                               cfg, ("bounce", "bounce_multi",
+                                     "scatter_respawn",
+                                     "p_scatter_respawn_step"))
+        _SPLIT[key] = img, ran, profiling.log()
+    return _SPLIT[key]
+
+
+@pytest.mark.parametrize("scene", list(SPLIT_CASES))
+def test_scenes_without_kernel_b_keep_the_torch_tail(scene):
+    """Meshes, brute and gridded, and the sphere grid, binned and not, have
+    no kernel B and no kernel B-multi: every bounce is the split bounce,
+    whose scatter + respawn is kernel F (its plain version here) above the
+    floor and below it (the host loop's tail, the one-shot chunk, the tail
+    finisher, the staged tail); no torch scatter step runs in the loop; the
+    linear image equals scatter_backend="jnp"'s, whose split bounces run
+    the torch scatter, bit for bit."""
+    got, ran, log = _split_render(scene)
+    want, ran_jnp, _ = _split_render(scene, "jnp")
+    assert got.dtype == torch.float32 and torch.equal(got, want)
     assert "bounce" not in ran and "bounce_multi" not in ran
-    assert any(w <= FLOOR for w, _ in ran["p_bounce_step"])
+    assert "p_scatter_respawn_step" not in ran
+    widths = [w for w, _ in ran["scatter_respawn"]]
+    assert any(w <= FLOOR for w in widths)
+    if "one_shot" not in scene:
+        assert any(w > FLOOR for w in widths)
+    assert SPLIT_CASES[scene][2] in [s["name"] for s in log["spans"]]
+    # The same bounces on the torch scatter under "jnp".
+    assert "scatter_respawn" not in ran_jnp
+    assert sorted(widths) == sorted(w for w, _ in
+                                    ran_jnp["p_scatter_respawn_step"])
+
+
+@pytest.mark.parametrize("case", ["sphere_grid", "mesh_grid"])
+def test_split_bounce_counters_by_scatter(case):
+    """A recorded render with no kernel B counts each split bounce by what
+    ran its scatter + respawn: ``persistent.scatter_kernel`` (kernel F) for
+    every bounce under the default, ``persistent.scatter_torch`` for every
+    one under scatter_backend="jnp"; the steps counters are the same."""
+    (c,) = _split_render(case)[2]["counters"].values()
+    (cj,) = _split_render(case, "jnp")[2]["counters"].values()
+    bounces = c["persistent.steps_kernel"] + c["persistent.steps_tail"]
+    assert c["persistent.steps_tail"] > 0 and c["persistent.steps_kernel"] > 0
+    assert c["persistent.scatter_kernel"] == bounces
+    assert "persistent.scatter_torch" not in c
+    assert cj["persistent.scatter_torch"] == bounces
+    assert "persistent.scatter_kernel" not in cj
+    assert "persistent.steps_tail_fused" not in c
+    for name in ("persistent.steps_kernel", "persistent.steps_tail",
+                 "persistent.lanes_kernel", "persistent.lanes_tail"):
+        assert c[name] == cj[name], name
+
+
+def test_kernel_b_renders_count_no_split_bounce():
+    """Where kernel B runs, above the floor and, through B-multi and B,
+    below it, no bounce is split: neither scatter counter is made."""
+    from win32_raytracer_tpu_torch.utils import profiling
+    with profiling.recording():
+        _linear("final", None, KW)
+    (c,) = profiling.log()["counters"].values()
+    assert c["persistent.steps_tail_fused"] > 0
+    assert "persistent.scatter_kernel" not in c
+    assert "persistent.scatter_torch" not in c
 
 
 # (scene, config, frames): each raises ValueError in both packages.

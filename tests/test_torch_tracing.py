@@ -221,8 +221,11 @@ def test_default_tail_counts_as_fused(one_shot, monkeypatch):
 
 
 def test_mesh_counts_no_fused_tail(monkeypatch):
-    """A mesh has no kernel B: its tail is the torch chain under the
-    default route, with no ``persistent.steps_tail_fused``."""
+    """A mesh has no kernel B: below the floor its bounces are the split
+    bounce, whose scatter + respawn is kernel F (its plain version here),
+    counted by ``persistent.steps_tail`` and, like every split bounce,
+    ``persistent.scatter_kernel``; no ``persistent.steps_tail_fused`` and
+    no ``persistent.scatter_torch``."""
     monkeypatch.setattr(P, "_COMPACT_FLOOR", FLOOR)
     calls = _kernel_spies(monkeypatch)
     with profiling.recording():
@@ -233,6 +236,9 @@ def test_mesh_counts_no_fused_tail(monkeypatch):
     assert not calls
     assert c["persistent.steps_tail"] > 0
     assert "persistent.steps_tail_fused" not in c
+    assert c["persistent.scatter_kernel"] == (
+        c["persistent.steps_tail"] + c.get("persistent.steps_kernel", 0))
+    assert "persistent.scatter_torch" not in c
 
 
 @pytest.mark.parametrize("entry", ["persistent", "wavefront", "api",

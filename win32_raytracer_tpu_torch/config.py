@@ -62,9 +62,11 @@ class RenderConfig:
     # the plain torch ops on any device (the kernels' reference).
     backend: str = "auto"
     # Bounce routes of the persistent scheduler (persistent.resolve_routes):
-    # scatter "pallas" = the scatter + respawn kernel; hit_kernel "v4"/"v6"
-    # = the sphere-hit kernel plus the torch scatter above the floor;
-    # fuse_bounce "off" = the split bounce (hit + sky kernel, then scatter).
+    # scatter "auto" = the scatter + respawn kernel in every split bounce,
+    # "pallas" = that kernel above the floor only, "jnp" = the torch
+    # scatter; hit_kernel "v4"/"v6" = the sphere-hit kernel plus the
+    # scatter; fuse_bounce "off" = the split bounce (hit + sky kernel, then
+    # scatter).
     scatter_backend: str = "auto"   # "auto" | "pallas" | "jnp"
     hit_kernel: str = "auto"        # "auto" | "v4" | "v6" | "v7"
     fuse_bounce: str = "auto"       # "auto" | "on" | "off"

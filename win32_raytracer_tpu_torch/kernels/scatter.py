@@ -2,12 +2,15 @@
 (``csrc/scatter.cu``).
 
 Replaces ``win32_raytracer_tpu/kernels/scatter_pallas.py``
-(``_scatter_respawn_kernel`` via ``scatter_respawn_pallas``), the
-``scatter_backend="pallas"`` step: the material scatter, the depth and
-roulette update and the camera respawn, with the draws made in the kernel.
-It reads the hit record only where a lane is alive and leaves the radiance
-rows alone, so it runs after any hit step: kernel E, kernel A, or the
-composite of a triangle scene.  Bound by memory (csrc/scatter.cu).
+(``_scatter_respawn_kernel`` via ``scatter_respawn_pallas``): the material
+scatter, the depth and roulette update and the camera respawn, with the
+draws made in the kernel.  It reads the hit record only where a lane is
+alive and leaves the radiance rows alone, so it runs after any hit step:
+kernel E, kernel A, the sphere grid, or the composite of a triangle
+scene.  The persistent scheduler runs it in every split bounce of a render
+with no fused bounce, above and below the compaction floor, and above the
+floor only under ``scatter_backend="pallas"``
+(``persistent.resolve_routes``).  Bound by memory (csrc/scatter.cu).
 
 :func:`scatter_respawn` launches the kernel for CUDA tensors and runs the
 plain version, :func:`scatter_respawn_plain`
@@ -71,8 +74,12 @@ def scatter_respawn(cam_rows: torch.Tensor, st: PathState,
         raise ValueError(f"scatter_respawn: unsupported device {dev}")
     n = st.origin.shape[1]
     rows = state_rows(st, dev, with_radiance=False)
-    for f, dt, r in _RECORD:
-        _build.check_tensor(getattr(rec, f), f, dt, (r, n), dev)
+    # The record's rows as the kernel reads them, contiguous: a caller's
+    # hit function may return views (ops/rows.hit_rows_adapter's
+    # transposes of a column hit function's record).
+    record = [getattr(rec, f).contiguous() for f, _, _ in _RECORD]
+    for (f, dt, r), t in zip(_RECORD, record):
+        _build.check_tensor(t, f, dt, (r, n), dev)
     n_frames = check_camera(cam_rows, dev)
 
     out_f = torch.empty((10, n), dtype=torch.float32, device=dev)
@@ -81,7 +88,7 @@ def scatter_respawn(cam_rows: torch.Tensor, st: PathState,
     if n:
         lib = _build.load()
         args = ScatterArgs(
-            rows, *(getattr(rec, f).data_ptr() for f, _, _ in _RECORD),
+            rows, *(t.data_ptr() for t in record),
             cam_rows.data_ptr(), out_f.data_ptr(), out_i.data_ptr(),
             alive.data_ptr(), n, int(salt) & 0xFFFFFFFF, int(np.int32(step)),
             step_params(dims, cfg, n_frames), _build.stream_handle(dev))

@@ -35,16 +35,18 @@ respawn here), which ``multi_backend="xla"`` runs there instead, as the
 reference runs its XLA steps there.  ``fuse_bounce="off"``, an explicit
 ``scatter_backend`` or pixel ids of 2^24 and up split the bounce above
 the floor: the hit + sky kernel (kernels/hit_sky.py), then the scatter +
-respawn kernel (kernels/scatter.py) under ``scatter_backend="pallas"`` or
-the torch scatter, and the torch chain below it.  ``hit_kernel`` "v4" and
-"v6" have neither fused nor hit + sky kernel: the sphere kernel plus the
-scatter at every size.  Kernel B sweeps
+respawn.  ``hit_kernel`` "v4" and "v6" have neither fused nor hit + sky
+kernel: the sphere kernel plus the scatter at every size.  Kernel B sweeps
 spheres only, so a scene with triangles, the sphere grid (``accel="grid"``)
 and an explicit ``hit_fn`` take the two-step bounce at every size, as the
 reference does: the hit function of kernels/dispatch.py (sphere kernel,
 then kernel C or kernel D capped by the sphere hit, merged; or the sphere
-grid's kernels A and I), then scatter and respawn (``p_hit_step``, and
-``p_scatter_respawn_step`` or kernel F).
+grid's kernels A and I), then scatter and respawn (``p_hit_step``, then
+kernel F or ``p_scatter_respawn_step``).  The scatter + respawn of such a
+split bounce is kernel F (kernels/scatter.py) at every size on the
+kernels backend, the same bounce as the torch scatter's, bit for bit;
+``scatter_backend="pallas"`` takes it above the floor only, as the
+reference does, and "jnp" keeps the torch scatter.
 
 Multi-frame batches: a list of cameras renders its frames as one tall
 virtual image, each lane taking the camera of its row's frame.
@@ -291,10 +293,13 @@ def p_bounce_multi_step(scene, cam: Camera, st: PathState, salt, step0,
     return st
 
 
-def count_tail(steps: int, width: int) -> None:
-    """Count ``steps`` torch-tail bounces of ``width`` lanes."""
+def count_tail(steps: int, width: int, scatter: str = "torch") -> None:
+    """Count ``steps`` bounces of ``width`` lanes at or below the floor off
+    kernel B, and what ran their scatter + respawn: "torch" (the torch
+    chain) or "kernel" (kernel F)."""
     count("persistent.steps_tail", steps)
     count("persistent.lanes_tail", steps * width)
+    count("persistent.scatter_" + scatter, steps)
 
 
 # p_render_oneshot reads the alive flag back once per this many bounces.
@@ -312,9 +317,10 @@ def p_render_oneshot(scene, cam: Camera, st: PathState, salt,
     read only every ``_ONESHOT_SYNC`` bounces.  As the tail finisher
     (one_shot="on") it takes over a chunk at ``step0`` from the host loop.
 
-    ``tail(st, salt, step0, k, dims)``, where given, runs each group of
-    bounces on the kernels (the batch loop's kernels B-multi and B);
-    without it the bounces are :func:`p_bounce_step` calls."""
+    ``tail(st, salt, step0, k, dims)``, where given, runs and counts each
+    group of bounces on the kernels (the batch loop's kernels B-multi and
+    B, or the split bounce on kernel F); without it the bounces are
+    :func:`p_bounce_step` calls."""
     step = step0
     while step < max_steps:
         n = min(_ONESHOT_SYNC, max_steps - step)
@@ -328,9 +334,7 @@ def p_render_oneshot(scene, cam: Camera, st: PathState, salt,
                                    hit_fn=hit_fn, lean=lean)
         if _alive_count(st.path_alive)() == 0:
             break
-    if tail is not None:
-        count("persistent.steps_tail_fused", step - step0)
-    else:
+    if tail is None:
         count_tail(step - step0, st.pixel.shape[1])
     return st
 
@@ -362,7 +366,6 @@ def p_render_until(scene, cam: Camera, st: PathState, salt, step0: int,
             step += 1
             if tail is not None:
                 st = tail(st, salt, step, 1, dims)
-                count("persistent.steps_tail_fused", 1)
             else:
                 st = p_bounce_step(scene, cam, st, salt, step, dims, cfg=cfg,
                                    hit_fn=hit_fn, lean=lean)
@@ -892,7 +895,8 @@ class _Routes(NamedTuple):
     fused: object        # kernel B, or its plain version
     multi: object        # kernel B-multi, k bounces per launch
     hit_sky: object      # kernel E, or its plain version
-    scatter: object      # kernel F, or its plain version (scatter "pallas")
+    scatter: object      # kernel F, or its plain version
+    split_tail: bool     # kernel F below the floor too (scatter "auto")
     one_shot: str        # "chunk", "on", "staged" or "off"
 
 
@@ -903,13 +907,20 @@ def resolve_routes(cfg: RenderConfig, hit_scene, device, *, h_virt: int,
     Kernel B (and kernel E) need a plain sphere scene (not the sphere
     grid), ``hit_kernel`` "auto" or "v7" and no caller's hit function
     (``own_hit_fn``); under "v4" and "v6" every above-floor bounce is the
-    hit function (kernel A) plus the scatter.  ``scatter_backend`` "auto"
-    is the torch scatter, "pallas" kernel F.  The whole bounce is fused
+    hit function (kernel A) plus the scatter.  The whole bounce is fused
     unless ``fuse_bounce="off"``, an explicit ``scatter_backend``, or pixel
     ids of 2^24 and up (the reference's ``mosaic_dims_ok``; the CUDA
     kernels divide integers exactly at any size, so here that limit only
     keeps the routes of the two packages the same).  Under the "jnp"
     backend the same routes run with the plain versions at their ends.
+
+    The scatter + respawn of a split bounce: ``scatter_backend="pallas"``
+    is kernel F above the floor (the torch chain below it, a one-shot
+    conflict), "jnp" the torch scatter.  "auto" is kernel F at every size
+    (``split_tail``) on the kernels backend wherever the render has no
+    fused bounce and the pixel ids fit: one launch in place of the torch
+    scatter, respawn and draws, the same bounce bit for bit, so that no
+    image, one-shot form or draw moves.
 
     Kernel B-multi (``multi``) is set wherever kernel B is, unless
     ``multi_backend="xla"``.  At or below the floor the reference resolves
@@ -957,6 +968,10 @@ def resolve_routes(cfg: RenderConfig, hit_scene, device, *, h_virt: int,
     scatter = None
     if pallas_scatter:
         scatter = F.scatter_respawn if kernels else F.scatter_respawn_plain
+    split_tail = (kernels and fused is None and mosaic_dims_ok
+                  and cfg.scatter_backend == "auto")
+    if split_tail:
+        scatter = F.scatter_respawn
     # One shot: "auto" runs chunks that start at or below the floor whole
     # ("chunk"); "on" also hands an above-floor chunk's tail to the
     # finisher, "staged" to p_render_until stages.  Each needs bounces with
@@ -973,7 +988,7 @@ def resolve_routes(cfg: RenderConfig, hit_scene, device, *, h_virt: int,
                          + ", ".join(conflicts))
     if one_shot == "auto":
         one_shot = "off" if conflicts else "chunk"
-    return _Routes(fused, multi, hit_sky, scatter, one_shot)
+    return _Routes(fused, multi, hit_sky, scatter, split_tail, one_shot)
 
 
 def fresh_state(pixel: torch.Tensor, s_base: torch.Tensor,
@@ -1156,9 +1171,10 @@ class _Loop:
     step, the worst count) after a stage of the staged tail;
     ``multi_above``, kernel B-multi above the floor too (under
     ``multi_backend="fused"``); and ``floor_kernel``, the reference's rule
-    that a batch of exactly ``floor`` lanes with no kernel tail takes
-    kernel B or the split bounce for the single steps after its torch
-    k-bounces.  ``receivers`` (redistribute="on") is one card's."""
+    that a batch of exactly ``floor`` lanes with no kernel tail (neither
+    kernel B-multi nor kernel F below the floor) takes kernel B or the
+    split bounce for the single steps after its torch k-bounces.
+    ``receivers`` (redistribute="on") is one card's."""
 
     def __init__(self, r: _Render, cfg: RenderConfig, *, floor: int,
                  min_lanes: int, ranks: int = 1, start_count=_count_one,
@@ -1170,8 +1186,9 @@ class _Loop:
         self.stage_sync = stage_sync or (lambda step, cnt: (step, cnt))
         self.receivers = receivers
         self.multi_above, self.floor_kernel = multi_above, floor_kernel
-        # A flag: the bound method kept here would be a reference cycle.
+        # Flags: the bound method kept here would be a reference cycle.
         self.has_tail = r.routes.multi is not None
+        self.kernel_tail = self.has_tail or r.routes.split_tail
         self.use_route = (cfg.compactor or "sort") == "route"
         self.flush_mode = cfg.flush_mode or "scatter"
         self.check_period = cfg.check_period or 8
@@ -1197,21 +1214,21 @@ class _Loop:
     def do_steps(self, st, k, step, salt, dims):
         """``k`` bounces after ``step``; returns (state, step).  Above the
         floor: kernel B or the split bounce (:meth:`_kernel_steps`).  At or
-        below it: kernels B-multi and B (:meth:`fused_tail`) where the
-        render has them, else the torch chain (:meth:`_torch_steps`), which
+        below it: the kernel tail (:meth:`tail_bounces`) where the render
+        has one, else the torch chain (:meth:`_torch_steps`), which
         ``floor_kernel`` parts at the floor.  Spans go by the floor (every
         bounce at or below it is "persistent.bounce_tail"), counters by
         route: kernel B, B-multi and the split bounce above the floor are
-        "kernel", kernels below it "tail_fused", the torch steps "tail"."""
+        "kernel", kernels B-multi and B below it "tail_fused", the split
+        bounce and the torch steps below it "tail"."""
         if k <= 0:
             return st, step
         width = st.pixel.shape[1]
         if width > self.floor:
             return self._kernel_steps(st, k, step, salt, dims)
-        if self.has_tail:
+        if self.kernel_tail:
             with span("persistent.bounce_tail"):
-                st = self.fused_tail(st, salt, step + 1, k, dims)
-                count("persistent.steps_tail_fused", k)
+                st = self.tail_bounces(st, salt, step + 1, k, dims)
             return st, step + k
         if self.floor_kernel and width == self.floor:
             n = 0 if self.r.bin_box is not None else k - k % self.mk
@@ -1246,12 +1263,29 @@ class _Loop:
                         st = self._split_bounce(st, salt, s, dims)
         count("persistent.steps_kernel", k)
         count("persistent.lanes_kernel", k * width)
+        if r.routes.fused is None:
+            count("persistent.scatter_kernel" if r.routes.scatter is not None
+                  else "persistent.scatter_torch", k)
         return st, step + k
 
+    def tail_bounces(self, st, salt, step0, k, dims):
+        """``k`` bounces at or below the floor at steps step0..step0+k-1 on
+        the kernel tail, counted: kernels B-multi and B where the render
+        has them, else the split bounce on kernel F (the bin sort before
+        each bounce of a binned render), with no host read between the
+        bounces.  The batch loop's, the one-shot's and the staged tail's
+        hook (``tail``)."""
+        if self.has_tail:
+            count("persistent.steps_tail_fused", k)
+            return self.fused_tail(st, salt, step0, k, dims)
+        count_tail(k, st.pixel.shape[1], "kernel")
+        for s in range(step0, step0 + k):
+            st = self._split_bounce(self._bin(st, s), salt, s, dims)
+        return st
+
     def _split_bounce(self, st, salt, step, dims):
-        """An above-floor bounce with no fused kernel: hit (+ sky: kernel
-        E, or the hit function), then scatter + respawn (kernel F, or
-        torch)."""
+        """A bounce with no fused kernel: hit (+ sky: kernel E, or the hit
+        function), then scatter + respawn (kernel F, or torch)."""
         r, cfg = self.r, self.cfg
         if r.routes.hit_sky is not None:
             rec, st = r.routes.hit_sky(r.hit_scene, st, cfg=cfg)
@@ -1264,8 +1298,9 @@ class _Loop:
                                       cfg=cfg, lean=self.lean)
 
     def _torch_steps(self, st, k, step, salt, dims):
-        """``k`` bounces of the torch chain: ``mk`` at a time when unbinned
-        (a k-bounce would run on stale bins), then single steps."""
+        """``k`` bounces of the torch chain (a render with no kernel tail):
+        ``mk`` at a time when unbinned (a k-bounce would run on stale
+        bins), then single steps."""
         r, cfg = self.r, self.cfg
         with span("persistent.bounce_tail"):
             count_tail(k, st.pixel.shape[1])
@@ -1309,7 +1344,7 @@ class _Loop:
             return (_split(st) if split else st), accum
 
     def _tail(self):
-        return self.fused_tail if self.has_tail else None
+        return self.tail_bounces if self.kernel_tail else None
 
     def one_shot(self, st, salt, step, ph):
         r = self.r
