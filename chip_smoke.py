@@ -1013,11 +1013,22 @@ class Smoke:
             fp = B.bounce_plain(*args, cfg=cfg, lean=lean)
             lanes, err = exact_cmp(tuple(B.bounce(*args, cfg=cfg, lean=lean)),
                                    tuple(fp))
+            # The counting form (stats): the same state, and the live lanes
+            # and roulette kills the plain bounce counts from its masks.
+            sk_, sp_ = (torch.zeros(2, dtype=torch.int64, device=dev)
+                        for _ in range(2))
+            cl, ce = exact_cmp(tuple(B.bounce(*args, cfg=cfg, lean=lean,
+                                              stats=sk_)), tuple(fp))
+            B.bounce_plain(*args, cfg=cfg, lean=lean, stats=sp_)
             self.say("3 kernel B", f"lean={lean}, {kind} table: {n} random "
                      f"lanes at {w}x{h}, kpp {kpp}: {lanes} lanes differ, "
-                     f"max |err| {err:.1e}")
+                     f"max |err| {err:.1e}; with stats {cl} lanes differ, "
+                     f"[live, kills] {sk_.tolist()} (plain {sp_.tolist()})")
             check(lanes == 0 and err == 0.0,
                   f"kernel B lean={lean} {kind}: {lanes} lanes, {err}")
+            check(cl == 0 and ce == 0.0 and torch.equal(sk_, sp_),
+                  f"kernel B stats lean={lean} {kind}: {cl} lanes, "
+                  f"{sk_.tolist()} vs {sp_.tolist()}")
 
     # ---- phase 4 ----------------------------------------------------------
     def small_render(self):
@@ -1980,15 +1991,24 @@ class Smoke:
         rst = random_state(dev, 1 << 18, spp // kpp, seed=31)
         rcams = B.pack_cameras(orbit_path(n_frames=3, aspect_ratio=w / h, device=dev))
         rargs = (table, rcams, rst, 0xABC123, 4, make_dims(rcfg, w, h, spp, kpp))
+        rp = B.bounce_multi_plain(*rargs, cfg=rcfg, k=k, lean=False)
         res["random, roulette, 3 cameras, vs plain"] = exact_cmp(
-            B.bounce_multi(*rargs, cfg=rcfg, k=k, lean=False),
-            B.bounce_multi_plain(*rargs, cfg=rcfg, k=k, lean=False))
+            B.bounce_multi(*rargs, cfg=rcfg, k=k, lean=False), rp)
+        # The counting form: the same state, and the plain version's counts.
+        sk_, sp_ = (torch.zeros(2, dtype=torch.int64, device=dev)
+                    for _ in range(2))
+        res["roulette with stats, vs plain"] = exact_cmp(
+            B.bounce_multi(*rargs, cfg=rcfg, k=k, lean=False, stats=sk_), rp)
+        B.bounce_multi_plain(*rargs, cfg=rcfg, k=k, lean=False, stats=sp_)
         self.say("10 kernel B-multi", f"k={k} at {m} lanes (live before each "
                  f"bounce {live}): " + "; ".join(
                      f"{name} {d} lanes differ, max |err| {e:.3e}"
-                     for name, (d, e) in res.items()))
+                     for name, (d, e) in res.items())
+                 + f"; [live, kills] {sk_.tolist()} (plain {sp_.tolist()})")
         for name, (d, e) in res.items():
             check(d == 0 and e == 0.0, f"kernel B-multi {name}: {d} lanes, {e}")
+        check(torch.equal(sk_, sp_) and sk_[1] > 0,
+              f"kernel B-multi stats {sk_.tolist()} vs {sp_.tolist()}")
 
         ms = cuda_ms(lambda: B.bounce_multi(*args, cfg=cfg, k=k, lean=True), 20)
         four = cuda_ms(four_launches, 20)

@@ -31,6 +31,13 @@
 // lanes skip the sweep (they only help stage tiles) since their hit record
 // is never read.  (Two lanes per thread read slower on the headline's
 // second bounce.)
+//
+// Counts: launched with a `stats` buffer (the port passes one only while a
+// render records), each bounce adds its lanes whose path is alive when the
+// bounce starts to stats[0] and the paths the roulette ends to stats[1],
+// one atomic a warp each (csrc/common.cuh warp_count).  The counting
+// instantiation is a template of its own (STATS), so the one launched
+// without a buffer compiles to the kernel with no counts.
 #include "common.cuh"
 
 using namespace wrt;
@@ -51,12 +58,13 @@ struct BounceArgs {
   int32_t step;             // the (first) bounce's step index
   float min_t;
   StepParams p;
+  unsigned long long* stats;  // [2]: live lanes swept, roulette kills; or null
   void* stream;
 };
 
 // One bounce of lane i (every thread of the block calls it: the sweep
 // stages tiles behind __syncthreads).
-template <bool LEAN>
+template <bool LEAN, bool STATS>
 __device__ __forceinline__ void bounce_lane(const BounceArgs& a, PackedTile& sh,
                                             bool on, long long i, int32_t step,
                                             Lane& st) {
@@ -73,6 +81,7 @@ __device__ __forceinline__ void bounce_lane(const BounceArgs& a, PackedTile& sh,
   int best_i[1];
   sweep_packed<1>(a.attrs, a.active, a.n_spheres, sh, on && st.alive, ry,
                   a.min_t, best_t, best_i);
+  if (STATS) warp_count(a.stats, on && st.alive);
   if (!on) return;
 
   const HitRec h = winner_record(a.attrs, best_t[0], best_i[0], st.o[0],
@@ -82,21 +91,22 @@ __device__ __forceinline__ void bounce_lane(const BounceArgs& a, PackedTile& sh,
 
   float u[10];
   draws(a.salt, step, (uint32_t)i, u);
-  scatter_respawn<LEAN>(a.p, a.cam, h, u, st);
+  const bool rr_kill = scatter_respawn<LEAN>(a.p, a.cam, h, u, st);
+  if (STATS) warp_count(a.stats + 1, rr_kill);
 }
 
-template <bool LEAN>
+template <bool LEAN, bool STATS>
 __global__ void __launch_bounds__(kBlock) bounce_kernel(const BounceArgs a) {
   __shared__ PackedTile sh;
   const long long n = a.n;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const bool on = i < n;
   Lane st = load_lane(a.in, on ? i : 0, n);  // idle threads help stage tiles
-  bounce_lane<LEAN>(a, sh, on, i, a.step, st);
+  bounce_lane<LEAN, STATS>(a, sh, on, i, a.step, st);
   if (on) store_lane(st, i, n, true, a.out_f, a.out_i, a.out_alive);
 }
 
-template <bool LEAN>
+template <bool LEAN, bool STATS>
 __global__ void __launch_bounds__(kBlock) bounce_multi_kernel(const BounceArgs a,
                                                               int k) {
   __shared__ PackedTile sh;
@@ -104,18 +114,37 @@ __global__ void __launch_bounds__(kBlock) bounce_multi_kernel(const BounceArgs a
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const bool on = i < n;
   Lane st = load_lane(a.in, on ? i : 0, n);
-  for (int b = 0; b < k; ++b) bounce_lane<LEAN>(a, sh, on, i, a.step + b, st);
+  for (int b = 0; b < k; ++b)
+    bounce_lane<LEAN, STATS>(a, sh, on, i, a.step + b, st);
   if (on) store_lane(st, i, n, true, a.out_f, a.out_i, a.out_alive);
+}
+
+template <bool STATS>
+static void launch_bounce(const BounceArgs* a, bool lean, unsigned grid,
+                          cudaStream_t stream) {
+  if (lean)
+    bounce_kernel<true, STATS><<<grid, kBlock, 0, stream>>>(*a);
+  else
+    bounce_kernel<false, STATS><<<grid, kBlock, 0, stream>>>(*a);
+}
+
+template <bool STATS>
+static void launch_bounce_multi(const BounceArgs* a, bool lean, int k,
+                                unsigned grid, cudaStream_t stream) {
+  if (lean)
+    bounce_multi_kernel<true, STATS><<<grid, kBlock, 0, stream>>>(*a, k);
+  else
+    bounce_multi_kernel<false, STATS><<<grid, kBlock, 0, stream>>>(*a, k);
 }
 
 extern "C" int wrt_bounce(const BounceArgs* a, int lean) {
   if (a->n <= 0) return 0;
   const unsigned grid = (unsigned)((a->n + kBlock - 1) / kBlock);
   cudaStream_t stream = (cudaStream_t)a->stream;
-  if (lean)
-    bounce_kernel<true><<<grid, kBlock, 0, stream>>>(*a);
+  if (a->stats != nullptr)
+    launch_bounce<true>(a, lean != 0, grid, stream);
   else
-    bounce_kernel<false><<<grid, kBlock, 0, stream>>>(*a);
+    launch_bounce<false>(a, lean != 0, grid, stream);
   return (int)cudaGetLastError();
 }
 
@@ -123,9 +152,9 @@ extern "C" int wrt_bounce_multi(const BounceArgs* a, int lean, int k) {
   if (a->n <= 0 || k <= 0) return 0;
   const unsigned grid = (unsigned)((a->n + kBlock - 1) / kBlock);
   cudaStream_t stream = (cudaStream_t)a->stream;
-  if (lean)
-    bounce_multi_kernel<true><<<grid, kBlock, 0, stream>>>(*a, k);
+  if (a->stats != nullptr)
+    launch_bounce_multi<true>(a, lean != 0, k, grid, stream);
   else
-    bounce_multi_kernel<false><<<grid, kBlock, 0, stream>>>(*a, k);
+    launch_bounce_multi<false>(a, lean != 0, k, grid, stream);
   return (int)cudaGetLastError();
 }

@@ -956,15 +956,17 @@ __device__ __forceinline__ void scatter(const StepParams& p, const HitRec& h,
 
 // One lane's scatter, depth / roulette update and respawn.  `st.alive` is
 // the post-hit alive flag on entry and the lane's new alive flag on exit;
-// `cams` is [p.n_frames, CAM_ROWS].
+// `cams` is [p.n_frames, CAM_ROWS].  Returns whether the roulette ended the
+// path (never under LEAN); a caller that does not count drops it.
 template <bool LEAN>
-__device__ __forceinline__ void scatter_respawn(const StepParams& p,
+__device__ __forceinline__ bool scatter_respawn(const StepParams& p,
                                                 const float* __restrict__ cams,
                                                 const HitRec& h,
                                                 const float u[10], Lane& st) {
   // --- scatter and state update (persistent._scatter_core) ---
   const bool live = st.alive;
   bool alive = false;
+  bool rr_kill = false;
   if (live) {
     float no[3], nd[3], att[3];
     bool sc_alive;
@@ -982,6 +984,7 @@ __device__ __forceinline__ void scatter_respawn(const StepParams& p,
       if (alive && st.depth >= p.rr_start) {
         for (int c = 0; c < 3; ++c) st.thr[c] = st.thr[c] / pr;
         alive = u[4] < pr;
+        rr_kill = !alive;
       }
     }
   }
@@ -1026,6 +1029,16 @@ __device__ __forceinline__ void scatter_respawn(const StepParams& p,
     st.depth = 0;
   }
   st.alive = alive || start;
+  return rr_kill;
+}
+
+// Adds to *dst the lanes of the calling warp that set `pred`: one atomic a
+// warp, by its lowest active lane.
+__device__ __forceinline__ void warp_count(unsigned long long* dst, bool pred) {
+  const unsigned active = __activemask();
+  const unsigned votes = __ballot_sync(active, pred);
+  if (votes != 0u && (int)(threadIdx.x & 31) == __ffs(active) - 1)
+    atomicAdd(dst, (unsigned long long)__popc(votes));
 }
 
 }  // namespace wrt

@@ -16,6 +16,13 @@ The camera operand is [CAM_ROWS] for one camera or [F, CAM_ROWS] for a
 multi-frame batch (:func:`pack_cameras`); the kernels pick each lane's
 camera from its pixel row.
 
+``stats``, an int64 [2] tensor on the lanes' device or None, gains per
+bounce the lanes whose path is alive when the bounce starts ([0]) and the
+paths the roulette ends ([1]) (``persistent.BOUNCE_STATS``); the batch
+loop passes one only while a render that stratifies or plays the roulette
+records.  Without it the kernels are launched in their form that counts
+nothing.
+
 :func:`bounce` and :func:`bounce_multi` launch their kernels for CUDA
 tensors and run their plain versions, :func:`bounce_plain` and
 :func:`bounce_multi_plain` (``persistent.p_bounce_step`` and
@@ -80,21 +87,22 @@ def n_frames_of(cam_rows: torch.Tensor) -> int:
 
 def bounce_plain(table: SphereTable, cam_rows: torch.Tensor, st: PathState,
                  salt, step, dims: Dims, *, cfg: RenderConfig,
-                 lean: bool = False) -> PathState:
+                 lean: bool = False, stats=None) -> PathState:
     """The plain bounce: hit + sky, scatter, respawn in torch ops."""
     return p_bounce_step(table, unpack_camera(cam_rows), st, salt, step,
                          dims, cfg=cfg, hit_fn=hit_spheres_rows_plain,
-                         lean=lean)
+                         lean=lean, stats=stats)
 
 
 def bounce_multi_plain(table: SphereTable, cam_rows: torch.Tensor,
                        st: PathState, salt, step0, dims: Dims, *,
                        cfg: RenderConfig, k: int = _MULTI_K,
-                       lean: bool = False) -> PathState:
+                       lean: bool = False, stats=None) -> PathState:
     """The plain k-bounce: ``k`` plain bounces at steps step0..step0+k-1."""
     return p_bounce_multi_step(table, unpack_camera(cam_rows), st, salt,
                                step0, dims, cfg=cfg,
-                               hit_fn=hit_spheres_rows_plain, k=k, lean=lean)
+                               hit_fn=hit_spheres_rows_plain, k=k, lean=lean,
+                               stats=stats)
 
 
 class StepParams(ctypes.Structure):  # csrc/common.cuh StepParams
@@ -159,13 +167,13 @@ class BounceArgs(ctypes.Structure):  # csrc/bounce.cu BounceArgs
                 ("n", ctypes.c_longlong), ("n_spheres", ctypes.c_int),
                 ("salt", ctypes.c_uint32), ("step", ctypes.c_int32),
                 ("min_t", ctypes.c_float), ("p", StepParams),
-                ("stream", ctypes.c_void_p)]
+                ("stats", ctypes.c_void_p), ("stream", ctypes.c_void_p)]
 
 
 def _launch(table: SphereTable, cam_rows: torch.Tensor, st: PathState, salt,
-            step, dims: Dims, cfg: RenderConfig, lean: bool, k: int):
+            step, dims: Dims, cfg: RenderConfig, lean: bool, k: int, stats):
     """Launch bounce_kernel (k == 0) or bounce_multi_kernel (k bounces) on
-    CUDA tensors; returns the new state, or None if nothing launched."""
+    CUDA tensors; returns the new state and whether anything launched."""
     dev = st.origin.device
     if dev.type != "cuda":
         raise ValueError(f"bounce: unsupported device {dev}")
@@ -175,6 +183,8 @@ def _launch(table: SphereTable, cam_rows: torch.Tensor, st: PathState, salt,
     _build.check_tensor(table.attrs, "attrs", torch.float32, (s, ATTR_COLS), dev)
     _build.check_tensor(table.active, "active", torch.bool, (s,), dev)
     n_frames = check_camera(cam_rows, dev)
+    if stats is not None:
+        _build.check_tensor(stats, "stats", torch.int64, (2,), dev)
 
     out_f = torch.empty((13, n), dtype=torch.float32, device=dev)
     out_i = torch.empty((2, n), dtype=torch.int32, device=dev)
@@ -187,7 +197,9 @@ def _launch(table: SphereTable, cam_rows: torch.Tensor, st: PathState, salt,
             cam_rows.data_ptr(), out_f.data_ptr(), out_i.data_ptr(),
             alive.data_ptr(), n, s, int(salt) & 0xFFFFFFFF,
             int(np.int32(step)), float(cfg.min_hit_t),
-            step_params(dims, cfg, n_frames), _build.stream_handle(dev))
+            step_params(dims, cfg, n_frames),
+            None if stats is None else stats.data_ptr(),
+            _build.stream_handle(dev))
         if k:
             _build.check(lib.wrt_bounce_multi(ctypes.addressof(args),
                                               int(lean), k), "bounce_multi")
@@ -204,21 +216,23 @@ def _launch(table: SphereTable, cam_rows: torch.Tensor, st: PathState, salt,
 
 def bounce(table: SphereTable, cam_rows: torch.Tensor, st: PathState, salt,
            step, dims: Dims, *, cfg: RenderConfig,
-           lean: bool = False) -> PathState:
+           lean: bool = False, stats=None) -> PathState:
     """One bounce (hit + sky + scatter + respawn) of every lane of ``st``;
     ``salt`` / ``step`` key the draws as in ``persistent._scatter_core``."""
     global LAUNCHES
     if st.origin.device.type == "cpu":
         return bounce_plain(table, cam_rows, st, salt, step, dims, cfg=cfg,
-                            lean=lean)
-    new, launched = _launch(table, cam_rows, st, salt, step, dims, cfg, lean, 0)
+                            lean=lean, stats=stats)
+    new, launched = _launch(table, cam_rows, st, salt, step, dims, cfg, lean,
+                            0, stats)
     LAUNCHES += launched
     return new
 
 
 def bounce_multi(table: SphereTable, cam_rows: torch.Tensor, st: PathState,
                  salt, step0, dims: Dims, *, cfg: RenderConfig,
-                 k: int = _MULTI_K, lean: bool = False) -> PathState:
+                 k: int = _MULTI_K, lean: bool = False,
+                 stats=None) -> PathState:
     """``k`` bounces of every lane at steps step0..step0+k-1 in one launch;
     equal to ``k`` calls of :func:`bounce`."""
     global MULTI_LAUNCHES
@@ -226,8 +240,8 @@ def bounce_multi(table: SphereTable, cam_rows: torch.Tensor, st: PathState,
         raise ValueError(f"bounce_multi: k must be >= 1, got {k}")
     if st.origin.device.type == "cpu":
         return bounce_multi_plain(table, cam_rows, st, salt, step0, dims,
-                                  cfg=cfg, k=k, lean=lean)
+                                  cfg=cfg, k=k, lean=lean, stats=stats)
     new, launched = _launch(table, cam_rows, st, salt, step0, dims, cfg,
-                            lean, k)
+                            lean, k, stats)
     MULTI_LAUNCHES += launched
     return new

@@ -158,9 +158,25 @@ def _hit_core(scene, st: PathState, *, cfg: RenderConfig, hit_fn):
                             path_alive=st.path_alive & rec.hit)
 
 
+# A render's bounce counters (``profiling.device_counters`` slots): the
+# lanes whose path is alive when their bounce starts, and the paths the
+# roulette ends.  Kernels B and B-multi add into the buffer on the card
+# (``kernels/bounce.py``), the torch chain from its masks (:func:`_tally`);
+# the batch loop makes one buffer a render while it records, for renders
+# with kernel B that stratify or play the roulette (:class:`_Loop`).
+BOUNCE_STATS = {0: "persistent.live_lanes", 1: "persistent.rr_kills"}
+
+
+def _tally(stats: Optional[torch.Tensor], slot: int, mask) -> None:
+    """Add the lanes ``mask`` sets to ``stats[slot]`` on the device (no
+    host read); nothing without a buffer."""
+    if stats is not None:
+        stats.narrow(0, slot, 1).add_(mask.sum())
+
+
 def _scatter_core(st: PathState, rec: HitRecordRows, salt, step_i,
                   dims: Dims, *, cfg: RenderConfig,
-                  lean: bool = False) -> PathState:
+                  lean: bool = False, stats=None) -> PathState:
     n = st.origin.shape[1]
     draws = hash_uniform01((5, n), salt, step_i, 0x5CA77E12,
                            device=st.origin.device)
@@ -180,6 +196,8 @@ def _scatter_core(st: PathState, rec: HitRecordRows, salt, step_i,
         survive = draws[4:5] < p
         thr = torch.where(rr_on, thr / p, thr)
         alive = alive & torch.where(rr_on, survive, True)
+        if stats is not None:
+            _tally(stats, 1, rr_on & ~survive)
 
     return st._replace(origin=o, direction=d, throughput=thr, depth=depth,
                        path_alive=alive)
@@ -263,20 +281,23 @@ p_hit_step = _hit_core
 
 def p_scatter_respawn_step(cam: Camera, st: PathState, rec: HitRecordRows,
                            salt, step_i, dims: Dims, *, cfg: RenderConfig,
-                           lean: bool = False) -> PathState:
-    """Scatter + respawn after a hit step."""
-    st = _scatter_core(st, rec, salt, step_i, dims, cfg=cfg, lean=lean)
+                           lean: bool = False, stats=None) -> PathState:
+    """Scatter + respawn after a hit step; ``stats`` gains the roulette's
+    kills (:data:`BOUNCE_STATS`)."""
+    st = _scatter_core(st, rec, salt, step_i, dims, cfg=cfg, lean=lean,
+                       stats=stats)
     return _respawn_core(cam, st, salt, step_i, dims, cfg=cfg, lean=lean)
 
 
 def p_bounce_step(scene, cam: Camera, st: PathState, salt, step_i,
                   dims: Dims, *, cfg: RenderConfig, hit_fn,
-                  lean: bool = False) -> PathState:
+                  lean: bool = False, stats=None) -> PathState:
     """Hit + scatter + respawn, one bounce; ``scene`` is what ``hit_fn``
-    reads."""
+    reads.  ``stats`` gains kernel B's counts (:data:`BOUNCE_STATS`)."""
+    _tally(stats, 0, st.path_alive)
     rec, st = p_hit_step(scene, st, cfg=cfg, hit_fn=hit_fn)
     return p_scatter_respawn_step(cam, st, rec, salt, step_i, dims, cfg=cfg,
-                                  lean=lean)
+                                  lean=lean, stats=stats)
 
 
 # Bounces per below-floor multi-step (cfg.multi_k = 0).
@@ -285,11 +306,12 @@ _MULTI_K = 4
 
 def p_bounce_multi_step(scene, cam: Camera, st: PathState, salt, step0,
                         dims: Dims, *, cfg: RenderConfig, hit_fn,
-                        k: int = _MULTI_K, lean: bool = False) -> PathState:
+                        k: int = _MULTI_K, lean: bool = False,
+                        stats=None) -> PathState:
     """``k`` bounces at steps step0..step0+k-1."""
     for i in range(k):
         st = p_bounce_step(scene, cam, st, salt, step0 + i, dims, cfg=cfg,
-                           hit_fn=hit_fn, lean=lean)
+                           hit_fn=hit_fn, lean=lean, stats=stats)
     return st
 
 
@@ -309,7 +331,7 @@ _ONESHOT_SYNC = 8
 def p_render_oneshot(scene, cam: Camera, st: PathState, salt,
                      step0: int, dims: Dims, max_steps: int, *,
                      cfg: RenderConfig, hit_fn, lean: bool = False,
-                     tail=None) -> PathState:
+                     tail=None, stats=None) -> PathState:
     """A whole lane chunk to completion: bounces step0+1.. until every lane
     is dead or ``max_steps``.  After a bounce a dead lane has spent its
     quota (the bounce's respawn would have revived it otherwise), so the
@@ -320,7 +342,7 @@ def p_render_oneshot(scene, cam: Camera, st: PathState, salt,
     ``tail(st, salt, step0, k, dims)``, where given, runs and counts each
     group of bounces on the kernels (the batch loop's kernels B-multi and
     B, or the split bounce on kernel F); without it the bounces are
-    :func:`p_bounce_step` calls."""
+    :func:`p_bounce_step` calls, which add into ``stats``."""
     step = step0
     while step < max_steps:
         n = min(_ONESHOT_SYNC, max_steps - step)
@@ -331,7 +353,7 @@ def p_render_oneshot(scene, cam: Camera, st: PathState, salt,
             for _ in range(n):
                 step += 1
                 st = p_bounce_step(scene, cam, st, salt, step, dims, cfg=cfg,
-                                   hit_fn=hit_fn, lean=lean)
+                                   hit_fn=hit_fn, lean=lean, stats=stats)
         if _alive_count(st.path_alive)() == 0:
             break
     if tail is None:
@@ -346,7 +368,8 @@ _UNTIL_AHEAD = 2
 
 def p_render_until(scene, cam: Camera, st: PathState, salt, step0: int,
                    alive_target: int, dims: Dims, max_steps: int, *,
-                   cfg: RenderConfig, hit_fn, lean: bool = False, tail=None):
+                   cfg: RenderConfig, hit_fn, lean: bool = False, tail=None,
+                   stats=None):
     """One stage of the staged tail (one_shot="staged"): bounces step0+1..
     until the alive count after a bounce is <= ``alive_target``, or
     ``max_steps``; returns (state, step, alive count) at that bounce.
@@ -368,7 +391,7 @@ def p_render_until(scene, cam: Camera, st: PathState, salt, step0: int,
                 st = tail(st, salt, step, 1, dims)
             else:
                 st = p_bounce_step(scene, cam, st, salt, step, dims, cfg=cfg,
-                                   hit_fn=hit_fn, lean=lean)
+                                   hit_fn=hit_fn, lean=lean, stats=stats)
                 count_tail(1, st.pixel.shape[1])
             queue.append((st, step, _alive_count(st.path_alive)))
         st_k, step_k, read = queue.pop(0)
@@ -1197,6 +1220,16 @@ class _Loop:
         # Stratify off and roulette off are identities the steps can drop.
         self.lean = (not (cfg.stratify and cfg.samples > 1)
                      and not cfg.russian_roulette)
+        # While the render records, has kernel B and stratifies or plays
+        # the roulette: its counters (BOUNCE_STATS), one buffer that kernels
+        # B and B-multi, their plain versions and the torch chain add into,
+        # read once at the render's end; None otherwise.  A lean render
+        # kills no path, and without the buffer's fill and copy its trace
+        # keeps the launches it had before the counters.
+        self.stats = (profiling.device_counters(BOUNCE_STATS, 2,
+                                                r.cam_rows.device)
+                      if r.routes.fused is not None and not self.lean
+                      else None)
 
     def fused_tail(self, st, salt, step0, k, dims):
         """``k`` bounces at steps step0..step0+k-1: runs of ``mk`` on kernel
@@ -1204,11 +1237,12 @@ class _Loop:
         r, cfg = self.r, self.cfg
         while k >= self.mk:
             st = r.routes.multi(r.hit_scene, r.cam_rows, st, salt, step0, dims,
-                                cfg=cfg, k=self.mk, lean=self.lean)
+                                cfg=cfg, k=self.mk, lean=self.lean,
+                                stats=self.stats)
             step0, k = step0 + self.mk, k - self.mk
         for step in range(step0, step0 + k):
             st = r.routes.fused(r.hit_scene, r.cam_rows, st, salt, step, dims,
-                                cfg=cfg, lean=self.lean)
+                                cfg=cfg, lean=self.lean, stats=self.stats)
         return st
 
     def do_steps(self, st, k, step, salt, dims):
@@ -1258,7 +1292,8 @@ class _Loop:
                     st = self._bin(st, s)
                     if r.routes.fused is not None:
                         st = r.routes.fused(r.hit_scene, r.cam_rows, st, salt,
-                                            s, dims, cfg=cfg, lean=self.lean)
+                                            s, dims, cfg=cfg, lean=self.lean,
+                                            stats=self.stats)
                     else:
                         st = self._split_bounce(st, salt, s, dims)
         count("persistent.steps_kernel", k)
@@ -1277,6 +1312,7 @@ class _Loop:
         hook (``tail``)."""
         if self.has_tail:
             count("persistent.steps_tail_fused", k)
+            count("persistent.lanes_tail_fused", k * st.pixel.shape[1])
             return self.fused_tail(st, salt, step0, k, dims)
         count_tail(k, st.pixel.shape[1], "kernel")
         for s in range(step0, step0 + k):
@@ -1309,13 +1345,13 @@ class _Loop:
                     st = p_bounce_multi_step(r.hit_scene, r.cam, st, salt,
                                              step + 1, dims, cfg=cfg,
                                              hit_fn=r.hit_fn, k=self.mk,
-                                             lean=self.lean)
+                                             lean=self.lean, stats=self.stats)
                     step, k = step + self.mk, k - self.mk
             for _ in range(k):
                 step += 1
                 st = p_bounce_step(r.hit_scene, r.cam, self._bin(st, step),
                                    salt, step, dims, cfg=cfg, hit_fn=r.hit_fn,
-                                   lean=self.lean)
+                                   lean=self.lean, stats=self.stats)
         return st, step
 
     def respawn(self, st, salt, dims):
@@ -1352,7 +1388,7 @@ class _Loop:
             return p_render_oneshot(r.hit_scene, r.cam, st, salt, step,
                                     ph.dims, ph.max_steps, cfg=self.cfg,
                                     hit_fn=r.hit_fn, lean=self.lean,
-                                    tail=self._tail())
+                                    tail=self._tail(), stats=self.stats)
 
     def staged(self, st, accum, step, salt, ph):
         """The staged tail (one_shot="staged"): p_render_until stages that
@@ -1373,7 +1409,7 @@ class _Loop:
                 st, step, n_alive = p_render_until(
                     r.hit_scene, r.cam, st, salt, step, target, ph.dims,
                     ph.max_steps, cfg=self.cfg, hit_fn=r.hit_fn,
-                    lean=self.lean, tail=self._tail())
+                    lean=self.lean, tail=self._tail(), stats=self.stats)
                 step, worst = self.stage_sync(step, n_alive)
                 if worst == 0 or step >= ph.max_steps:
                     break
